@@ -16,12 +16,26 @@ Phases, each timed on a line of its own:
      conditioning -> planned 25-step CFG ODE (bf16, fp32 residual) -> fp32
      VAE decode -> bf16 BigVGAN, with the kernel launch counts of the run
      (--profile adds one run under torch.profiler: device busy share and
-     the kernels that take the most device time).
+     the kernels that take the most device time);
+  6. flash kernels: K3a / K3b (forward) and K4a (backward) against their
+     plain PyTorch versions in fp32 and bf16 at the XL training shape, the
+     K3b route, the serving length, an odd masked length with a fully masked
+     batch row, and a forced block_k, with kernel, plain, bound and library
+     (scaled_dot_product_attention, timed as a yardstick only) times;
+  7. small training on the card against the CPU: two fp32 steps of a small
+     DiT with flash attention forced on, same weights and draws;
+  8. the XL training path through Trainer.fit: full width and depth, batch
+     6 x latent 1248, captions through the frozen conditioner, bf16 compute,
+     one warm step and three timed steps, with K3a / K4a counted per step
+     (--profile adds one step under torch.profiler);
+  9. the K3b route: XL width at depth 4, batch 2 x latent 2048, remat on.
 Then the `kernels` JSON line, the card line, and the result line. Any failure
 exits non-zero without the result line; without a CUDA device, or without
 the rest of the repository beside it, the script exits 2 at once.
 """
 
+import gc
+import itertools
 import json
 import os
 import statistics
@@ -43,6 +57,17 @@ K1_STAGES = [(768, 2496), (384, 9984), (192, 19968), (96, 39936)]
 K2_STAGES = [(48, 79872), (24, 159744)]
 KS, DILS = (3, 7, 11), (1, 3, 5)
 TOL_FP32, TOL_BF16 = 1e-4, 2.0 ** -6     # times max(1, max|plain|)
+
+# phase 6 shapes (B, H, Lq = Lk, D, masked, block_k): the XL training shape
+# (batch 6 x latent 1248, 16 heads of 72), the K3b route by length, the
+# serving length, an odd masked length with a fully masked batch row, and a
+# forced block_k
+FLASH_SHAPES = [(6, 16, 1248, 72, False, None), (2, 16, 2048, 72, False, None),
+                (4, 16, 312, 72, False, None), (3, 4, 1000, 24, True, None),
+                (4, 16, 312, 72, False, 64)]
+XL_TRAIN = (6, 1248)     # phase 8: batch x latent length
+K3B_TRAIN = (2, 2048)    # phase 9
+NO_COND = "model.params.cond_stage_trainable=false"
 
 
 def require(ok, what: str) -> None:
@@ -203,18 +228,28 @@ def check_small_reference(torch, system_mod, config_path):
     require(err <= 1e-3 and np.isfinite(outs[1][3]).all(), "reference wav")
 
 
-def profile_run(torch, run) -> None:
-    """One more main-path run under torch.profiler: device busy share and the
-    kernels that take the most device time."""
+def profile_run(torch, run, ref_ms) -> None:
+    """One more run of a path (run(False)) under torch.profiler: device busy
+    time and the kernels that take the most of it. The profiler inflates the
+    host's wall clock, so the busy share is also given against ref_ms, the
+    wall clock of the unprofiled run just before it (the same work)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         s = time.perf_counter()
         run(False)
         wall = time.perf_counter() - s
     evts = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    # device-side ranges of user annotations (AdamW.step) overlap their kernels
+    notes = [e for e in evts if getattr(e, "is_user_annotation", False)]
+    evts = [e for e in evts if e not in notes]
     busy = sum(e.self_device_time_total for e in evts) / 1e3  # us -> ms
+    for e in notes:
+        log(f"profile: annotation range {e.key[:60]} {e.self_device_time_total / 1e3:.2f} "
+            "ms (not counted as busy)")
     log(f"profile: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
-        f"({100 * busy / (wall * 1e3):.1f} %), {sum(e.count for e in evts)} kernels")
+        f"({100 * busy / (wall * 1e3):.1f} % of the profiled wall), "
+        f"{sum(e.count for e in evts)} kernels; against the unprofiled run before "
+        f"it ({ref_ms:.1f} ms) {100 * busy / ref_ms:.1f} %")
     for e in sorted(evts, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"profile: {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.key[:90]}")
@@ -281,8 +316,223 @@ def main_path(torch, system_mod, config_path, k1, k2, profile=False):
     log(f"main path launches: K1 {counts[0]} (expect 72), K2 {counts[1]} (expect 37)")
     require(counts == (72, 37), f"launch counts {counts} == (72, 37)")
     if profile:
-        profile_run(torch, run)
+        profile_run(torch, run, times["end_to_end"] * 1e3)
     return times, counts
+
+
+def check_flash(torch, fa, full_fp32):
+    """Phase 6: returns per-(shape, dtype, kernel) rows."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        item = torch.finfo(dtype).bits // 8
+        tol = TOL_FP32 if dtype == torch.float32 else TOL_BF16
+        peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
+        for b, h, L, d, masked, block_k in FLASH_SHAPES:
+            q, k, v, do = (torch.randn(b, h, L, d, generator=g, device=dev).to(dtype)
+                           for _ in range(4))
+            mask = None
+            valid = torch.full((b,), L, device=dev)
+            if masked:  # row 0 all valid, row 1 ragged, the last row all masked
+                mask = torch.ones(b, L, dtype=torch.int32, device=dev)
+                mask[1, (2 * L) // 3:] = 0
+                mask[-1] = 0
+                valid = mask.sum(1)
+            pairs = h * L * int(valid.sum())        # (query, valid key) pairs
+            scale = d ** -0.5
+            route = fa.route_for(L, block_k)
+            fwd_name = "K3a" if route == "direct" else "K3b"
+            mbytes = 4 * b * L if masked else 0
+            nq = b * h * L * d
+
+            def fwd():
+                return fa.flash_fwd(q, k, v, mask, scale, route)
+
+            def fwd_plain():
+                with full_fp32():
+                    return fa.flash_fwd_plain(q, k, v, mask, scale, route)
+
+            o, lse = fwd()
+            o_ref, lse_ref = fwd_plain()
+            delta = (do.float() * o_ref.float()).sum(-1)
+
+            def bwd():
+                return fa.flash_bwd(q, k, v, mask, lse_ref, do, delta, scale)
+
+            def bwd_plain():
+                with full_fp32():
+                    return fa.flash_bwd_plain(q, k, v, mask, lse_ref, do, delta, scale)
+
+            grads, grads_ref = bwd(), bwd_plain()
+            torch.cuda.synchronize()
+            live = lse_ref > -1e29
+            errs = {}
+            for nm, got, want in (("o", o, o_ref), ("lse", lse[live], lse_ref[live]),
+                                  ("dq", grads[0], grads_ref[0]),
+                                  ("dk", grads[1], grads_ref[1]),
+                                  ("dv", grads[2], grads_ref[2])):
+                ok = bool(torch.isfinite(got).all())
+                err = (got.float() - want.float()).abs().max().item() if ok else float("inf")
+                lim = (TOL_FP32 if want.dtype == torch.float32 else tol) * max(
+                    1.0, want.abs().max().item())
+                errs[nm] = (err, lim)
+            if masked:
+                require(not o[-1].any() and not any(t[-1].any() for t in grads),
+                        "a fully masked row gives o = 0 and zero gradients")
+            del o, lse, grads, grads_ref, o_ref
+
+            am = None if mask is None else mask.bool()[:, None, None, :]
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=am, scale=scale)
+
+            def lib_fwd():
+                with torch.no_grad():
+                    return F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=scale)
+
+            def lib_bwd():
+                return torch.autograd.grad(lo, (ql, kl, vl), do, retain_graph=True)
+
+            shape = (b, h, L, d) + (("masked",) if masked else ()) + (
+                (f"block_k={block_k}",) if block_k else ())
+            for name, kern, plain, lib, flops, nbytes, keys in (
+                    (fwd_name, fwd, fwd_plain, lib_fwd, 4 * pairs * d,
+                     (4 * nq * item + 4 * b * h * L + mbytes), ("o", "lse")),
+                    ("K4a", bwd, bwd_plain, lib_bwd, 10 * pairs * d,
+                     (7 * nq * item + 8 * b * h * L + mbytes), ("dq", "dk", "dv"))):
+                err = max(errs[x][0] for x in keys)
+                rows.append(dict(kernel=name, dtype=str(dtype)[6:], shape=shape,
+                                 err=err, tol=min(errs[x][1] for x in keys),
+                                 errs={x: errs[x] for x in keys},
+                                 ms=time_ms(kern), plain_ms=time_ms(plain),
+                                 library_ms=time_ms(lib),
+                                 bytes_ms=nbytes / PEAK_BW * 1e3,
+                                 ops_ms=flops / peak * 1e3))
+            del q, k, v, do, ql, kl, vl, lo
+            torch.cuda.empty_cache()
+    for r in rows:
+        r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+        log(f"{r['kernel']} {r['dtype']:8s} {str(r['shape']):40s} err {r['err']:.3e} "
+            f"kernel {r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms bound "
+            f"{r['bound_ms']:.4f} ms library {r['library_ms']:.3f} ms")
+    bad = [r for r in rows if not all(e <= lim for e, lim in r["errs"].values())]
+    require(not bad, f"flash kernels agree with their plain versions: {bad}")
+    return rows
+
+
+def small_train_reference(torch, config_path, fa, full_fp32):
+    """Phase 7: two fp32 training steps of a small DiT with flash forced on,
+    on the card and on the CPU from the same weights and draws."""
+    import copy
+    from maa3_tpu_torch.train.optim import make_optimizer
+    from maa3_tpu_torch.train.step import create_train_state, make_train_step
+    up = "model.params.unet_config.params."
+    dd = "model.params.first_stage_config.params.ddconfig."
+    over = [up + "hidden_size=64", up + "depth=2", up + "num_heads=4",
+            up + "context_dim=32", up + "multiple_of=32", up + "use_flash=true",
+            dd + "ch=32", dd + "ch_mult=[1, 2]", dd + "num_res_blocks=1"]
+    from maa3_tpu_torch import config as config_mod
+    from maa3_tpu_torch.models.dit import DiT, dit_init_, unfreeze_zero_init
+    from maa3_tpu_torch.models.vae1d import AutoencoderKL, vae_init_
+    spec = config_mod.parse_model_config(config_mod.load_config([config_path], over))
+    gen = torch.Generator().manual_seed(3)
+    dit = unfreeze_zero_init(dit_init_(DiT(spec.dit), gen), gen)
+    vae = vae_init_(AutoencoderKL(spec.vae), gen)
+    batches = [{"mel": torch.randn(2, 80, 96, generator=gen),
+                "context": torch.randn(2, 8, 32, generator=gen)} for _ in range(2)]
+    draws = [{"noise": torch.randn(2, 20, 48, generator=gen),
+              "t_int": torch.randint(0, 1000, (2,), generator=gen),
+              "x0": torch.randn(2, 20, 48, generator=gen)} for _ in range(2)]
+    out = []
+    fa.launches.update(K3a=0, K3b=0, K4a=0)
+    for dev in ("cpu", "cuda"):
+        d, a = copy.deepcopy(dit).to(dev), copy.deepcopy(vae).to(dev)
+        # full LR from the first update, so two updates move parameters ~2e-3,
+        # well above the comparison's 1e-4
+        opt = make_optimizer(d.parameters(), base_lr=1e-3, lr_multiplier=1.0,
+                             warm_up_steps=0)
+        state = create_train_state(d, a, opt, scale_factor=0.8)
+        step = make_train_step(compute_dtype=torch.float32)
+        with full_fp32():
+            ms = [step(state, {k: t.to(dev) for k, t in bt.items()},
+                       draws={k: t.to(dev) for k, t in dr.items()})
+                  for bt, dr in zip(batches, draws)]
+        out.append(([{k: v.item() for k, v in m.items()} for m in ms],
+                    [p.detach().cpu() for p in d.parameters()]))
+    moved = max((a - b).abs().max().item() for a, b in zip(
+        out[0][1], (p.detach() for p in dit.parameters())))
+    require(fa.launches["K3a"] == 4 and fa.launches["K4a"] == 4,
+            f"the card's steps ran K3a and K4a twice each per step: {fa.launches}")
+    for i, (mc, mg) in enumerate(zip(out[0][0], out[1][0])):
+        for key in ("loss", "grad_norm"):
+            rel = abs(mc[key] - mg[key]) / abs(mc[key])
+            log(f"train reference step {i + 1} {key}: cpu {mc[key]:.6f} cuda "
+                f"{mg[key]:.6f} (rel {rel:.2e})")
+            require(rel <= 1e-4, f"train reference {key}")
+    err = max(((a - b).abs().max().item() / max(1.0, a.abs().max().item()))
+              for a, b in zip(out[0][1], out[1][1]))
+    log(f"train reference: {len(out[0][1])} parameters after 2 steps moved up to "
+        f"{moved:.2e}; max |cuda - cpu| / max(1, |cpu|) {err:.2e}")
+    require(moved > 1e-3, "the two updates moved the parameters past the tolerance")
+    require(err <= 1e-4, "train reference parameters")
+
+
+def train_path(torch, system_mod, config_path, fa, batch, latent, depth=None,
+               remat=False, steps=3, profile=False):
+    """Phases 8 and 9: Trainer.fit on the XL config (full width; depth cut
+    when given) with batch x latent mels made from the seed. Returns the
+    per-step (ms, counts) of the timed steps."""
+    import numpy as np
+    from maa3_tpu_torch.train.loop import Trainer
+    up = "model.params.unet_config.params."
+    over = [NO_COND] + ([up + f"depth={depth}"] if depth else []) + (
+        [up + "remat=true"] if remat else [])
+    t = time.perf_counter()
+    system = system_mod.MAA3System.from_config(
+        [config_path], over, seed=0, compute_dtype=torch.bfloat16, device="cuda",
+        unfreeze=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    trainer = Trainer(system, batch_size=batch, log_every=1,
+                      ckpt_dir=os.path.join(root, "build", "chip_smoke_train"))
+    n_par = sum(p.numel() for p in system.dit.parameters())
+    log(f"train {batch}x{latent}: system built, DiT {n_par / 1e6:.1f} M parameters "
+        f"(depth {system.dit.cfg.depth}, remat {system.dit.cfg.remat}), "
+        f"{time.perf_counter() - t:.2f} s")
+    caps = ["a dog barks in the distance", "rain falls on a tin roof",
+            "a crowd cheers at a stadium", "an engine idles then revs up",
+            "birds chirp at dawn", "a door creaks open"]
+    c = [caps[i % len(caps)] for i in range(batch)]
+    raw = {"image": np.random.RandomState(0).randn(batch, 80, 2 * latent).astype(
+               np.float32) - 4.0,
+           "caption": {"ori_caption": c, "struct_caption": [f"<{x}& all>" for x in c]}}
+    loader = itertools.repeat(raw)  # one log-mel batch made from the seed
+    m = trainer.fit(loader, max_steps=1)  # warm-up: scale_by_std, cuBLAS, caches
+    require(np.isfinite(m["loss"]), f"warm-up loss finite: {m}")
+    torch.cuda.reset_peak_memory_stats()
+    results = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        fa.launches.update(K3a=0, K3b=0, K4a=0)  # count exactly this step
+        s = time.perf_counter()
+        m = trainer.fit(loader, max_steps=1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - s) * 1e3
+        results.append((ms, dict(fa.launches), m))
+        require(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+                f"finite loss and grad norm: {m}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for ms, counts, m in results:
+        log(f"train {batch}x{latent} step {m['step']}: {ms:.1f} ms, "
+            f"{batch * latent / ms * 1e3:.0f} tokens/s, loss {m['loss']:.4f}, grad norm "
+            f"{m['grad_norm']:.4f}, launches {counts}")
+    log(f"train {batch}x{latent}: peak memory {peak:.2f} GiB")
+    if profile:  # one more step; fit logs the step's metrics, which syncs
+        profile_run(torch, lambda _: trainer.fit(loader, max_steps=1), results[-1][0])
+    del trainer, system
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, peak
 
 
 def main() -> int:
@@ -337,6 +587,32 @@ def main() -> int:
                               profile="--profile" in sys.argv[1:])
     log(f"main path: done, {time.perf_counter() - t:.2f} s")
 
+    from maa3_tpu_torch.ops import flash_attention as fa
+    t = time.perf_counter()
+    frows = check_flash(torch, fa, full_fp32)
+    log(f"flash kernels: {len(frows)} checks passed, {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    small_train_reference(torch, config_path, fa, full_fp32)
+    log(f"train reference: small training agrees, {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    xl_steps, _ = train_path(torch, system_mod, config_path, fa, *XL_TRAIN,
+                             profile="--profile" in sys.argv[1:])
+    for _, c, _ in xl_steps:
+        require(c == {"K3a": 28, "K3b": 0, "K4a": 28},
+                f"XL training step launches {c} == K3a 28, K3b 0, K4a 28")
+    log(f"train XL: done, {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    # remat runs each block's forward again in the backward: 4 + 4 K3b, 4 K4a
+    k3b_steps, _ = train_path(torch, system_mod, config_path, fa, *K3B_TRAIN,
+                              depth=4, remat=True, steps=2)
+    for _, c, _ in k3b_steps:
+        require(c == {"K3a": 0, "K3b": 8, "K4a": 4},
+                f"K3b-route step launches {c} == K3a 0, K3b 8, K4a 4")
+    log(f"train K3b route: done, {time.perf_counter() - t:.2f} s")
+
     kernels = []
     for name, src, rep, cnt in (
             ("K1 aa_snake_fused", "maa3_tpu_torch/csrc/aa_snake.cu",
@@ -355,6 +631,25 @@ def main() -> int:
             "bound_by": ("bytes" if per_vocode["bytes_ms"] >= per_vocode["ops_ms"]
                          else "operations"),
             "library_ms": None})
+    # flash: per training step of the path that runs it (bf16), i.e. the
+    # time at its main-path shape times its launches in one step
+    xl_shape, k3b_shape = (6, 16, 1248, 72), (2, 16, 2048, 72)
+    for name, src, rep, shape, cnt in (
+            ("K3a flash_fwd (direct)", "maa3_tpu_torch/csrc/flash_fwd.cu",
+             "maa3_tpu/ops/flash_attention.py:78", xl_shape, xl_steps[-1][1]["K3a"]),
+            ("K3b flash_fwd (online)", "maa3_tpu_torch/csrc/flash_fwd.cu",
+             "maa3_tpu/ops/flash_attention.py:118", k3b_shape, k3b_steps[-1][1]["K3b"]),
+            ("K4a flash_bwd (fused)", "maa3_tpu_torch/csrc/flash_bwd.cu",
+             "maa3_tpu/ops/flash_attention.py:224", xl_shape, xl_steps[-1][1]["K4a"])):
+        mine = [r for r in frows if r["kernel"] == name[:3] and r["dtype"] == "bfloat16"]
+        r = next(r for r in mine if r["shape"] == shape)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": cnt, "max_abs_err": max(x["err"] for x in mine),
+            "ms": r["ms"] * cnt, "plain_ms": r["plain_ms"] * cnt,
+            "bound_ms": r["bound_ms"] * cnt,
+            "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
+            "library_ms": r["library_ms"] * cnt})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

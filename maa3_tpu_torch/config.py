@@ -5,7 +5,8 @@ mappings nested by indentation, flow lists of scalars, plain scalars and
 comments; anything else (block lists, flow maps, quotes, anchors) raises.
 Plain scalars resolve as PyYAML's YAML 1.1 resolver does (null, bools,
 ints, floats with a dot). `load_config` merges files and `a.b.c=value`
-overrides; `parse_model_config` maps a config onto the port's model configs.
+overrides; `parse_model_config` maps a config onto the port's model configs
+and `parse_data_config` reads the training data settings.
 """
 
 from __future__ import annotations
@@ -133,6 +134,22 @@ class ModelSpec:
     mel_length: int = 312
     scale_factor: float = 1.0
     timesteps: int = 1000
+    scale_by_std: bool = False
+    cond_stage_trainable: bool = False
+    base_learning_rate: float = 3.0e-6
+
+
+@dataclasses.dataclass
+class DataSpec:
+    """The text-to-spectrogram training set of a config's data section."""
+    dataset_name: str
+    spec_crop_len: int = 624
+    drop: float = 0.0
+    batch_size: int = 16
+
+
+# the only remat policy the port has: recompute the whole block
+REMAT_POLICIES = ("nothing",)
 
 
 def parse_model_config(cfg: dict) -> ModelSpec:
@@ -154,18 +171,26 @@ def parse_model_config(cfg: dict) -> ModelSpec:
         norm_eps=up.get("norm_eps", 1e-5),
         qk_norm=bool(up.get("qk_norm") or False),
         rope_scaling_factor=up.get("rope_scaling_factor", 1.0),
-        ntk_factor=up.get("ntk_factor", 1.0))
+        ntk_factor=up.get("ntk_factor", 1.0),
+        use_flash=up.get("use_flash"),
+        remat=bool(up.get("remat") or False))
+    policy = up.get("remat_policy", "nothing")
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r} is not supported by the port "
+                         f"(supported: {', '.join(REMAT_POLICIES)})")
     first = params["first_stage_config"]
     fp = first.get("params", {})
     dd = fp.get("ddconfig", {})
     vae = VAEConfig(
+        in_channels=dd.get("in_channels", 80),
         out_ch=dd.get("out_ch", 80),
         ch=dd.get("ch", 384), ch_mult=tuple(dd.get("ch_mult", (1, 2, 4))),
         num_res_blocks=dd.get("num_res_blocks", 2),
         attn_layers=tuple(dd.get("attn_layers", ())),
         down_layers=tuple(dd.get("down_layers", (0,))),
         kernel_size=dd.get("kernel_size", 5),
-        z_channels=dd.get("z_channels", 20), embed_dim=fp.get("embed_dim", 20))
+        z_channels=dd.get("z_channels", 20), double_z=dd.get("double_z", True),
+        embed_dim=fp.get("embed_dim", 20))
     for sub in (model, unet, first, params.get("cond_stage_config", {})):
         if sub.get("target") not in SUPPORTED_TARGETS:
             raise KeyError(f"config target not supported by the port: "
@@ -174,4 +199,22 @@ def parse_model_config(cfg: dict) -> ModelSpec:
         dit=dit, vae=vae, mel_dim=params.get("mel_dim", 20),
         mel_length=params.get("mel_length", 312),
         scale_factor=params.get("scale_factor", 1.0),
-        timesteps=params.get("timesteps", 1000))
+        timesteps=params.get("timesteps", 1000),
+        scale_by_std=params.get("scale_by_std", False),
+        cond_stage_trainable=params.get("cond_stage_trainable", False),
+        base_learning_rate=model.get("base_learning_rate", 3.0e-6))
+
+
+def parse_data_config(cfg: dict) -> DataSpec:
+    """data.params: batch_size and the train set's dataset_cfg (dataset_name,
+    spec_crop_len, drop) of a manifest (TSV) dataset."""
+    data = cfg.get("data", {}).get("params", {})
+    train = data.get("train", {}).get("params", {})
+    dcfg = train.get("dataset_cfg", train.get("specs_dataset_cfg", train))
+    if "dataset_name" not in dcfg:
+        raise KeyError("the port trains from a manifest: data.params.train."
+                       "params.dataset_cfg.dataset_name is not set")
+    return DataSpec(dataset_name=dcfg["dataset_name"],
+                    spec_crop_len=dcfg.get("spec_crop_len", 624),
+                    drop=dcfg.get("drop", 0.0),
+                    batch_size=data.get("batch_size", 16))

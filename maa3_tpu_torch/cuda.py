@@ -1,13 +1,14 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-Every source is compiled by one plain `nvcc` call into a shared library with
-a C interface for sm_90a (no PyTorch headers, no ninja), which is loaded with
+Each source is compiled by its own plain `nvcc -c` for sm_90a (no PyTorch
+headers, no ninja), all of them started together; one more nvcc call links
+the objects into a shared library with a C interface, which is loaded with
 ctypes. The library lands in build/kernels-<hash>/ at the repository root,
 where <hash> covers the sources and the flags, so a changed source rebuilds
 and an unchanged one is reused. The build happens at the first kernel launch
-(or an explicit `load()`), never at import; it is written under a temporary
-name and renamed into place, so an interrupted build leaves nothing that a
-later one would wait on or trust.
+(or an explicit `load()`), never at import; objects and the library are
+written under temporary names and the library is renamed into place, so an
+interrupted build leaves nothing that a later one would wait on or trust.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ import torch
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "--ptxas-options=-v")
 LIB_NAME = "libmaa3_kernels.so"
 
 _lib = None
@@ -47,10 +49,29 @@ def _sources():
     return sorted(SRC_DIR.glob("*.cu")), sorted(SRC_DIR.glob("*.cuh"))
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the log of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = []
+    try:
+        for c, p in zip(cmds, procs):
+            out, _ = p.communicate(timeout=900)
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{out}")
+            logs.append(out.strip())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return logs
+
+
 def build() -> Path:
     """Compile csrc/ into build/kernels-<hash>/ unless already built there."""
     cus, headers = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for p in cus + headers:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -60,18 +81,21 @@ def build() -> Path:
         build_info.update(path=str(lib), seconds=0.0, log="(reused)")
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp),
-           *map(str, cus)]
+    nvcc, pid = nvcc_path(), os.getpid()
+    objs = [out_dir / f"{cu.stem}.{pid}.o" for cu in cus]  # nvcc reads the suffix
+    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        logs = _run_all([[nvcc, *COMPILE_FLAGS, "-I", str(SRC_DIR), "-c", str(cu),
+                          "-o", str(o)] for cu, o in zip(cus, objs)])
+        logs += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, lib)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    log = (proc.stdout + proc.stderr).strip()
+        for o in objs:
+            o.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
+    log = "\n".join(x for x in logs if x)
     (out_dir / "nvcc.log").write_text(log + "\n")
     build_info.update(path=str(lib), seconds=seconds, log=log)
     return lib
@@ -91,6 +115,13 @@ def load() -> ctypes.CDLL:
         lib.maa3_conv_snake.restype = ci
         lib.maa3_conv_snake_smem.argtypes = [ci, ci, ci]
         lib.maa3_conv_snake_smem.restype = ctypes.c_longlong
+        cf = ctypes.c_float
+        lib.maa3_flash_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                       cf, ci, ci, vp]
+        lib.maa3_flash_fwd.restype = ci
+        lib.maa3_flash_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+                                       ci, ci, ci, ci, cf, cf, ci, vp]
+        lib.maa3_flash_bwd.restype = ci
         _lib = lib
     return _lib
 

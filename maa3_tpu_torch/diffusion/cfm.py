@@ -1,5 +1,9 @@
-"""Conditional flow matching: Euler ODE sampling with classifier-free
-guidance (counterpart of maa3_tpu/diffusion/cfm.py).
+"""Conditional flow matching: the training loss, and Euler ODE sampling
+with classifier-free guidance (counterpart of maa3_tpu/diffusion/cfm.py).
+
+Loss (cfm1_audio.py:37-58): integer t in [0, 1000) for the model, t / 1000
+for the interpolant x_t = t x1 + (1 - (1 - s) t) x0 with target
+u_t = x1 - (1 - s) x0, s = sigma_min = 1e-4, and the MSE of the velocity.
 
 t_span = linspace(0, 1, steps); the model sees floor(t * 1000); CFG runs the
 dual batch [uncond; cond] and combines e_uc + scale * (e_c - e_uc)
@@ -14,6 +18,35 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+SIGMA_MIN = 1e-4
+
+
+def cfm_interpolate(x1: torch.Tensor, x0: torch.Tensor, t01: torch.Tensor,
+                    sigma_min: float = SIGMA_MIN):
+    """(x_t, u_t) for t01 in [0, 1], one value per batch row."""
+    t = t01.reshape((-1,) + (1,) * (x1.dim() - 1)).to(x1.dtype)
+    return t * x1 + (1.0 - (1.0 - sigma_min) * t) * x0, x1 - (1.0 - sigma_min) * x0
+
+
+def cfm_loss(velocity_fn: Callable, x1: torch.Tensor, context: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             num_timesteps: int = 1000, sigma_min: float = SIGMA_MIN,
+             t_int: Optional[torch.Tensor] = None,
+             x0: Optional[torch.Tensor] = None):
+    """CFM training loss -> (loss, {"loss_simple": loss}). t_int (B,) and the
+    noise x0 are drawn from `generator` unless given."""
+    b = x1.shape[0]
+    if t_int is None:
+        t_int = torch.randint(0, num_timesteps, (b,), generator=generator,
+                              device=x1.device)
+    if x0 is None:
+        x0 = torch.randn(x1.shape, generator=generator, device=x1.device,
+                         dtype=x1.dtype)
+    xt, ut = cfm_interpolate(x1, x0, t_int.float() / num_timesteps, sigma_min)
+    pred = velocity_fn(xt, t_int, context)
+    loss = (pred - ut).square().mean(dim=tuple(range(1, x1.dim()))).mean()
+    return loss, {"loss_simple": loss}
 
 
 def euler_t_grid(steps: int, t_start: Optional[int] = None) -> np.ndarray:

@@ -5,7 +5,10 @@ x (B, C, T) latents -> proj_in -> depth x [RoPE self-attn + gated cross-attn
 + SwiGLU FFN, 6-way adaLN-modulated] -> FinalLayer -> (B, C, T) velocity.
 
 Blocks are an nn.ModuleList with the reference's state-dict keys
-(blocks.{i}.attention.wq.weight, ...). `dit_sample_plan` /
+(blocks.{i}.attention.wq.weight, ...). `dit_apply(training=True)` is the
+training forward: self-attention goes through the flash kernels from 1248
+tokens (`DiTConfig.flash_for_len`), and `remat` recomputes each block in the
+backward (torch.utils.checkpoint; JAX's "nothing" policy). `dit_sample_plan` /
 `dit_apply_planned` hoist the per-step adaLN modulations and the static
 cross-attention K/V out of the ODE loop, with the same ops as `dit_apply`.
 `serving_copy` makes the bf16 serving weights: every matmul weight rounded
@@ -21,6 +24,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from maa3_tpu_torch.ops.attention import Attention, attention_apply, context_kv
 from maa3_tpu_torch.ops.basic import (RMSNorm, TimestepEmbedder, layer_norm,
@@ -46,10 +50,29 @@ class DiTConfig:
     # bf16 serving carries the residual stream between blocks in fp32
     # (system.py:421-433); no effect in fp32
     fp32_residual: bool = False
+    # flash attention for self-attention: None = by sequence length and mode
+    # (flash_for_len), True/False = always / never
+    use_flash: Optional[bool] = None
+    # recompute each block in the backward instead of keeping its activations
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    def flash_for_len(self, seq_len: int, training: bool = False) -> bool:
+        """The JAX rule (maa3_tpu/models/dit.py:103-106): training from 1248
+        tokens, inference only above 4096."""
+        if self.use_flash is not None:
+            return self.use_flash
+        return seq_len >= 1248 if training else seq_len > 4096
+
+    def resolve_flash(self, seq_len: int, training: bool) -> "DiTConfig":
+        """This config with use_flash pinned for one apply, so the blocks
+        route the same way whatever mode they are called in."""
+        if self.use_flash is not None:
+            return self
+        return dataclasses.replace(self, use_flash=self.flash_for_len(seq_len, training))
 
 
 class TransformerBlock(nn.Module):
@@ -157,7 +180,7 @@ def _block_apply(blk: TransformerBlock, cfg: DiTConfig, x, cos, sin, mod,
                  shift_msa, scale_msa),
         cos, sin, y=y, y_kv=y_kv, x_mask=x_mask, y_mask=y_mask,
         n_heads=cfg.num_heads, n_kv_heads=cfg.n_kv_heads,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, use_flash=cfg.flash_for_len(x.shape[1]))
     h = x + gate_msa[:, None, :].to(x.dtype) * h_attn
     h_ffn = feed_forward_apply(
         blk.feed_forward,
@@ -198,20 +221,33 @@ def _embed(dit: DiT, x: torch.Tensor, compute_dtype):
     return h, cos, sin
 
 
+def _dit_block(blk: TransformerBlock, cfg: DiTConfig, h, cos, sin, adaln,
+               context, x_mask, context_mask, compute_dtype):
+    """One block of dit_apply, its modulation and normed context included
+    (the body JAX's remat recomputes)."""
+    mod = linear(blk.adaLN_modulation[1], silu(adaln.float()))
+    y = rms_norm(blk.attention_y_norm.weight, context, cfg.norm_eps)
+    return _block_apply(blk, cfg, h, cos, sin, mod, y=y, x_mask=x_mask,
+                        y_mask=context_mask, compute_dtype=compute_dtype)
+
+
 def dit_apply(dit: DiT, x: torch.Tensor, t: torch.Tensor,
               context: torch.Tensor, x_mask: Optional[torch.Tensor] = None,
               context_mask: Optional[torch.Tensor] = None,
-              compute_dtype: Optional[torch.dtype] = torch.bfloat16) -> torch.Tensor:
+              compute_dtype: Optional[torch.dtype] = torch.bfloat16,
+              training: bool = False) -> torch.Tensor:
     """x: (B, C, T); t: (B,) integer timesteps; context: (B, Ly, ctx).
-    Returns the (B, C, T) fp32 velocity."""
-    cfg = dit.cfg
+    Returns the (B, C, T) fp32 velocity. training=True selects the training
+    flash threshold."""
+    cfg = dit.cfg.resolve_flash(x.shape[-1], training)
     h, cos, sin = _embed(dit, x, compute_dtype)
     adaln = dit.t_embedder(t) + _cap_emb(dit, context, context_mask)
+    remat = cfg.remat and torch.is_grad_enabled()
     for blk in dit.blocks:
-        mod = linear(blk.adaLN_modulation[1], silu(adaln.float()))
-        y = rms_norm(blk.attention_y_norm.weight, context, cfg.norm_eps)
-        h = _block_apply(blk, cfg, h, cos, sin, mod, y=y, x_mask=x_mask,
-                         y_mask=context_mask, compute_dtype=compute_dtype)
+        args = (blk, cfg, h, cos, sin, adaln, context, x_mask, context_mask,
+                compute_dtype)
+        h = (checkpoint(_dit_block, *args, use_reentrant=False) if remat
+             else _dit_block(*args))
     fl = dit.final_layer
     shift, scale = linear(fl.adaLN_modulation[1], silu(adaln.float())).chunk(2, -1)
     return _final(dit, h, shift, scale)

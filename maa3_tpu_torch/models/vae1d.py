@@ -1,17 +1,20 @@
-"""1-D mel KL-VAE decoder: (B, 20, T/2) latent -> (B, 80, T) log-mel
-(counterpart of maa3_tpu/models/vae1d.py, decoder side only, fp32).
+"""1-D mel KL-VAE: (B, 80, T) log-mel <-> (B, 20, T/2) latent, in fp32
+(counterpart of maa3_tpu/models/vae1d.py).
 
-Keys follow AutoencoderKL (autoencoder1d.py): decoder.conv_in,
-decoder.mid.{block_1,attn_1,block_2}, decoder.up.{lvl}.block.{i},
-decoder.up.{lvl}.upsample.conv, decoder.norm_out, decoder.conv_out and
-post_quant_conv. The decoder's res/up blocks use kernel 3 while conv_in and
-conv_out use kernel_size (the asymmetry the checkpoints bake in).
+Keys follow AutoencoderKL (autoencoder1d.py): encoder.conv_in,
+encoder.down.{lvl}.block.{i}, encoder.down.{lvl}.downsample.conv,
+encoder.mid.*, encoder.norm_out, encoder.conv_out, quant_conv, and on the
+decode side decoder.conv_in, decoder.mid.{block_1,attn_1,block_2},
+decoder.up.{lvl}.block.{i}, decoder.up.{lvl}.upsample.conv,
+decoder.norm_out, decoder.conv_out and post_quant_conv. The encoder's blocks
+use kernel_size; the decoder's res/up blocks use kernel 3 while its conv_in
+and conv_out use kernel_size (the asymmetry the checkpoints bake in).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,6 +25,7 @@ from maa3_tpu_torch.ops.conv import conv1d
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
+    in_channels: int = 80
     out_ch: int = 80
     ch: int = 384
     ch_mult: Tuple[int, ...] = (1, 2, 4)
@@ -30,6 +34,7 @@ class VAEConfig:
     down_layers: Tuple[int, ...] = (0,)
     kernel_size: int = 5
     z_channels: int = 20
+    double_z: bool = True
     embed_dim: int = 20
 
     @property
@@ -49,8 +54,8 @@ def _norm(m: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
     return group_norm(x, m.weight, m.bias, m.num_groups, m.eps)
 
 
-def _conv(m: nn.Conv1d, x, padding=0):
-    return conv1d(x, m.weight, m.bias, padding=padding)
+def _conv(m: nn.Conv1d, x, padding=0, stride=1):
+    return conv1d(x, m.weight, m.bias, padding=padding, stride=stride)
 
 
 class ResnetBlock1D(nn.Module):
@@ -93,10 +98,61 @@ class AttnBlock1D(nn.Module):
         return x + _conv(self.proj_out, torch.matmul(v, w.transpose(1, 2)))
 
 
-class Upsample1D(nn.Module):
+class Resample1D(nn.Module):
+    """Holds the `conv` of an Upsample1D (2x nearest, then conv3) or a
+    Downsample1D (stride-2 conv3 after a (0, 1) zero pad)."""
+
     def __init__(self, ch: int):
         super().__init__()
         self.conv = nn.Conv1d(ch, ch, 3)
+
+
+class Encoder1D(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        k = cfg.kernel_size
+        self.conv_in = nn.Conv1d(cfg.in_channels, cfg.ch, k)
+        in_mult = (1,) + tuple(cfg.ch_mult)
+        levels = []
+        for lvl in range(cfg.num_layers):
+            block_in = cfg.ch * in_mult[lvl]
+            block_out = cfg.ch * cfg.ch_mult[lvl]
+            lvl_m = nn.Module()
+            blocks, attns = [], []
+            for _ in range(cfg.num_res_blocks):
+                blocks.append(ResnetBlock1D(block_in, block_out, k))
+                block_in = block_out
+                if lvl in cfg.attn_layers:
+                    attns.append(AttnBlock1D(block_in))
+            lvl_m.block = nn.ModuleList(blocks)
+            lvl_m.attn = nn.ModuleList(attns)
+            if lvl in cfg.down_layers:
+                lvl_m.downsample = Resample1D(block_in)
+            levels.append(lvl_m)
+        self.down = nn.ModuleList(levels)
+        self.mid = nn.Module()
+        self.mid.block_1 = ResnetBlock1D(block_in, block_in, k)
+        self.mid.attn_1 = AttnBlock1D(block_in)
+        self.mid.block_2 = ResnetBlock1D(block_in, block_in, k)
+        self.norm_out = _gn(block_in)
+        out_ch = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+        self.conv_out = nn.Conv1d(block_in, out_ch, k)
+
+    def forward(self, x):
+        k = self.cfg.kernel_size
+        h = _conv(self.conv_in, x, k // 2)
+        for lp in self.down:
+            for i, blk in enumerate(lp.block):
+                h = blk(h)
+                if len(lp.attn):
+                    h = lp.attn[i](h)
+            if hasattr(lp, "downsample"):
+                h = _conv(lp.downsample.conv, h, (0, 1), stride=2)
+        h = self.mid.block_1(h)
+        h = self.mid.attn_1(h)
+        h = self.mid.block_2(h)
+        return _conv(self.conv_out, swish(_norm(self.norm_out, h)), k // 2)
 
 
 class Decoder1D(nn.Module):
@@ -123,7 +179,7 @@ class Decoder1D(nn.Module):
             lvl_m.block = nn.ModuleList(blocks)
             lvl_m.attn = nn.ModuleList(attns)
             if lvl in up_layers:
-                lvl_m.upsample = Upsample1D(block_in)
+                lvl_m.upsample = Resample1D(block_in)
             levels[lvl] = lvl_m
         self.up = nn.ModuleList(levels)
         self.norm_out = _gn(block_in)
@@ -148,18 +204,21 @@ class Decoder1D(nn.Module):
         return _conv(self.conv_out, swish(_norm(self.norm_out, h)), k // 2)
 
 
-class VAEDecoder(nn.Module):
-    """AutoencoderKL's decode path: post_quant_conv + decoder."""
+class AutoencoderKL(nn.Module):
+    """encoder + quant_conv (encode), post_quant_conv + decoder (decode)."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder1D(cfg)
         self.decoder = Decoder1D(cfg)
+        zc = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+        self.quant_conv = nn.Conv1d(zc, 2 * cfg.embed_dim, 1)
         self.post_quant_conv = nn.Conv1d(cfg.embed_dim, cfg.z_channels, 1)
 
 
 @torch.no_grad()
-def vae_init_(vae: VAEDecoder, generator: torch.Generator) -> VAEDecoder:
+def vae_init_(vae: AutoencoderKL, generator: torch.Generator) -> AutoencoderKL:
     """Kaiming-uniform conv init (torch.nn.Conv1d's bounds), unit norms."""
     for m in vae.modules():
         if isinstance(m, nn.Conv1d):
@@ -172,10 +231,28 @@ def vae_init_(vae: VAEDecoder, generator: torch.Generator) -> VAEDecoder:
     return vae
 
 
-def decoder_apply(vae: VAEDecoder, h: torch.Tensor) -> torch.Tensor:
+def decoder_apply(vae: AutoencoderKL, h: torch.Tensor) -> torch.Tensor:
     return vae.decoder(h.float())
 
 
-def vae_decode(vae: VAEDecoder, z: torch.Tensor) -> torch.Tensor:
+def vae_decode(vae: AutoencoderKL, z: torch.Tensor) -> torch.Tensor:
     """z (B, embed_dim, T/2) -> mel (B, 80, T), in fp32."""
     return decoder_apply(vae, _conv(vae.post_quant_conv, z.float()))
+
+
+def vae_encode_moments(vae: AutoencoderKL, x: torch.Tensor) -> torch.Tensor:
+    """mel (B, 80, T) -> posterior moments (B, 2 * embed_dim, T/2), in fp32."""
+    return _conv(vae.quant_conv, vae.encoder(x.float()))
+
+
+def gaussian_sample(moments: torch.Tensor,
+                    generator: Optional[torch.Generator] = None,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """DiagonalGaussianDistribution.sample() (logvar clamped to [-30, 20])
+    with N(0, 1) noise drawn from `generator`, or the given `noise`."""
+    mean, logvar = moments.chunk(2, dim=1)
+    std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                            dtype=mean.dtype)
+    return mean + std * noise

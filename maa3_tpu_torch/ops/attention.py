@@ -1,10 +1,11 @@
 """Lumina-Next attention: RoPE self-attention plus zero-init gated
 cross-attention (counterpart of maa3_tpu/ops/attention.py:89-169).
 
-Dense path only: at the serving length (312 latent tokens) the JAX package
-runs dense XLA attention too (flash only above 4096, models/dit.py:103-106),
-so scores and softmax here are plain matmuls. In bf16 the (L, L) logits are
-stored in bf16 and the softmax statistics taken in fp32, as in JAX.
+Self-attention is dense (`_sdpa`: plain matmuls, the (L, L) logits stored
+in bf16 in bf16 mode with fp32 softmax statistics, as in JAX) unless the
+caller asks for flash attention (ops/flash_attention.py: K3a/K3b forward,
+K4a backward), as the DiT does in training from 1248 tokens
+(models/dit.py `flash_for_len`). Cross-attention is always dense.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from maa3_tpu_torch.ops.basic import dense, layer_norm
+from maa3_tpu_torch.ops.flash_attention import flash_attention
 from maa3_tpu_torch.ops.rope import apply_rope
 
 NEG_INF = -1e9  # finite mask value: no NaN rows for all-masked queries
@@ -76,9 +78,11 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
                     y_mask: Optional[torch.Tensor] = None,
                     n_heads: int = 8, n_kv_heads: Optional[int] = None,
                     compute_dtype: Optional[torch.dtype] = None,
-                    y_kv: Optional[tuple] = None) -> torch.Tensor:
+                    y_kv: Optional[tuple] = None,
+                    use_flash: bool = False) -> torch.Tensor:
     """x: (B, L, D); y: (B, Ly, y_dim) normed context, or y_kv: its
-    precomputed (yk, yv), each (B, Ly, n_kv * head_dim)."""
+    precomputed (yk, yv), each (B, Ly, n_kv * head_dim). use_flash routes
+    self-attention through the flash kernels."""
     b, l, d = x.shape
     n_kv = n_heads if n_kv_heads is None else n_kv_heads
     hd = d // n_heads
@@ -101,7 +105,12 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
     if rep > 1:  # GQA
         xk = xk.repeat_interleave(rep, dim=2)
         xv = xv.repeat_interleave(rep, dim=2)
-    out = _sdpa(xq, xk, xv, scale, x_mask)
+    if use_flash:
+        out = flash_attention(xq.transpose(1, 2), xk.transpose(1, 2),
+                              xv.transpose(1, 2), mask=x_mask,
+                              scale=scale).transpose(1, 2)
+    else:
+        out = _sdpa(xq, xk, xv, scale, x_mask)
 
     if hasattr(att, "wk_y") and (y is not None or y_kv is not None):
         yk, yv = y_kv if y_kv is not None else context_kv(att, y, compute_dtype)

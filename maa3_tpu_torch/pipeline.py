@@ -17,7 +17,7 @@ from maa3_tpu_torch.diffusion import cfm
 from maa3_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, bigvgan_apply, bigvgan_init_
 from maa3_tpu_torch.models.dit import (DiT, DiTConfig, dit_apply_planned,
                                        dit_init_, dit_sample_plan)
-from maa3_tpu_torch.models.vae1d import VAEConfig, VAEDecoder, vae_decode, vae_init_
+from maa3_tpu_torch.models.vae1d import AutoencoderKL, VAEConfig, vae_decode, vae_init_
 
 
 @contextlib.contextmanager
@@ -68,7 +68,7 @@ def sample_planned(dit: DiT, x0, context, uncond, guidance_scale: float,
 class T2APipeline:
     """Text-to-audio generation over a DiT, a VAE decoder and a vocoder."""
 
-    def __init__(self, dit: DiT, vae: VAEDecoder, vocoder: BigVGAN,
+    def __init__(self, dit: DiT, vae: AutoencoderKL, vocoder: BigVGAN,
                  scale_factor: float = 1.0,
                  compute_dtype: torch.dtype = torch.bfloat16):
         self.dit, self.vae, self.vocoder = dit, vae, vocoder
@@ -82,7 +82,7 @@ class T2APipeline:
                     voc_cfg: BigVGANConfig = BigVGANConfig(),
                     device="cuda", **kw) -> "T2APipeline":
         with torch.device(device):
-            dit, vae, voc = DiT(dit_cfg), VAEDecoder(vae_cfg), BigVGAN(voc_cfg)
+            dit, vae, voc = DiT(dit_cfg), AutoencoderKL(vae_cfg), BigVGAN(voc_cfg)
         return cls(dit_init_(dit, generator), vae_init_(vae, generator),
                    bigvgan_init_(voc, generator), **kw)
 

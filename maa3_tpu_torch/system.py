@@ -24,12 +24,12 @@ from maa3_tpu_torch.models.clap import (CLAPFLAN, CLAPFLANConfig,
                                         clap_flan_encode, clap_flan_init_)
 from maa3_tpu_torch.models.dit import (DiT, dit_init_, serving_copy,
                                        unfreeze_zero_init)
-from maa3_tpu_torch.models.vae1d import VAEDecoder, vae_init_
+from maa3_tpu_torch.models.vae1d import AutoencoderKL, vae_init_
 from maa3_tpu_torch.pipeline import T2APipeline, sample_planned
 
 
 class MAA3System:
-    def __init__(self, spec: ModelSpec, dit: DiT, vae: VAEDecoder,
+    def __init__(self, spec: ModelSpec, dit: DiT, vae: AutoencoderKL,
                  vocoder: BigVGAN, cond: CLAPFLAN,
                  scale_factor: float = 1.0,
                  tokenizer_dir: Optional[str] = None,
@@ -66,7 +66,7 @@ class MAA3System:
         gen = torch.Generator(device=device).manual_seed(seed)
         with torch.device(device):
             dit = DiT(spec.dit)
-            vae = VAEDecoder(spec.vae)
+            vae = AutoencoderKL(spec.vae)
             voc = BigVGAN(voc_cfg or BigVGANConfig())
             cond = CLAPFLAN(clap_cfg or CLAPFLANConfig())
         dit_init_(dit, gen)
@@ -85,7 +85,7 @@ class MAA3System:
         """Build from {dit, vae, vocoder, cond} state dicts with the
         reference keys (e.g. weights.params_from_jax)."""
         with torch.device(device):
-            mods = {"dit": DiT(spec.dit), "vae": VAEDecoder(spec.vae),
+            mods = {"dit": DiT(spec.dit), "vae": AutoencoderKL(spec.vae),
                     "vocoder": BigVGAN(voc_cfg), "cond": CLAPFLAN(clap_cfg)}
         for k, m in mods.items():
             m.load_state_dict(state[k])

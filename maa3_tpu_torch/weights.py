@@ -91,9 +91,24 @@ def _attnblock(sd: State, name: str, p: dict) -> None:
         _conv(sd, f"{name}.{nm}", p[nm])
 
 
-def vae_decoder_from_jax(p: dict) -> State:
-    """The decode half of the VAE: post_quant_conv + decoder.*."""
+def vae_from_jax(p: dict) -> State:
+    """AutoencoderKL: encoder.* + quant_conv, post_quant_conv + decoder.*."""
     sd: State = {}
+    e = p["encoder"]
+    _conv(sd, "encoder.conv_in", e["conv_in"])
+    for lvl, lp in enumerate(e["down"]):
+        for i, bp in enumerate(lp["block"]):
+            _resblock(sd, f"encoder.down.{lvl}.block.{i}", bp)
+        for i, ap in enumerate(lp["attn"]):
+            _attnblock(sd, f"encoder.down.{lvl}.attn.{i}", ap)
+        if "downsample" in lp:
+            _conv(sd, f"encoder.down.{lvl}.downsample.conv", lp["downsample"])
+    _resblock(sd, "encoder.mid.block_1", e["mid"]["block_1"])
+    _attnblock(sd, "encoder.mid.attn_1", e["mid"]["attn_1"])
+    _resblock(sd, "encoder.mid.block_2", e["mid"]["block_2"])
+    _vec(sd, "encoder.norm_out", e["norm_out"])
+    _conv(sd, "encoder.conv_out", e["conv_out"])
+    _conv(sd, "quant_conv", p["quant_conv"])
     _conv(sd, "post_quant_conv", p["post_quant_conv"])
     d = p["decoder"]
     _conv(sd, "decoder.conv_in", d["conv_in"])
@@ -175,7 +190,7 @@ def clap_flan_from_jax(p: dict) -> State:
 
 def params_from_jax(params: dict) -> Dict[str, State]:
     """{dit, vae, vocoder, cond} JAX trees -> state dicts for the port's
-    DiT, VAEDecoder, BigVGAN and CLAPFLAN modules (whichever are present)."""
-    conv = {"dit": dit_from_jax, "vae": vae_decoder_from_jax,
+    DiT, AutoencoderKL, BigVGAN and CLAPFLAN modules (whichever are present)."""
+    conv = {"dit": dit_from_jax, "vae": vae_from_jax,
             "vocoder": bigvgan_from_jax, "cond": clap_flan_from_jax}
     return {k: conv[k](v) for k, v in params.items() if k in conv}

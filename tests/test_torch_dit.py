@@ -20,6 +20,8 @@ from maa3_tpu_torch.diffusion import cfm as tcfm
 from maa3_tpu_torch.models import dit as tdit
 from maa3_tpu_torch.weights import dit_from_jax
 
+torch.set_num_threads(2)
+
 TOL = dict(rtol=1e-3, atol=1e-4)
 CFG = dict(in_channels=4, context_dim=32, hidden_size=64, depth=2, num_heads=4,
            multiple_of=32)

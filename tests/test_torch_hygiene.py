@@ -11,9 +11,12 @@ import textwrap
 from pathlib import Path
 
 import pytest
+import torch
 import yaml
 
 from maa3_tpu_torch.config import load_yaml
+
+torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "flax", "maa3_tpu", "yaml", "transformers", "tokenizers")

@@ -25,6 +25,8 @@ from maa3_tpu_torch.ops import pallas_aa_snake as k1
 from maa3_tpu_torch.ops import pallas_amp as k2
 from maa3_tpu_torch.ops.resample import COS_PI_COEF, F_DN, F_UP
 
+torch.set_num_threads(2)
+
 BF16_TOL = dict(atol=3e-2, rtol=3e-2)
 
 

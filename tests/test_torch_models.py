@@ -22,6 +22,8 @@ from maa3_tpu_torch.models import clap as tclap
 from maa3_tpu_torch.models import t5 as tt5
 from maa3_tpu_torch.models import vae1d as tvae
 
+torch.set_num_threads(2)
+
 TOL = dict(rtol=1e-3, atol=1e-4)
 
 
@@ -40,8 +42,8 @@ def test_vae_decode_matches_jax():
     kw = dict(out_ch=16, ch=32, ch_mult=(1, 2), num_res_blocks=1,
               attn_layers=(1,), z_channels=4, embed_dim=4)
     p = jvae.vae_init(jax.random.PRNGKey(0), jvae.VAEConfig(in_channels=16, **kw))
-    m = tvae.VAEDecoder(tvae.VAEConfig(**kw))
-    m.load_state_dict(weights.vae_decoder_from_jax(_np(p)))
+    m = tvae.AutoencoderKL(tvae.VAEConfig(in_channels=16, **kw))
+    m.load_state_dict(weights.vae_from_jax(_np(p)))
     z = np.random.RandomState(0).randn(2, 4, 12).astype(np.float32)
     want = jvae.vae_decode(p, jvae.VAEConfig(in_channels=16, **kw), jnp.asarray(z))
     with torch.no_grad():

@@ -24,6 +24,8 @@ from maa3_tpu_torch.ops import ffn as tffn
 from maa3_tpu_torch.ops import resample as trs
 from maa3_tpu_torch.ops import rope as trope
 
+torch.set_num_threads(2)
+
 TOL = dict(rtol=1e-3, atol=1e-4)
 
 

@@ -37,6 +37,8 @@ from maa3_tpu_torch.pipeline import T2APipeline
 from maa3_tpu_torch.system import MAA3System
 from maa3_tpu_torch.weights import params_from_jax
 
+torch.set_num_threads(2)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 XL = os.path.join(ROOT, "configs", "txt2audio-cfm-cfg-XL.yaml")
 UP, DD = "model.params.unet_config.params.", "model.params.first_stage_config.params.ddconfig."
