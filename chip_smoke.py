@@ -17,27 +17,44 @@ Phases, each timed on a line of its own:
      VAE decode -> bf16 BigVGAN, with the kernel launch counts of the run
      (--profile adds one run under torch.profiler: device busy share and
      the kernels that take the most device time);
-  6. flash kernels: K3a / K3b (forward) and K4a (backward) against their
-     plain PyTorch versions in fp32 and bf16 at the XL training shape, the
-     K3b route, the serving length, an odd masked length with a fully masked
-     batch row, and a forced block_k, with kernel, plain, bound and library
-     (scaled_dot_product_attention, timed as a yardstick only) times;
+  6. flash kernels: K3a / K3b (forward), K4a (fused backward) and K4b / K4c
+     (split backward) against their plain PyTorch versions in fp32 and bf16
+     at the XL training shape, the K3b route, the serving length, an odd
+     masked length with a fully masked batch row, and a forced block_k, with
+     kernel, plain, bound and library (scaled_dot_product_attention, timed
+     as a yardstick only) times; the split's dk / dv against K4a's and K4c's
+     dq the same bits over two launches; then the long-Lq timing at
+     (1, 16, 14336, 72) bf16: K4a against K4b + K4c against SDPA's backward,
+     and the split held to the plain versions two heads at a time;
   7. small training on the card against the CPU: two fp32 steps of a small
-     DiT with flash attention forced on, same weights and draws;
+     DiT with flash attention forced on, same weights and draws; then two
+     Trainer steps that also train a small conditioner with
+     MAA3_FLASH_BWD=split, and a checkpoint saved after step 1 and restored
+     into a fresh Trainer, whose step 2 must equal the uninterrupted one's;
   8. the XL training path through Trainer.fit: full width and depth, batch
      6 x latent 1248, captions through the frozen conditioner, bf16 compute,
      one warm step and three timed steps, with K3a / K4a counted per step
-     (--profile adds one step under torch.profiler);
-  9. the K3b route: XL width at depth 4, batch 2 x latent 2048, remat on.
+     (--profile adds one step under torch.profiler), and the frozen VAE
+     encode of the batch once with cuDNN's TF32 and once in fp32: max |dz|
+     and the loss each gives;
+  9. the K3b route: XL width at depth 4, batch 2 x latent 2048, remat on;
+ 10. the XL training path as the YAML configures it: the trainable CLAP+FLAN
+     conditioner, batch 6 x latent 1248, bf16, first with MAA3_FLASH_BWD
+     unset (auto: K3a 28, K4a 28 per step), then with `split` (K3a 28, K4b
+     28, K4c 28), each with one warm step and three timed steps (--profile
+     adds one step of each under torch.profiler); the conditioner's
+     parameters must move.
 Then the `kernels` JSON line, the card line, and the result line. Any failure
 exits non-zero without the result line; without a CUDA device, or without
 the rest of the repository beside it, the script exits 2 at once.
 """
 
+import contextlib
 import gc
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -65,9 +82,28 @@ TOL_FP32, TOL_BF16 = 1e-4, 2.0 ** -6     # times max(1, max|plain|)
 FLASH_SHAPES = [(6, 16, 1248, 72, False, None), (2, 16, 2048, 72, False, None),
                 (4, 16, 312, 72, False, None), (3, 4, 1000, 24, True, None),
                 (4, 16, 312, 72, False, 64)]
-XL_TRAIN = (6, 1248)     # phase 8: batch x latent length
+# long-Lq timing: the first 256-multiple of query rows past the JAX
+# package's split point for head dim 72 in bf16 (~13.8k rows, where the fused
+# body's fp32 dq block outgrows its 10 MiB VMEM budget)
+LONG_LQ = (1, 16, 14336, 72)
+XL_TRAIN = (6, 1248)     # phases 8 and 10: batch x latent length
 K3B_TRAIN = (2, 2048)    # phase 9
 NO_COND = "model.params.cond_stage_trainable=false"
+FLASH_KERNELS = ("K3a", "K3b", "K4a", "K4b", "K4c")
+
+
+@contextlib.contextmanager
+def flash_bwd_mode(mode):
+    """MAA3_FLASH_BWD set to `mode` (None: unset) inside, restored after."""
+    old = os.environ.pop("MAA3_FLASH_BWD", None)
+    if mode is not None:
+        os.environ["MAA3_FLASH_BWD"] = mode
+    try:
+        yield
+    finally:
+        os.environ.pop("MAA3_FLASH_BWD", None)
+        if old is not None:
+            os.environ["MAA3_FLASH_BWD"] = old
 
 
 def require(ok, what: str) -> None:
@@ -365,23 +401,50 @@ def check_flash(torch, fa, full_fp32):
                 with full_fp32():
                     return fa.flash_bwd_plain(q, k, v, mask, lse_ref, do, delta, scale)
 
+            def dkv():
+                return fa.flash_bwd_dkv(q, k, v, mask, lse_ref, do, delta, scale)
+
+            def dkv_plain():
+                with full_fp32():
+                    return fa.flash_bwd_dkv_plain(q, k, v, mask, lse_ref, do, delta, scale)
+
+            def dq():
+                return fa.flash_bwd_dq(q, k, v, mask, lse_ref, do, delta, scale)
+
+            def dq_plain():
+                with full_fp32():
+                    return fa.flash_bwd_dq_plain(q, k, v, mask, lse_ref, do, delta, scale)
+
             grads, grads_ref = bwd(), bwd_plain()
+            split = (dq(), *dkv())
+            split_ref = (dq_plain(), *dkv_plain())
+            dq_again = dq()
             torch.cuda.synchronize()
+            require(torch.equal(split[0], dq_again),
+                    f"K4c's dq is the same bits over two launches at {(b, h, L, d)}")
             live = lse_ref > -1e29
             errs = {}
             for nm, got, want in (("o", o, o_ref), ("lse", lse[live], lse_ref[live]),
                                   ("dq", grads[0], grads_ref[0]),
                                   ("dk", grads[1], grads_ref[1]),
-                                  ("dv", grads[2], grads_ref[2])):
-                ok = bool(torch.isfinite(got).all())
+                                  ("dv", grads[2], grads_ref[2]),
+                                  ("dq_split", split[0], split_ref[0]),
+                                  ("dk_split", split[1], split_ref[1]),
+                                  ("dv_split", split[2], split_ref[2]),
+                                  ("dk_split_vs_K4a", split[1], grads[1]),
+                                  ("dv_split_vs_K4a", split[2], grads[2])):
+                ok = bool(torch.isfinite(got).all()) and got.dtype == want.dtype
                 err = (got.float() - want.float()).abs().max().item() if ok else float("inf")
                 lim = (TOL_FP32 if want.dtype == torch.float32 else tol) * max(
                     1.0, want.abs().max().item())
                 errs[nm] = (err, lim)
+            for nm in ("dk_split_vs_K4a", "dv_split_vs_K4a"):
+                err, lim = errs.pop(nm)
+                require(err <= lim, f"{nm} at {(b, h, L, d)} {dtype}: {err} <= {lim}")
             if masked:
-                require(not o[-1].any() and not any(t[-1].any() for t in grads),
+                require(not o[-1].any() and not any(t[-1].any() for t in grads + split),
                         "a fully masked row gives o = 0 and zero gradients")
-            del o, lse, grads, grads_ref, o_ref
+            del o, lse, grads, grads_ref, o_ref, split, split_ref, dq_again
 
             am = None if mask is None else mask.bool()[:, None, None, :]
             ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
@@ -400,7 +463,12 @@ def check_flash(torch, fa, full_fp32):
                     (fwd_name, fwd, fwd_plain, lib_fwd, 4 * pairs * d,
                      (4 * nq * item + 4 * b * h * L + mbytes), ("o", "lse")),
                     ("K4a", bwd, bwd_plain, lib_bwd, 10 * pairs * d,
-                     (7 * nq * item + 8 * b * h * L + mbytes), ("dq", "dk", "dv"))):
+                     (7 * nq * item + 8 * b * h * L + mbytes), ("dq", "dk", "dv")),
+                    ("K4b", dkv, dkv_plain, lib_bwd, 8 * pairs * d,
+                     (6 * nq * item + 8 * b * h * L + mbytes),
+                     ("dk_split", "dv_split")),
+                    ("K4c", dq, dq_plain, lib_bwd, 6 * pairs * d,
+                     (5 * nq * item + 8 * b * h * L + mbytes), ("dq_split",))):
                 err = max(errs[x][0] for x in keys)
                 rows.append(dict(kernel=name, dtype=str(dtype)[6:], shape=shape,
                                  err=err, tol=min(errs[x][1] for x in keys),
@@ -409,7 +477,7 @@ def check_flash(torch, fa, full_fp32):
                                  library_ms=time_ms(lib),
                                  bytes_ms=nbytes / PEAK_BW * 1e3,
                                  ops_ms=flops / peak * 1e3))
-            del q, k, v, do, ql, kl, vl, lo
+            del q, k, v, do, ql, kl, vl, lo, delta, lse_ref
             torch.cuda.empty_cache()
     for r in rows:
         r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
@@ -419,6 +487,61 @@ def check_flash(torch, fa, full_fp32):
     bad = [r for r in rows if not all(e <= lim for e, lim in r["errs"].values())]
     require(not bad, f"flash kernels agree with their plain versions: {bad}")
     return rows
+
+
+def long_lq(torch, fa, full_fp32):
+    """Phase 6, long-Lq timing at LONG_LQ in bf16: K4a against K4b + K4c
+    against SDPA's backward alone (a yardstick), and the split's dq / dk / dv
+    (and K4a's) held to the plain versions two heads at a time (a
+    full-length plain backward needs tens of GB). Returns a dict of ms."""
+    import torch.nn.functional as F
+    b, h, L, d = LONG_LQ
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(b, h, L, d, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, None, scale, fa.route_for(L))
+    delta = (do.float() * o.float()).sum(-1)
+    del o
+    args = (q, k, v, None, lse, do, delta, scale)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+    ms = {"K4a": time_ms(lambda: fa.flash_bwd(*args), reps=3),
+          "K4b": time_ms(lambda: fa.flash_bwd_dkv(*args), reps=3),
+          "K4c": time_ms(lambda: fa.flash_bwd_dq(*args), reps=3),
+          "library": time_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                                         retain_graph=True), reps=3)}
+    ms["split"] = ms["K4b"] + ms["K4c"]
+    del lo, ql, kl, vl
+    fused = fa.flash_bwd(*args)
+    split = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    require(torch.equal(split[0], fa.flash_bwd_dq(*args)),
+            "long-Lq: K4c's dq is the same bits on every run")
+    worst = 0.0
+    for h0 in range(0, h, 2):
+        sl = slice(h0, h0 + 2)
+        part = [t[:, sl].contiguous() for t in (q, k, v)]
+        with full_fp32():
+            dq_ref = fa.flash_bwd_dq_plain(*part, None, lse[sl], do[:, sl].contiguous(),
+                                           delta[:, sl], scale)
+            dk_ref, dv_ref = fa.flash_bwd_dkv_plain(*part, None, lse[sl],
+                                                    do[:, sl].contiguous(),
+                                                    delta[:, sl], scale)
+        for got, want in zip(split + fused, (dq_ref, dk_ref, dv_ref) * 2):
+            got = got[:, sl]
+            err = (got.float() - want.float()).abs().max().item()
+            lim = TOL_BF16 * max(1.0, want.abs().max().item())
+            require(bool(torch.isfinite(got).all()) and err <= lim,
+                    f"long-Lq heads {h0}-{h0 + 1}: {err} <= {lim}")
+            worst = max(worst, err)
+        del dq_ref, dk_ref, dv_ref, part
+    del q, k, v, do, lse, delta, split, fused
+    torch.cuda.empty_cache()
+    log(f"long-Lq {LONG_LQ} bf16: K4a {ms['K4a']:.2f} ms, split {ms['split']:.2f} ms "
+        f"(K4b {ms['K4b']:.2f} + K4c {ms['K4c']:.2f}), SDPA backward "
+        f"{ms['library']:.2f} ms; split / K4a {ms['split'] / ms['K4a']:.3f}; "
+        f"max |kernel - plain| {worst:.3e}")
+    return ms
 
 
 def small_train_reference(torch, config_path, fa, full_fp32):
@@ -445,7 +568,7 @@ def small_train_reference(torch, config_path, fa, full_fp32):
               "t_int": torch.randint(0, 1000, (2,), generator=gen),
               "x0": torch.randn(2, 20, 48, generator=gen)} for _ in range(2)]
     out = []
-    fa.launches.update(K3a=0, K3b=0, K4a=0)
+    reset_launches(fa)
     for dev in ("cpu", "cuda"):
         d, a = copy.deepcopy(dit).to(dev), copy.deepcopy(vae).to(dev)
         # full LR from the first update, so two updates move parameters ~2e-3,
@@ -478,27 +601,175 @@ def small_train_reference(torch, config_path, fa, full_fp32):
     require(err <= 1e-4, "train reference parameters")
 
 
+def reset_launches(fa) -> None:
+    for name in FLASH_KERNELS:
+        fa.launches[name] = 0
+
+
+def small_train_cond_reference(torch, system_mod, config_path, fa):
+    """Phase 7 additions, with MAA3_FLASH_BWD=split (set by the caller): two
+    fp32 Trainer steps that train a small DiT and a small CLAP+FLAN
+    conditioner, on the card and on the CPU from the same weights and draws
+    (1e-4 relative); then a card Trainer saves a checkpoint after step 1 and
+    a fresh one restored from it must take step 2 exactly as the
+    uninterrupted one did (the split backward has no atomics)."""
+    import copy
+    import numpy as np
+    from maa3_tpu_torch.models.bert import BertConfig
+    from maa3_tpu_torch.models.bigvgan import BigVGANConfig
+    from maa3_tpu_torch.models.clap import CLAPFLANConfig
+    from maa3_tpu_torch.models.t5 import T5Config
+    from maa3_tpu_torch.train.loop import Trainer
+    up = "model.params.unet_config.params."
+    dd = "model.params.first_stage_config.params.ddconfig."
+    over = [up + "hidden_size=64", up + "depth=2", up + "num_heads=4",
+            up + "context_dim=32", up + "multiple_of=32", up + "use_flash=true",
+            dd + "ch=32", dd + "ch_mult=[1, 2]", dd + "num_res_blocks=1",
+            # the std rescale would draw its noise from each device's own generator
+            "model.params.scale_by_std=false"]
+    clap = CLAPFLANConfig(bert=BertConfig(hidden_size=32, num_layers=2, num_heads=4,
+                                          intermediate_size=64),
+                          t5=T5Config(d_model=32, d_kv=8, d_ff=48, num_layers=2,
+                                      num_heads=4), d_proj=32)
+    voc = BigVGANConfig(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
+                        upsample_initial_channel=64)
+    sys_c = system_mod.MAA3System.from_config(
+        [config_path], over, seed=4, compute_dtype=torch.float32, device="cpu",
+        clap_cfg=clap, voc_cfg=voc, unfreeze=True)
+    mods = (sys_c.dit, sys_c.vae, sys_c.vocoder, sys_c.cond)
+    sys_a, sys_b = (system_mod.MAA3System(sys_c.spec, *(copy.deepcopy(m).cuda() for m in mods),
+                                          compute_dtype=torch.float32) for _ in range(2))
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_ckpt")
+
+    def trainer(system, name):
+        tr = Trainer(system, batch_size=2, lr_multiplier=1.0, warm_up_steps=0, log_every=1,
+                     ckpt_every=0, ckpt_dir=os.path.join(root, name))
+        require(tr.state.cond is system.cond, "the Trainer trains the conditioner")
+        # full LR from the first update, so parameters move past the tolerance
+        tr.state.optimizer.schedule = lambda n: 1e-3
+        return tr
+
+    cpu, card = trainer(sys_c, "cpu"), trainer(sys_a, "card")
+    start = [p.detach().clone() for p in cpu.state.trainable_parameters()]
+    n_cond = sum(1 for _ in sys_c.cond.parameters())
+    rng = np.random.RandomState(7)
+    caps = ["a dog barks", "rain on a tin roof"]
+    raws = [{"image": rng.randn(2, 80, 96).astype(np.float32) - 4.0,
+             "caption": {"ori_caption": caps, "struct_caption": [f"<{c}& all>" for c in caps]}}
+            for _ in range(2)]
+    gen = torch.Generator().manual_seed(8)
+    draws = [{"noise": torch.randn(2, 20, 48, generator=gen),
+              "t_int": torch.randint(0, 1000, (2,), generator=gen),
+              "x0": torch.randn(2, 20, 48, generator=gen)} for _ in range(2)]
+
+    def step(tr, i):
+        m = tr.train_step(raws[i], draws={k: t.to(tr.device) for k, t in draws[i].items()})
+        return {k: v.item() for k, v in m.items()}
+
+    reset_launches(fa)
+    mc = [step(cpu, i) for i in range(2)]
+    mg = [step(card, 0)]
+    path = card.save_checkpoint()
+    mg.append(step(card, 1))
+    counts = dict(fa.launches)
+    require(counts == {"K3a": 4, "K3b": 0, "K4a": 0, "K4b": 4, "K4c": 4},
+            f"the card's split steps ran K3a, K4b and K4c twice each per step: {counts}")
+    for i in range(2):
+        for key in ("loss", "grad_norm"):
+            rel = abs(mc[i][key] - mg[i][key]) / abs(mc[i][key])
+            log(f"train+cond reference step {i + 1} {key}: cpu {mc[i][key]:.6f} cuda "
+                f"{mg[i][key]:.6f} (rel {rel:.2e})")
+            require(rel <= 1e-4, f"train+cond reference {key}")
+    pc = [p.detach() for p in cpu.state.trainable_parameters()]
+    pg = [p.detach().cpu() for p in card.state.trainable_parameters()]
+    err = max((a - b).abs().max().item() / max(1.0, a.abs().max().item())
+              for a, b in zip(pc, pg))
+    moved = [(a - s).abs().max().item() for a, s in zip(pc, start)]
+    log(f"train+cond reference: {len(pc)} parameters ({n_cond} of the conditioner) "
+        f"after 2 steps moved up to {max(moved[:-n_cond]):.2e} (DiT) and "
+        f"{max(moved[-n_cond:]):.2e} (conditioner); max |cuda - cpu| / max(1, |cpu|) "
+        f"{err:.2e}")
+    require(min(max(moved[:-n_cond]), max(moved[-n_cond:])) > 1e-3,
+            "the two updates moved the DiT and the conditioner past the tolerance")
+    require(err <= 1e-4, "train+cond reference parameters")
+
+    resumed = trainer(sys_b, "resumed")
+    resumed.restore_checkpoint(path)
+    mr = step(resumed, 1)
+    same = all(torch.equal(a, b) for a, b in zip(card.state.trainable_parameters(),
+                                                 resumed.state.trainable_parameters()))
+    log(f"checkpoint: {os.path.getsize(path) / 2 ** 20:.1f} MiB after step 1; the "
+        f"restored Trainer's step 2: loss {mr['loss']:.8f} vs {mg[1]['loss']:.8f}, "
+        f"grad norm {mr['grad_norm']:.8f} vs {mg[1]['grad_norm']:.8f}, parameters "
+        f"{'bit-identical' if same else 'DIFFER'}")
+    require(mr["loss"] == mg[1]["loss"] and mr["grad_norm"] == mg[1]["grad_norm"] and same,
+            "the restored Trainer's step 2 equals the uninterrupted one's")
+
+
+def tf32_probe(torch, trainer, raw):
+    """Phase 8: the frozen VAE encode of the batch once with cuDNN's TF32 (the
+    default for fp32 convolutions, which the training encode ran in before
+    it was wrapped in full_fp32) and once in fp32, the same posterior noise:
+    max |z_tf32 - z_fp32| and the loss each latent gives (the same draws)."""
+    from maa3_tpu_torch.models.vae1d import gaussian_sample, vae_encode_moments
+    from maa3_tpu_torch.pipeline import full_fp32
+    st = trainer.state
+    batch = trainer.prepare_batch(raw)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    b, _, t = batch["mel"].shape
+    draws = {"noise": torch.randn(b, 20, t // 2, generator=g, device="cuda"),
+             "t_int": torch.randint(0, 1000, (b,), generator=g, device="cuda"),
+             "x0": torch.randn(b, 20, t // 2, generator=g, device="cuda")}
+    out = {}
+    with torch.no_grad():
+        for name, tf32 in (("tf32", True), ("fp32", False), ("tf32", True), ("fp32", False)):
+            with full_fp32(), torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+                moments = vae_encode_moments(st.vae, batch["mel"])
+                ms = time_ms(lambda: vae_encode_moments(st.vae, batch["mel"]), reps=3)
+            z = gaussian_sample(moments, noise=draws["noise"]) * st.scale_factor
+            loss = trainer._eval_step(st, {"moments": moments, "context": batch["context"]},
+                                      draws=draws)
+            out[name] = (z, float(loss), out.get(name, (0, 0, []))[2] + [ms])
+    dz = (out["tf32"][0] - out["fp32"][0]).abs().max().item()
+    zmax = out["fp32"][0].abs().max().item()
+    dl = abs(out["tf32"][1] - out["fp32"][1])
+    log(f"TF32 probe {tuple(batch['mel'].shape)} mel: max |z_tf32 - z_fp32| {dz:.3e} "
+        f"(max |z_fp32| {zmax:.3f}, scale factor {st.scale_factor:.5f}); loss tf32 "
+        f"{out['tf32'][1]:.6f} fp32 {out['fp32'][1]:.6f} (|diff| {dl:.3e}); encode ms "
+        f"tf32 {out['tf32'][2]}, fp32 {out['fp32'][2]} (tf32, fp32, tf32, fp32 in turn)")
+    require(dz < float("inf") and dl < float("inf"), "TF32 probe finite")
+    return dz, dl
+
+
 def train_path(torch, system_mod, config_path, fa, batch, latent, depth=None,
-               remat=False, steps=3, profile=False):
-    """Phases 8 and 9: Trainer.fit on the XL config (full width; depth cut
-    when given) with batch x latent mels made from the seed. Returns the
-    per-step (ms, counts) of the timed steps."""
+               remat=False, steps=3, profile=False, train_cond=False,
+               measure_tf32=False):
+    """Phases 8, 9 and 10: Trainer.fit on the XL config (full width; depth
+    cut when given) with batch x latent mels made from the seed; the
+    conditioner frozen unless train_cond (the YAML's own setting). Returns
+    the per-step (ms, counts, metrics) of the timed steps and the peak
+    memory in GiB."""
     import numpy as np
     from maa3_tpu_torch.train.loop import Trainer
     up = "model.params.unet_config.params."
-    over = [NO_COND] + ([up + f"depth={depth}"] if depth else []) + (
-        [up + "remat=true"] if remat else [])
+    over = ([] if train_cond else [NO_COND]) + (
+        [up + f"depth={depth}"] if depth else []) + ([up + "remat=true"] if remat else [])
     t = time.perf_counter()
     system = system_mod.MAA3System.from_config(
         [config_path], over, seed=0, compute_dtype=torch.bfloat16, device="cuda",
         unfreeze=True)
     root = os.path.dirname(os.path.abspath(__file__))
-    trainer = Trainer(system, batch_size=batch, log_every=1,
+    trainer = Trainer(system, batch_size=batch, log_every=1, ckpt_every=0,
                       ckpt_dir=os.path.join(root, "build", "chip_smoke_train"))
+    require((trainer.state.cond is not None) == train_cond,
+            f"the conditioner trains iff train_cond={train_cond}")
     n_par = sum(p.numel() for p in system.dit.parameters())
+    n_cond = sum(p.numel() for p in system.cond.parameters()) if train_cond else 0
     log(f"train {batch}x{latent}: system built, DiT {n_par / 1e6:.1f} M parameters "
-        f"(depth {system.dit.cfg.depth}, remat {system.dit.cfg.remat}), "
-        f"{time.perf_counter() - t:.2f} s")
+        f"(depth {system.dit.cfg.depth}, remat {system.dit.cfg.remat}), trainable "
+        f"conditioner {n_cond / 1e6:.1f} M, MAA3_FLASH_BWD="
+        f"{os.environ.get('MAA3_FLASH_BWD', '(unset)')}, {time.perf_counter() - t:.2f} s")
     caps = ["a dog barks in the distance", "rain falls on a tin roof",
             "a crowd cheers at a stadium", "an engine idles then revs up",
             "birds chirp at dawn", "a door creaks open"]
@@ -509,11 +780,14 @@ def train_path(torch, system_mod, config_path, fa, batch, latent, depth=None,
     loader = itertools.repeat(raw)  # one log-mel batch made from the seed
     m = trainer.fit(loader, max_steps=1)  # warm-up: scale_by_std, cuBLAS, caches
     require(np.isfinite(m["loss"]), f"warm-up loss finite: {m}")
+    tf32 = tf32_probe(torch, trainer, raw) if measure_tf32 else None
+    cond0 = ([p.detach().clone() for p in system.cond.parameters()] if train_cond
+             else None)
     torch.cuda.reset_peak_memory_stats()
     results = []
     for _ in range(steps):
         torch.cuda.synchronize()
-        fa.launches.update(K3a=0, K3b=0, K4a=0)  # count exactly this step
+        reset_launches(fa)  # count exactly this step
         s = time.perf_counter()
         m = trainer.fit(loader, max_steps=1)
         torch.cuda.synchronize()
@@ -527,12 +801,21 @@ def train_path(torch, system_mod, config_path, fa, batch, latent, depth=None,
             f"{batch * latent / ms * 1e3:.0f} tokens/s, loss {m['loss']:.4f}, grad norm "
             f"{m['grad_norm']:.4f}, launches {counts}")
     log(f"train {batch}x{latent}: peak memory {peak:.2f} GiB")
+    if train_cond:
+        changed = sum(int((p.detach() != p0).sum()) for p, p0 in
+                      zip(system.cond.parameters(), cond0))
+        most = max((p.detach() - p0).abs().max().item()
+                   for p, p0 in zip(system.cond.parameters(), cond0))
+        log(f"train {batch}x{latent}: {changed} of {n_cond} conditioner parameters "
+            f"changed over the timed steps (largest change {most:.3e})")
+        require(changed > 0, "the conditioner's parameters moved")
+        del cond0
     if profile:  # one more step; fit logs the step's metrics, which syncs
         profile_run(torch, lambda _: trainer.fit(loader, max_steps=1), results[-1][0])
     del trainer, system
     gc.collect()
     torch.cuda.empty_cache()
-    return results, peak
+    return results, peak, tf32
 
 
 def main() -> int:
@@ -566,9 +849,17 @@ def main() -> int:
     cuda.load()
     log(f"build: nvcc + ctypes, {cuda.build_info['seconds']:.2f} s compile, "
         f"{time.perf_counter() - t:.2f} s to load -> {cuda.build_info['path']}")
+    kernel = ""
     for line in cuda.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"build: {line.strip()}")
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:  # e.g. ..._23flash_bwd_dq_kernelI13__nv_bfloat16Li72EE... -> short name
+            m = re.search(r"\d([a-z][a-z_]*kernel)I(f|13__nv_bfloat16)(?:Li(\d+)E)?",
+                          entry.group(1))
+            kernel = (f"{m.group(1)}<{'fp32' if m.group(2) == 'f' else 'bf16'}"
+                      f"{', ' + m.group(3) if m.group(3) else ''}>" if m
+                      else entry.group(1)[:60])
+        elif "registers" in line or "spill" in line or "error" in line.lower():
+            log(f"build: {kernel}: {line.strip()}")
 
     from maa3_tpu_torch import system as system_mod
     from maa3_tpu_torch.ops import pallas_aa_snake as k1, pallas_amp as k2
@@ -591,27 +882,53 @@ def main() -> int:
     t = time.perf_counter()
     frows = check_flash(torch, fa, full_fp32)
     log(f"flash kernels: {len(frows)} checks passed, {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    long_ms = long_lq(torch, fa, full_fp32)
+    log(f"long-Lq: auto runs K4a at every length; the split is "
+        f"{'FASTER' if long_ms['split'] < long_ms['K4a'] else 'slower'} than K4a at "
+        f"Lq {LONG_LQ[2]}, {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     small_train_reference(torch, config_path, fa, full_fp32)
     log(f"train reference: small training agrees, {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    with flash_bwd_mode("split"):
+        small_train_cond_reference(torch, system_mod, config_path, fa)
+    log(f"train+cond reference: agrees, checkpoint resumes exactly, "
+        f"{time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
-    xl_steps, _ = train_path(torch, system_mod, config_path, fa, *XL_TRAIN,
-                             profile="--profile" in sys.argv[1:])
+    xl_steps, _, _ = train_path(torch, system_mod, config_path, fa, *XL_TRAIN,
+                                profile="--profile" in sys.argv[1:], measure_tf32=True)
     for _, c, _ in xl_steps:
-        require(c == {"K3a": 28, "K3b": 0, "K4a": 28},
+        require(c == {"K3a": 28, "K3b": 0, "K4a": 28, "K4b": 0, "K4c": 0},
                 f"XL training step launches {c} == K3a 28, K3b 0, K4a 28")
     log(f"train XL: done, {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     # remat runs each block's forward again in the backward: 4 + 4 K3b, 4 K4a
-    k3b_steps, _ = train_path(torch, system_mod, config_path, fa, *K3B_TRAIN,
-                              depth=4, remat=True, steps=2)
+    k3b_steps, _, _ = train_path(torch, system_mod, config_path, fa, *K3B_TRAIN,
+                                 depth=4, remat=True, steps=2)
     for _, c, _ in k3b_steps:
-        require(c == {"K3a": 0, "K3b": 8, "K4a": 4},
+        require(c == {"K3a": 0, "K3b": 8, "K4a": 4, "K4b": 0, "K4c": 0},
                 f"K3b-route step launches {c} == K3a 0, K3b 8, K4a 4")
     log(f"train K3b route: done, {time.perf_counter() - t:.2f} s")
+
+    cond_steps = {}
+    for mode, want in ((None, {"K3a": 28, "K3b": 0, "K4a": 28, "K4b": 0, "K4c": 0}),
+                       ("split", {"K3a": 28, "K3b": 0, "K4a": 0, "K4b": 28, "K4c": 28})):
+        t = time.perf_counter()
+        with flash_bwd_mode(mode):
+            cond_steps[mode], peak, _ = train_path(
+                torch, system_mod, config_path, fa, *XL_TRAIN, train_cond=True,
+                profile="--profile" in sys.argv[1:])
+        for _, c, _ in cond_steps[mode]:
+            require(c == want, f"XL step with the trainable conditioner, "
+                    f"MAA3_FLASH_BWD={mode}: launches {c} == {want}")
+        tail = [ms for ms, _, _ in cond_steps[mode]][1:]
+        log(f"train XL + conditioner, MAA3_FLASH_BWD={mode or '(unset): auto'}: "
+            f"median of the timed steps after the first {statistics.median(tail):.1f} ms, "
+            f"peak {peak:.2f} GiB, done, {time.perf_counter() - t:.2f} s")
 
     kernels = []
     for name, src, rep, cnt in (
@@ -640,7 +957,13 @@ def main() -> int:
             ("K3b flash_fwd (online)", "maa3_tpu_torch/csrc/flash_fwd.cu",
              "maa3_tpu/ops/flash_attention.py:118", k3b_shape, k3b_steps[-1][1]["K3b"]),
             ("K4a flash_bwd (fused)", "maa3_tpu_torch/csrc/flash_bwd.cu",
-             "maa3_tpu/ops/flash_attention.py:224", xl_shape, xl_steps[-1][1]["K4a"])):
+             "maa3_tpu/ops/flash_attention.py:224", xl_shape, xl_steps[-1][1]["K4a"]),
+            ("K4b flash_bwd_dkv (split)", "maa3_tpu_torch/csrc/flash_bwd_split.cu",
+             "maa3_tpu/ops/flash_attention.py:170", xl_shape,
+             cond_steps["split"][-1][1]["K4b"]),
+            ("K4c flash_bwd_dq (split)", "maa3_tpu_torch/csrc/flash_bwd_split.cu",
+             "maa3_tpu/ops/flash_attention.py:299", xl_shape,
+             cond_steps["split"][-1][1]["K4c"])):
         mine = [r for r in frows if r["kernel"] == name[:3] and r["dtype"] == "bfloat16"]
         r = next(r for r in mine if r["shape"] == shape)
         kernels.append({

@@ -1,5 +1,5 @@
 // Device code shared by the flash-attention kernels (flash_fwd.cu: K3a, K3b;
-// flash_bwd.cu: K4a).
+// flash_bwd.cu: K4a; flash_bwd_split.cu: K4b, K4c).
 //
 // Layout: q, o, do (BH, Lq, D) and k, v (BH, Lk, D), row-major, no padding
 // in device memory; an optional key mask (B, Lk) int32 (nonzero = valid)
@@ -105,6 +105,51 @@ __device__ __forceinline__ void key_valid(bool (&valid)[8], const int* mrow,
   for (int j = 0; j < 8; ++j) {
     const int key = k0 + tx + 8 * j;
     valid[j] = key < lk && (mrow == nullptr || mrow[key] != 0);
+  }
+}
+
+// The backward's per-tile-pair step, shared by K4a, K4b and K4c. From the
+// shared tiles qs (scaled q), dos, ks, vs ([64][DP + 1]) and the rows' lse
+// (times log2 e) and delta: S = q_s . k^T and dP = do . v^T, then
+// p = exp2(S - lse) (0 where !valid[j] or for tile rows >= rows), written to
+// ps rounded to T unless ps is null, and ds = p * (dP - delta) rounded to T,
+// written to dss ([64 q][kSP]). The caller synchronises before and after.
+template <typename T, int DP>
+__device__ __forceinline__ void bwd_p_ds(float* ps, float* dss, const float* qs,
+                                         const float* dos, const float* ks,
+                                         const float* vs, const float* lse_s,
+                                         const float* delta_s,
+                                         const bool (&valid)[8], int rows, int d,
+                                         int ty, int tx) {
+  constexpr int P = DP + 1;
+  const T* tag = nullptr;
+  float s[4][8], dp[4][8];
+  zero(s);
+  zero(dp);
+  mm_tile<8>(s, qs, P, 1, ks, 1, P, d, ty, tx);
+  mm_tile<8>(dp, dos, P, 1, vs, 1, P, d, ty, tx);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    const bool row_in = r < rows;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p = (row_in && valid[j]) ? exp2f(s[i][j] - lse_s[r]) : 0.0f;
+      if (ps != nullptr) ps[r * kSP + tx + 8 * j] = round_as(p, tag);
+      dss[r * kSP + tx + 8 * j] = round_as(p * (dp[i][j] - delta_s[r]), tag);
+    }
+  }
+}
+
+// lse (times log2 e) and delta of query rows [q0, q0 + 64) of pair bh; 0 past lq
+__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
+                                          const float* lse, const float* delta,
+                                          int bh, int q0, int lq) {
+  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    const bool in = q0 + r < lq;
+    const size_t i = static_cast<size_t>(bh) * lq + q0 + r;
+    lse_s[r] = in ? lse[i] * kLog2e : 0.0f;
+    delta_s[r] = in ? delta[i] : 0.0f;
   }
 }
 

@@ -71,35 +71,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
   bool valid[8];
   key_valid(valid, mrow, k0, a.lk, tx);
 
-  float dk[4][NJ], dv[4][NJ], s[4][8], dp[4][8];
+  float dk[4][NJ], dv[4][NJ];
   zero(dk);
   zero(dv);
   for (int q0 = 0; q0 < a.lq; q0 += kTile) {
     __syncthreads();  // the previous tile's shared operands are consumed
     load_tile(qs, qg, q0, a.lq, a.d, DP, true, a.qmul);
     load_tile(dos, dog, q0, a.lq, a.d, DP, false, 1.0f);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const bool in = q0 + r < a.lq;
-      const size_t i = static_cast<size_t>(bh) * a.lq + q0 + r;
-      lse_s[r] = in ? a.lse[i] * kLog2e : 0.0f;
-      delta_s[r] = in ? a.delta[i] : 0.0f;
-    }
+    load_rows(lse_s, delta_s, a.lse, a.delta, bh, q0, a.lq);
     __syncthreads();
-    zero(s);
-    zero(dp);
-    mm_tile<8>(s, qs, P, 1, ks, 1, P, a.d, ty, tx);
-    mm_tile<8>(dp, dos, P, 1, vs, 1, P, a.d, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const bool row_in = q0 + r < a.lq;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = (row_in && valid[j]) ? exp2f(s[i][j] - lse_s[r]) : 0.0f;
-        ps[r * kSP + tx + 8 * j] = round_as(p, kg);
-        dss[r * kSP + tx + 8 * j] = round_as(p * (dp[i][j] - delta_s[r]), qg);
-      }
-    }
+    bwd_p_ds<T, DP>(ps, dss, qs, dos, ks, vs, lse_s, delta_s, valid, a.lq - q0, a.d,
+                    ty, tx);
     __syncthreads();
     // rows of these products are keys: A[key][q] = ps[q][key]
     mm_tile<NJ>(dv, ps, 1, kSP, dos, P, 1, kTile, ty, tx);

@@ -122,6 +122,12 @@ def load() -> ctypes.CDLL:
         lib.maa3_flash_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
                                        ci, ci, ci, ci, cf, cf, ci, vp]
         lib.maa3_flash_bwd.restype = ci
+        lib.maa3_flash_bwd_dkv.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                           ci, ci, ci, cf, ci, vp]
+        lib.maa3_flash_bwd_dkv.restype = ci
+        lib.maa3_flash_bwd_dq.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                                          ci, ci, cf, cf, ci, vp]
+        lib.maa3_flash_bwd_dq.restype = ci
         _lib = lib
     return _lib
 

@@ -83,3 +83,11 @@ def clap_flan_encode(m: CLAPFLAN, ori_ids: torch.Tensor, struct_ids: torch.Tenso
     z = projection_apply(m.caption_encoder.projection, z)
     z2 = t5_apply(m.t5_transformer, struct_ids, struct_mask)
     return torch.cat([z, z2], dim=1)
+
+
+def clap_flan_encode_batch(m: CLAPFLAN, tokens: dict) -> torch.Tensor:
+    """clap_flan_encode of a token batch {ori_ids, ori_mask, struct_ids,
+    struct_mask} (MAA3System.tokenize): the trainable conditioner's call,
+    under autograd when the caller trains it."""
+    return clap_flan_encode(m, tokens["ori_ids"], tokens["struct_ids"],
+                            tokens.get("ori_mask"), tokens.get("struct_mask"))

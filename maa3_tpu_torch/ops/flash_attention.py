@@ -1,19 +1,30 @@
-"""K3a / K3b / K4a: flash attention at O(L) memory, forward and backward
-(counterpart of maa3_tpu/ops/flash_attention.py; the kernels are CUDA C++,
-csrc/flash_fwd.cu and csrc/flash_bwd.cu).
+"""K3a / K3b / K4a / K4b / K4c: flash attention at O(L) memory, forward and
+backward (counterpart of maa3_tpu/ops/flash_attention.py; the kernels are
+CUDA C++, csrc/flash_fwd.cu, csrc/flash_bwd.cu and csrc/flash_bwd_split.cu).
 
 `flash_attention(q, k, v, mask)` on (B, H, L, D) tensors is differentiable
 through `_FlashCore`, the counterpart of the JAX custom VJP `_flash_core`: the
 forward saves q, k, v, o and the per-row natural-log log-sum-exp; the backward
 takes delta = rowsum(do * o) in fp32 with a torch op, as JAX does outside
-Pallas, and recomputes the probabilities from the saved lse in one fused pass
-(K4a) that gives dq, dk and dv.
+Pallas, and recomputes the probabilities from the saved lse.
 
-Routing is the JAX rule: the direct-softmax forward (K3a: the row max over
-the whole key range first, then one exp pass) iff `block_k` is None and
-round_up(Lk, 16) <= 1536, else the online-softmax forward (K3b, key blocks
-of BLOCK_K with running max and rescaling). The two give the same function
-up to where the probabilities are rounded to v's dtype.
+The backward reads MAA3_FLASH_BWD at every call, as the JAX package does:
+`fused` and `auto` (the default) run one fused pass (K4a) that gives dq, dk
+and dv, with dq summed over key tiles by fp32 atomics; `split` runs K4b
+(dk, dv; a block per key tile) then K4c (dq; a block per query tile, no
+atomics, so dq is the same bits on every run). JAX's `auto` takes the split
+only past the fused body's VMEM budget; K4a keeps dq in device memory, so
+that budget does not exist here. On an H100 80GB HBM3 at 700 W the split
+measured slower than K4a at every shape chip_smoke.py times, up to
+(1, 16, 14336, 72) bf16, the first 256-multiple past JAX's split point
+(K4b + K4c 177.7 ms against K4a 121.0 ms; its long-Lq timing, PERF.md), so
+`auto` runs K4a at every length.
+
+Routing of the forward is the JAX rule: the direct-softmax forward (K3a: the
+row max over the whole key range first, then one exp pass) iff `block_k` is
+None and round_up(Lk, 16) <= 1536, else the online-softmax forward (K3b, key
+blocks of BLOCK_K with running max and rescaling). The two give the same
+function up to where the probabilities are rounded to v's dtype.
 
 Numerics follow the Pallas bodies: q is multiplied by scale * log2(e) in fp32
 and rounded to q's dtype; exponentials are exp2; p is rounded to v's dtype
@@ -33,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -47,7 +59,9 @@ BLOCK_K = 64        # key tile of the CUDA kernels; the plain online route uses 
 MAX_HEAD_DIM = 72   # the widest head dim the CUDA kernels are instantiated for
 
 # kernel launches by name (chip_smoke resets and reads them)
-launches = {"K3a": 0, "K3b": 0, "K4a": 0}
+launches = {"K3a": 0, "K3b": 0, "K4a": 0, "K4b": 0, "K4c": 0}
+
+BWD_MODES = ("auto", "fused", "split")
 
 
 def round_up(x: int, m: int) -> int:
@@ -114,23 +128,45 @@ def flash_fwd_plain(q, k, v, mask: Optional[torch.Tensor], scale: float,
     return o, lse
 
 
-def flash_bwd_plain(q, k, v, mask: Optional[torch.Tensor], lse: torch.Tensor,
-                    do: torch.Tensor, delta: torch.Tensor, scale: float):
-    """Gradients from the saved lse (B*H, Lq) and delta (B, H, Lq) fp32 ->
-    (dq, dk, dv) in the inputs' dtypes."""
+def _bwd_p_ds(q, k, v, mask, lse, do, delta, scale):
+    """The backward's recomputed p and ds (fp32, ds rounded to q's dtype),
+    with the scaled q, k and do in fp32."""
     b, h, lq, _ = q.shape
     qs, kf, vf, dof = _scale_q(q, scale).float(), k.float(), v.float(), do.float()
-    s2 = qs @ kf.transpose(-1, -2)
-    p = torch.exp2(s2 - lse.reshape(b, h, lq, 1) * LOG2E)
+    p = torch.exp2(qs @ kf.transpose(-1, -2) - lse.reshape(b, h, lq, 1) * LOG2E)
     valid = _valid(mask)
     if valid is not None:
         p = p.masked_fill(~valid, 0.0)
-    dv = p.to(v.dtype).float().transpose(-1, -2) @ dof
     dp = dof @ vf.transpose(-1, -2)
     ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    return p, ds, qs, kf, dof
+
+
+def flash_bwd_plain(q, k, v, mask: Optional[torch.Tensor], lse: torch.Tensor,
+                    do: torch.Tensor, delta: torch.Tensor, scale: float):
+    """Gradients from the saved lse (B*H, Lq) and delta (B, H, Lq) fp32 ->
+    (dq, dk, dv) in the inputs' dtypes (K4a's function)."""
+    p, ds, qs, kf, dof = _bwd_p_ds(q, k, v, mask, lse, do, delta, scale)
+    dv = p.to(v.dtype).float().transpose(-1, -2) @ dof
     dk = (ds.transpose(-1, -2) @ qs) * LN2
     dq = (ds @ kf) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, mask: Optional[torch.Tensor], lse: torch.Tensor,
+                        do: torch.Tensor, delta: torch.Tensor, scale: float):
+    """(dk, dv) in k's and v's dtypes (K4b's function)."""
+    p, ds, qs, _, dof = _bwd_p_ds(q, k, v, mask, lse, do, delta, scale)
+    dv = p.to(v.dtype).float().transpose(-1, -2) @ dof
+    dk = (ds.transpose(-1, -2) @ qs) * LN2
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_plain(q, k, v, mask: Optional[torch.Tensor], lse: torch.Tensor,
+                       do: torch.Tensor, delta: torch.Tensor, scale: float):
+    """dq in q's dtype (K4c's function)."""
+    _, ds, _, kf, _ = _bwd_p_ds(q, k, v, mask, lse, do, delta, scale)
+    return ((ds @ kf) * scale).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -184,20 +220,23 @@ def flash_fwd(q, k, v, mask: Optional[torch.Tensor], scale: float,
     return o, lse
 
 
+def _bwd_operands(name: str, q, k, v, mask, lse, do, delta):
+    _check(name, q, k, v, mask)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype} must match q")
+    return (q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
+            lse.float().contiguous(), delta.float().contiguous())
+
+
 def flash_bwd(q, k, v, mask: Optional[torch.Tensor], lse: torch.Tensor,
               do: torch.Tensor, delta: torch.Tensor, scale: float):
     """K4a; same contract as flash_bwd_plain. dq is summed over key tiles
     with fp32 atomics, so its last bits vary from run to run."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, mask, lse, do, delta, scale)
-    _check("flash_bwd", q, k, v, mask)
+    q, k, v, do, lse, delta = _bwd_operands("flash_bwd", q, k, v, mask, lse, do, delta)
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError(f"flash_bwd: do {tuple(do.shape)} {do.dtype} must match q")
-    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
-    lse = lse.float().contiguous()
-    delta = delta.float().contiguous()
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
@@ -211,6 +250,59 @@ def flash_bwd(q, k, v, mask: Optional[torch.Tensor], lse: torch.Tensor,
     cuda.check(err, "flash_bwd")
     launches["K4a"] += 1
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dkv(q, k, v, mask: Optional[torch.Tensor], lse: torch.Tensor,
+                  do: torch.Tensor, delta: torch.Tensor, scale: float):
+    """K4b; same contract as flash_bwd_dkv_plain."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, mask, lse, do, delta, scale)
+    q, k, v, do, lse, delta = _bwd_operands("flash_bwd_dkv", q, k, v, mask, lse, do,
+                                            delta)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = cuda.load()
+    with torch.cuda.device(q.device):
+        err = lib.maa3_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _ptr(mask), dk.data_ptr(), dv.data_ptr(), b * h, h,
+            lq, lk, d, ctypes.c_float(scale * LOG2E), cuda.DTYPE_CODES[q.dtype],
+            cuda.stream_ptr(q))
+    cuda.check(err, "flash_bwd_dkv")
+    launches["K4b"] += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, mask: Optional[torch.Tensor], lse: torch.Tensor,
+                 do: torch.Tensor, delta: torch.Tensor, scale: float):
+    """K4c; same contract as flash_bwd_dq_plain. Each block owns its dq rows
+    (no atomics), so dq is the same bits on every run."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, mask, lse, do, delta, scale)
+    q, k, v, do, lse, delta = _bwd_operands("flash_bwd_dq", q, k, v, mask, lse, do,
+                                            delta)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    dq = torch.empty_like(q)
+    lib = cuda.load()
+    with torch.cuda.device(q.device):
+        err = lib.maa3_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _ptr(mask), dq.data_ptr(), b * h, h, lq, lk, d,
+            ctypes.c_float(scale * LOG2E), ctypes.c_float(scale),
+            cuda.DTYPE_CODES[q.dtype], cuda.stream_ptr(q))
+    cuda.check(err, "flash_bwd_dq")
+    launches["K4c"] += 1
+    return dq
+
+
+def bwd_mode() -> str:
+    """MAA3_FLASH_BWD (auto | fused | split), read at every backward call."""
+    mode = os.environ.get("MAA3_FLASH_BWD", "auto")
+    if mode not in BWD_MODES:
+        raise ValueError(f"MAA3_FLASH_BWD={mode!r}: expected one of {BWD_MODES}")
+    return mode
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +324,11 @@ class _FlashCore(torch.autograd.Function):
         q, k, v, mask, o, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
         delta = (do.float() * o.float()).sum(-1)
-        dq, dk, dv = flash_bwd(q, k, v, mask, lse, do, delta, ctx.scale)
+        if bwd_mode() == "split":
+            dk, dv = flash_bwd_dkv(q, k, v, mask, lse, do, delta, ctx.scale)
+            dq = flash_bwd_dq(q, k, v, mask, lse, do, delta, ctx.scale)
+        else:  # auto and fused: K4a at every length (module docstring)
+            dq, dk, dv = flash_bwd(q, k, v, mask, lse, do, delta, ctx.scale)
         return dq, dk, dv, None, None, None
 
 

@@ -21,7 +21,7 @@ from maa3_tpu_torch.config import ModelSpec
 from maa3_tpu_torch.data.tokenizers import load_tokenizer
 from maa3_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, bigvgan_init_
 from maa3_tpu_torch.models.clap import (CLAPFLAN, CLAPFLANConfig,
-                                        clap_flan_encode, clap_flan_init_)
+                                        clap_flan_encode_batch, clap_flan_init_)
 from maa3_tpu_torch.models.dit import (DiT, dit_init_, serving_copy,
                                        unfreeze_zero_init)
 from maa3_tpu_torch.models.vae1d import AutoencoderKL, vae_init_
@@ -94,10 +94,11 @@ class MAA3System:
 
     # -- conditioning ------------------------------------------------------
 
-    @torch.no_grad()
-    def get_learned_conditioning(self, c) -> torch.Tensor:
-        """c: {'ori_caption': [...], 'struct_caption': [...]} or list[str]
-        -> (B, 154, 1024) context, computed in fp32."""
+    def tokenize(self, c) -> Dict[str, torch.Tensor]:
+        """c: {'ori_caption': [...], 'struct_caption': [...]} or list[str] ->
+        the conditioner's token batch on the device: BERT ids and mask of the
+        original captions, T5 ids and mask of the structured ones
+        (maa3_tpu/train/loop.py:284-289)."""
         ori = c["ori_caption"] if isinstance(c, dict) else list(c)
         struct = c["struct_caption"] if isinstance(c, dict) else list(c)
         ori_ids, ori_mask = self.bert_tokenizer(ori)
@@ -106,8 +107,13 @@ class MAA3System:
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
 
-        return clap_flan_encode(self.cond, dev(ori_ids), dev(st_ids),
-                                dev(ori_mask), dev(st_mask))
+        return {"ori_ids": dev(ori_ids), "ori_mask": dev(ori_mask),
+                "struct_ids": dev(st_ids), "struct_mask": dev(st_mask)}
+
+    @torch.no_grad()
+    def get_learned_conditioning(self, c) -> torch.Tensor:
+        """c: as for `tokenize` -> (B, 154, 1024) context, computed in fp32."""
+        return clap_flan_encode_batch(self.cond, self.tokenize(c))
 
     # -- sampling ----------------------------------------------------------
 

@@ -3,15 +3,17 @@ text-to-audio DiT on one device uses):
 
     python -m maa3_tpu_torch.train -b configs/txt2audio-cfm-cfg-XL.yaml \\
         --max_steps 100 [--batch_size 6] [--device cuda] [--remat] \\
-        model.params.cond_stage_trainable=false \\
+        [-r CKPT] [--ckpt_every N] \\
         data.params.train.params.dataset_cfg.dataset_name=data/synth/manifest_mel.tsv
 
-Builds MAA3System.from_config (random weights from --seed: the port loads
-no checkpoints yet), reads the manifest named by the config's data section
-(TextSpecDataset: mels cropped or tiled to spec_crop_len), and runs
-Trainer.fit for --max_steps steps in bf16 (fp32 with --fp32), logging to
-<ckpt_dir>/metrics.jsonl. The conditioner is frozen: configs that train it
-need model.params.cond_stage_trainable=false.
+Builds MAA3System.from_config (random weights from --seed), reads the
+manifest named by the config's data section (TextSpecDataset: mels cropped
+or tiled to spec_crop_len), restores a checkpoint of the port's Trainer with
+-r, and runs Trainer.fit for --max_steps steps in bf16 (fp32 with --fp32),
+logging to <ckpt_dir>/metrics.jsonl. The conditioner trains when the config
+says so (cond_stage_trainable, true in every YAML of configs/). Checkpoints:
+every --ckpt_every steps, `last` at the end, `crash` when a step raises, and
+`usr1` on SIGUSR1.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
+import signal
 
 import torch
 
@@ -26,10 +29,14 @@ import torch
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("-b", "--base", nargs="+", required=True, help="config yamls")
+    p.add_argument("-r", "--resume", type=str, default="",
+                   help="a checkpoint (.pt) of the port's Trainer to continue from")
     p.add_argument("--max_steps", type=int, default=100000)
     p.add_argument("--batch_size", type=int, default=None,
                    help="default: the config's data.params.batch_size")
     p.add_argument("--ckpt_dir", type=str, default="logs/maa3_torch")
+    p.add_argument("--ckpt_every", type=int, default=2000,
+                   help="steps between periodic checkpoints (0: none)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--use_ema", action="store_true")
     p.add_argument("--remat", action="store_true",
@@ -67,9 +74,23 @@ def main(argv=None):
         system.dit.cfg = dataclasses.replace(system.dit.cfg, remat=True)
     batch_size = opt.batch_size or data.batch_size
     trainer = Trainer(system, batch_size=batch_size, use_ema=opt.use_ema,
-                      log_every=opt.log_every, ckpt_dir=opt.ckpt_dir)
-    loader = build_loader(data, batch_size, opt.seed, 2 * system.spec.vae.embed_dim)
-    metrics = trainer.fit(loader, max_steps=opt.max_steps, seed=opt.seed)
+                      log_every=opt.log_every, ckpt_every=opt.ckpt_every,
+                      ckpt_dir=opt.ckpt_dir)
+    if opt.resume:
+        trainer.restore_checkpoint(opt.resume)
+        print(f"resumed from {opt.resume} at step {trainer.state.step}")
+
+    def melk(*_):  # SIGUSR1 -> checkpoint now (main.py:798-815)
+        print("SIGUSR1: checkpointing...", flush=True)
+        trainer.save_checkpoint(tag="usr1")
+
+    previous = signal.signal(signal.SIGUSR1, melk)
+    try:
+        loader = build_loader(data, batch_size, opt.seed, 2 * system.spec.vae.embed_dim)
+        metrics = trainer.fit(loader, max_steps=opt.max_steps, seed=opt.seed)
+    finally:
+        signal.signal(signal.SIGUSR1, previous)
+    trainer.save_checkpoint(tag="last")
     print("final:", metrics)
     return metrics
 

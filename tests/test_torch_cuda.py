@@ -10,7 +10,8 @@ torch.sin, expf); bf16 two bf16 ulps of the largest value,
 2^-6 * max(1, max|ref|) (both sides compute in fp32 and round once; an fp32
 difference of one ulp can flip that rounding). The flash backward's dq is a
 sum of per-key-tile parts added with fp32 atomics in no fixed order, so its
-last bits vary from run to run; the same tolerances cover that.
+last bits vary from run to run; the same tolerances cover that. The split
+backward's dq (K4c) has no atomics and must be the same bits on every run.
 """
 
 import numpy as np
@@ -234,3 +235,143 @@ def test_cuda_train_step_matches_cpu(cuda_dev):
     # the full-LR updates move parameters well past that tolerance
     assert max((a - p.detach()).abs().max().item()
                for a, p in zip(results[0][1], dit.parameters())) > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,l,d,masked,block_k", [
+    (6, 16, 1248, 72, False, None),   # the XL training shape
+    (2, 16, 2048, 72, False, None),   # the K3b route by length
+    (4, 16, 312, 72, False, None),    # the serving length
+    (3, 4, 1000, 24, True, None),     # masked, a fully masked batch row
+    (4, 16, 312, 72, False, 64)])     # lse from the forced online route
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_backward_kernels_match_plain(cuda_dev, b, h, l, d, masked, block_k, dtype):
+    """K4b (dk, dv) and K4c (dq) against their plain versions at the shapes of
+    chip_smoke.py's phase 6, with launch counts; dq is the same bits over two
+    launches, and dk / dv agree with K4a's."""
+    q, k, v, do, mask = _flash_inputs(b, h, l, l, d, dtype, cuda_dev, masked)
+    scale = d ** -0.5
+    with full_fp32():
+        o, lse = fa.flash_fwd_plain(q, k, v, mask, scale, fa.route_for(l, block_k))
+    delta = (do.float() * o.float()).sum(-1)
+    n = dict(fa.launches)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, mask, lse, do, delta, scale)
+    dq = fa.flash_bwd_dq(q, k, v, mask, lse, do, delta, scale)
+    dq2 = fa.flash_bwd_dq(q, k, v, mask, lse, do, delta, scale)
+    torch.cuda.synchronize()
+    assert (fa.launches["K4b"] - n["K4b"], fa.launches["K4c"] - n["K4c"],
+            fa.launches["K4a"] - n["K4a"]) == (1, 2, 0)
+    assert torch.equal(dq, dq2)
+    with full_fp32():
+        want_k, want_v = fa.flash_bwd_dkv_plain(q, k, v, mask, lse, do, delta, scale)
+        want_q = fa.flash_bwd_dq_plain(q, k, v, mask, lse, do, delta, scale)
+    for got, want in ((dq, want_q), (dk, want_k), (dv, want_v)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= _tol(want), err
+    _, fk, fv = fa.flash_bwd(q, k, v, mask, lse, do, delta, scale)
+    for got, want in ((dk, fk), (dv, fv)):
+        assert (got.float() - want.float()).abs().max().item() <= _tol(want)
+    if masked:  # a row with no valid key: zero gradients
+        assert not dq[-1].any() and not dk[-1].any() and not dv[-1].any()
+
+
+def _small_trainer_pair(tmp_path):
+    """The same small system (DiT with flash forced on, VAE, CLAP+FLAN) on the
+    CPU and on the card, each in a Trainer that trains the conditioner."""
+    import copy
+    import os
+    from maa3_tpu_torch.models.bert import BertConfig
+    from maa3_tpu_torch.models.bigvgan import BigVGANConfig
+    from maa3_tpu_torch.models.clap import CLAPFLANConfig
+    from maa3_tpu_torch.models.t5 import T5Config
+    from maa3_tpu_torch.system import MAA3System
+    from maa3_tpu_torch.train.loop import Trainer
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    up = "model.params.unet_config.params."
+    dd = "model.params.first_stage_config.params.ddconfig."
+    over = [up + "hidden_size=64", up + "depth=2", up + "num_heads=4",
+            up + "context_dim=32", up + "multiple_of=32", up + "use_flash=true",
+            dd + "ch=32", dd + "ch_mult=[1, 2]", dd + "num_res_blocks=1",
+            # the std rescale would draw its noise from each device's own generator
+            "model.params.scale_by_std=false"]
+    clap = CLAPFLANConfig(bert=BertConfig(hidden_size=32, num_layers=1, num_heads=4,
+                                          intermediate_size=64),
+                          t5=T5Config(d_model=32, d_kv=8, d_ff=48, num_layers=1,
+                                      num_heads=4), d_proj=32)
+    voc = BigVGANConfig(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
+                        upsample_initial_channel=64)
+    cpu = MAA3System.from_config([os.path.join(root, "configs", "txt2audio-cfm-cfg-XL.yaml")],
+                                 over, seed=3, compute_dtype=torch.float32, device="cpu",
+                                 clap_cfg=clap, voc_cfg=voc, unfreeze=True)
+    gpu = MAA3System(cpu.spec, *(copy.deepcopy(m).cuda() for m in
+                                 (cpu.dit, cpu.vae, cpu.vocoder, cpu.cond)),
+                     compute_dtype=torch.float32)
+    out = []
+    for i, s in enumerate((cpu, gpu)):
+        out.append(Trainer(s, batch_size=2, lr_multiplier=1.0, warm_up_steps=0,
+                           log_every=1, ckpt_every=0, ckpt_dir=str(tmp_path / str(i))))
+        # full LR from the first update, so parameters move past the tolerance
+        out[-1].state.optimizer.schedule = lambda n: 1e-3
+    return out
+
+
+def _raw_batch(seed):
+    g = np.random.RandomState(seed)
+    caps = ["a dog barks", "rain on a tin roof"]
+    return {"image": g.randn(2, 80, 96).astype(np.float32) - 4.0,
+            "caption": {"ori_caption": caps, "struct_caption": [f"<{c}& all>" for c in caps]}}
+
+
+@pytest.mark.cuda
+def test_cuda_split_train_steps_with_conditioner_match_cpu(cuda_dev, tmp_path, monkeypatch):
+    """Two fp32 Trainer steps with MAA3_FLASH_BWD=split (K3a, K4b, K4c on the
+    card) that train the DiT and the conditioner, on the card and on the CPU
+    from the same weights and draws: loss, grad norm and every parameter."""
+    monkeypatch.setenv("MAA3_FLASH_BWD", "split")
+    trainers = _small_trainer_pair(tmp_path)
+    g = torch.Generator().manual_seed(1)
+    draws = [{"noise": torch.randn(2, 20, 48, generator=g),
+              "t_int": torch.randint(0, 1000, (2,), generator=g),
+              "x0": torch.randn(2, 20, 48, generator=g)} for _ in range(2)]
+    start = [p.detach().clone() for p in trainers[0].state.trainable_parameters()]
+    n = dict(fa.launches)
+    results = []
+    for tr in trainers:
+        ms = [tr.train_step(_raw_batch(i), draws={k: t.to(tr.device) for k, t in d.items()})
+              for i, d in enumerate(draws)]
+        results.append((ms, [p.detach().cpu() for p in tr.state.trainable_parameters()]))
+    assert {k: fa.launches[k] - n[k] for k in ("K3a", "K4a", "K4b", "K4c")} == {
+        "K3a": 4, "K4a": 0, "K4b": 4, "K4c": 4}  # 2 blocks x 2 steps, on the card only
+    for mc, mg in zip(results[0][0], results[1][0]):
+        for key in ("loss", "grad_norm"):
+            assert abs(mc[key].item() - mg[key].item()) <= 1e-4 * abs(mc[key].item())
+    for a, b in zip(results[0][1], results[1][1]):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, a.abs().max().item())
+    n_cond = sum(1 for _ in trainers[0].state.cond.parameters())
+    moved = [(a - s).abs().max().item() for a, s in zip(results[0][1], start)]
+    assert max(moved[-n_cond:]) > 1e-3 and max(moved[:-n_cond]) > 1e-3
+
+
+@pytest.mark.cuda
+def test_train_latent_and_loss_match_cpu_without_outer_fp32(cuda_dev, tmp_path):
+    """The training step's frozen VAE encode runs in fp32 on the card by
+    itself: with cuDNN's TF32 allowed (its default) and no full_fp32() around
+    the call, the latent and the step's loss match the CPU to 1e-4."""
+    from maa3_tpu_torch.train.step import sample_latent
+    trainers = _small_trainer_pair(tmp_path)
+    g = torch.Generator().manual_seed(2)
+    draws = {"noise": torch.randn(2, 20, 48, generator=g),
+             "t_int": torch.randint(0, 1000, (2,), generator=g),
+             "x0": torch.randn(2, 20, 48, generator=g)}
+    zs, losses = [], []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        for tr in trainers:
+            batch = tr.prepare_batch(_raw_batch(0))
+            zs.append(sample_latent(tr.state.vae, batch, noise=draws["noise"].to(tr.device)).cpu())
+            m = tr.train_step(_raw_batch(0), draws={k: t.to(tr.device) for k, t in draws.items()})
+            losses.append(m["loss"].item())
+    assert (zs[0] - zs[1]).abs().max().item() <= 1e-4 * max(1.0, zs[0].abs().max().item())
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[0])

@@ -4,7 +4,9 @@ attention in interpret mode: the same numpy inputs, fp32, o, lse and the
 gradients of q, k, v at rtol 1e-3 / atol 1e-4, on both routes (direct, and
 online through block_k), masked and maskless. Also the two places where the
 port departs from the JAX bodies on purpose: a query row whose keys are all
-masked, and the maskless backward with very negative scores."""
+masked, and the maskless backward with very negative scores. The split
+backward (MAA3_FLASH_BWD=split: K4b's and K4c's plain versions) against the
+JAX package's split branch, and the switch's routing on the CPU."""
 
 import math
 
@@ -154,5 +156,62 @@ def test_wrappers_refuse_other_devices():
     q = torch.empty(1, 1, 8, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tfa.flash_fwd(q, q, q, None, 0.3, "direct")
-    with pytest.raises(ValueError, match="unsupported device"):
-        tfa.flash_bwd(q, q, q, None, q[0, 0, :, 0], q, q[..., 0], 0.3)
+    for bwd in (tfa.flash_bwd, tfa.flash_bwd_dkv, tfa.flash_bwd_dq):
+        with pytest.raises(ValueError, match="unsupported device"):
+            bwd(q, q, q, None, q[0, 0, :, 0], q, q[..., 0], 0.3)
+
+
+def _count_plain_backwards(monkeypatch):
+    """Wrap the three plain backwards; returns the dict of their call counts."""
+    calls = {}
+    for name in ("flash_bwd_plain", "flash_bwd_dkv_plain", "flash_bwd_dq_plain"):
+        real = getattr(tfa, name)
+        calls[name] = 0
+
+        def wrapped(*a, _real=real, _name=name):
+            calls[_name] += 1
+            return _real(*a)
+
+        monkeypatch.setattr(tfa, name, wrapped)
+    return calls
+
+
+@pytest.mark.parametrize("b,h,l,d,masked", [(2, 3, 48, 24, False), (2, 3, 200, 72, True),
+                                            (3, 2, 77, 24, True)],
+                         ids=["maskless", "masked", "odd"])
+def test_split_backward_matches_jax(monkeypatch, b, h, l, d, masked):
+    """MAA3_FLASH_BWD=split in both packages: the port's K4b / K4c plain
+    versions against the JAX split branch (_bwd_dkv_kernel, _bwd_dq_kernel,
+    in interpret mode; a maskless call re-enters there with an all-ones
+    mask), o and the gradients of q, k, v."""
+    monkeypatch.setenv("MAA3_FLASH_BWD", "split")
+    calls = _count_plain_backwards(monkeypatch)
+    q, k, v, do, mask = _inputs(b, h, l, d, masked, seed=11)
+    want = _jax(q, k, v, do, mask)
+    got = _port(q, k, v, do, mask)
+    assert calls == {"flash_bwd_plain": 0, "flash_bwd_dkv_plain": 1,
+                     "flash_bwd_dq_plain": 1}
+    for name, a, w in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("mode", [None, "auto", "fused", "split"])
+def test_backward_switch_routes_on_cpu(monkeypatch, mode):
+    """split runs the two plain versions of K4b and K4c; auto (the default)
+    and fused run K4a's; the two give the same gradients. Other values raise."""
+    if mode is None:
+        monkeypatch.delenv("MAA3_FLASH_BWD", raising=False)
+    else:
+        monkeypatch.setenv("MAA3_FLASH_BWD", mode)
+    calls = _count_plain_backwards(monkeypatch)
+    q, k, v, do, mask = _inputs(2, 2, 40, 24, True, seed=4)
+    got = _port(q, k, v, do, mask)
+    split = mode == "split"
+    assert calls == {"flash_bwd_plain": int(not split), "flash_bwd_dkv_plain": int(split),
+                     "flash_bwd_dq_plain": int(split)}
+    monkeypatch.setenv("MAA3_FLASH_BWD", "fused" if split else "split")
+    for a, w in zip(got[1:], _port(q, k, v, do, mask)[1:]):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-6, atol=1e-6)
+    monkeypatch.setenv("MAA3_FLASH_BWD", "Split")
+    with pytest.raises(ValueError, match="MAA3_FLASH_BWD"):
+        _port(q, k, v, do, mask)

@@ -3,10 +3,15 @@ rtol 1e-3 / atol 1e-4: the VAE encoder and posterior sample, the CFM loss
 with JAX's random draws replayed, the optimizer (clip + AdamW + LambdaLinear
 schedule) against optax, EMA, and two make_train_step steps of a small
 config with flash attention forced on, remat off and on (loss, gradients,
-grad norm and every parameter). Then Trainer.fit and the training CLI for two
-steps on clips of data/synth, and the data helpers against the JAX ones."""
+grad norm and every parameter), and two steps that also train a small
+CLAP+FLAN conditioner with the split flash backward. Then Trainer.fit and the
+training CLI on clips of data/synth (the CLI with the YAML's trainable
+conditioner, periodic checkpoints and -r), checkpoints saved and restored
+(the next step equal to the uninterrupted run's, rotation, tags, refusals),
+and the data helpers against the JAX ones."""
 
 import dataclasses
+import itertools
 import json
 import os
 
@@ -19,7 +24,10 @@ import torch
 
 from maa3_tpu.data import datasets as jdata
 from maa3_tpu.diffusion import cfm as jcfm
+from maa3_tpu.models import bert as jbert
+from maa3_tpu.models import clap as jclap
 from maa3_tpu.models import dit as jdit
+from maa3_tpu.models import t5 as jt5
 from maa3_tpu.models import vae1d as jvae
 from maa3_tpu.train import optim as joptim
 from maa3_tpu.train import step as jstep
@@ -27,12 +35,15 @@ from maa3_tpu.utils.nprand import unfreeze_zero_init
 from maa3_tpu_torch import config as tconfig
 from maa3_tpu_torch.data import datasets as tdata
 from maa3_tpu_torch.diffusion import cfm as tcfm
+from maa3_tpu_torch.models import bert as tbert
+from maa3_tpu_torch.models import clap as tclap
 from maa3_tpu_torch.models import dit as tdit
+from maa3_tpu_torch.models import t5 as tt5
 from maa3_tpu_torch.models import vae1d as tvae
 from maa3_tpu_torch.ops import flash_attention as tfa
 from maa3_tpu_torch.train import optim as toptim
 from maa3_tpu_torch.train import step as tstep
-from maa3_tpu_torch.weights import dit_from_jax, vae_from_jax
+from maa3_tpu_torch.weights import clap_flan_from_jax, dit_from_jax, vae_from_jax
 
 torch.set_num_threads(2)
 
@@ -43,6 +54,8 @@ VAE = dict(in_channels=16, out_ch=16, ch=32, ch_mult=(1, 2), num_res_blocks=1,
            attn_layers=(), z_channels=4, embed_dim=4)
 DIT = dict(in_channels=4, context_dim=32, hidden_size=64, depth=2, num_heads=4,
            multiple_of=32)
+BERT = dict(vocab_size=100, hidden_size=32, num_layers=1, num_heads=4, intermediate_size=64)
+T5 = dict(vocab_size=120, d_model=32, d_kv=8, d_ff=48, num_layers=1, num_heads=4)
 
 
 def _np(tree):
@@ -202,14 +215,81 @@ def test_train_steps_match_jax(remat):
     assert tfa.launches == n0  # the CPU path runs the plain versions
 
 
-def test_trainer_fit_and_cli_on_synth_clips(tmp_path, monkeypatch):
+def test_train_steps_with_conditioner_match_jax(monkeypatch):
+    """Two steps that train the DiT and a small CLAP+FLAN conditioner together
+    (maa3_tpu/train/step.py with its `conditioner`), with MAA3_FLASH_BWD=split
+    in both packages: loss, grad norm (over both modules) and every parameter
+    of both after each step."""
+    monkeypatch.setenv("MAA3_FLASH_BWD", "split")
+    jcfg, pd, pv, dit, vae = _train_pair(False)
+    ccfg = jclap.CLAPFLANConfig(bert=jbert.BertConfig(**BERT), t5=jt5.T5Config(**T5),
+                                d_proj=32)
+    pc = jclap.clap_flan_init(jax.random.PRNGKey(5), ccfg)
+    cond = tclap.CLAPFLAN(tclap.CLAPFLANConfig(bert=tbert.BertConfig(**BERT),
+                                               t5=tt5.T5Config(**T5), d_proj=32))
+    cond.load_state_dict(clap_flan_from_jax(_np(pc)))
+    kw = dict(base_lr=1e-3, lr_multiplier=1.0, warm_up_steps=0)
+    jopt = joptim.make_optimizer(**kw)
+    jst = jstep.create_train_state({"dit": pd, "cond": pc}, {"vae": pv}, jopt,
+                                   use_ema=True, scale_factor=0.7)
+
+    def jcond(params, batch):
+        return jclap.clap_flan_encode(params["cond"], ccfg, batch["ori_ids"],
+                                      batch["struct_ids"], batch["ori_mask"],
+                                      batch["struct_mask"])
+
+    jtrain = jax.jit(jstep.make_train_step(jcfg, jvae.VAEConfig(**VAE), jopt,
+                                           compute_dtype=jnp.float32, conditioner=jcond))
+    params = list(dit.parameters()) + list(cond.parameters())
+    tst = tstep.create_train_state(dit, vae, toptim.make_optimizer(params, **kw),
+                                   use_ema=True, scale_factor=0.7, cond=cond)
+    ttrain = tstep.make_train_step(compute_dtype=torch.float32,
+                                   conditioner=tclap.clap_flan_encode_batch)
+    start = [p.detach().clone() for p in cond.parameters()]
+    rng = np.random.RandomState(6)
+    n0 = tfa.launches.copy()
+    for i in range(2):
+        mel = rng.randn(2, 16, 40).astype(np.float32)
+        tokens = {"ori_ids": rng.randint(0, 100, (2, 12)), "struct_ids": rng.randint(0, 120, (2, 12)),
+                  "ori_mask": np.ones((2, 12), np.int32), "struct_mask": np.ones((2, 12), np.int32)}
+        tokens["ori_mask"][1, 7:] = 0
+        tokens["struct_mask"][0, 9:] = 0
+        key = jax.random.PRNGKey(20 + i)
+        kvae, kcfm = jax.random.split(key)
+        noise = np.asarray(jax.random.normal(kvae, (2, 4, 20), jnp.float32))
+        t_int, x0 = _cfm_draws(kcfm, 2, (2, 4, 20))
+        jst, jm = jtrain(jst, {"mel": jnp.asarray(mel),
+                               **{k: jnp.asarray(v, jnp.int32) for k, v in tokens.items()}}, key)
+        tm = ttrain(tst, {"mel": torch.tensor(mel),
+                          **{k: torch.tensor(v, dtype=torch.int64) for k, v in tokens.items()}},
+                    draws={"noise": torch.tensor(noise), "t_int": torch.tensor(t_int),
+                           "x0": torch.tensor(x0)})
+        _cmp(tm["loss"], jm["loss"])
+        _cmp(tm["grad_norm"], jm["grad_norm"])
+        for mod, conv, jp in ((dit, dit_from_jax, jst.params["dit"]),
+                              (cond, clap_flan_from_jax, jst.params["cond"])):
+            want = conv(_np(jp))
+            for n, p in mod.named_parameters():
+                _cmp(p, want[n])
+        jema = dit_from_jax(_np(jst.ema_params["dit"])) | clap_flan_from_jax(
+            _np(jst.ema_params["cond"]))
+        names = [n for n, _ in dit.named_parameters()] + [n for n, _ in cond.named_parameters()]
+        for n, e in zip(names, tst.ema):
+            _cmp(e, jema[n])
+    assert max((p.detach() - s).abs().max().item()
+               for p, s in zip(cond.parameters(), start)) > 1e-3
+    assert tfa.launches == n0  # the CPU path runs the plain versions
+
+
+def _small_synth_setup(tmp_path, monkeypatch):
+    """Four clips of data/synth in a manifest, tiny-model overrides of the XL
+    config, and MAA3System.from_config patched to a tiny conditioner and
+    vocoder. Returns the overrides."""
     from maa3_tpu_torch.models.bert import BertConfig
     from maa3_tpu_torch.models.bigvgan import BigVGANConfig
     from maa3_tpu_torch.models.clap import CLAPFLANConfig
     from maa3_tpu_torch.models.t5 import T5Config
     from maa3_tpu_torch.system import MAA3System
-    from maa3_tpu_torch.train import __main__ as cli
-    from maa3_tpu_torch.train.loop import Trainer
 
     rows = jdata.read_tsv(os.path.join(ROOT, "data", "synth", "manifest_mel.tsv"))[:4]
     tsv = tmp_path / "four.tsv"
@@ -222,7 +302,7 @@ def test_trainer_fit_and_cli_on_synth_clips(tmp_path, monkeypatch):
     dd = "model.params.first_stage_config.params.ddconfig."
     over = [up + "hidden_size=32", up + "depth=2", up + "num_heads=2", up + "context_dim=16",
             up + "multiple_of=16", up + "use_flash=true", dd + "ch=32", dd + "ch_mult=[1, 2]",
-            dd + "num_res_blocks=1", "model.params.cond_stage_trainable=false",
+            dd + "num_res_blocks=1",
             f"data.params.train.params.dataset_cfg.dataset_name={tsv}",
             "data.params.train.params.dataset_cfg.spec_crop_len=64"]
     real = MAA3System.from_config.__func__
@@ -236,11 +316,23 @@ def test_trainer_fit_and_cli_on_synth_clips(tmp_path, monkeypatch):
         return real(cls, paths, overrides, *a, **kw)
 
     monkeypatch.setattr(MAA3System, "from_config", classmethod(small))
-    system = MAA3System.from_config([XL], over, device="cpu", compute_dtype=torch.float32)
-    with pytest.raises(ValueError, match="conditioner"):
-        Trainer(system, train_cond=True, ckpt_dir=str(tmp_path / "no"))
-    data = tconfig.parse_data_config(tconfig.load_config([XL], over))
+    return over
+
+
+def test_trainer_fit_and_cli_on_synth_clips(tmp_path, monkeypatch):
+    """Trainer.fit with the frozen conditioner (cond_stage_trainable=false),
+    then the CLI on the YAML as written (trainable conditioner) with a
+    checkpoint every step, and the CLI again resumed from its `last`."""
+    from maa3_tpu_torch.system import MAA3System
+    from maa3_tpu_torch.train import __main__ as cli
+    from maa3_tpu_torch.train.loop import Trainer
+
+    over = _small_synth_setup(tmp_path, monkeypatch)
+    frozen = over + ["model.params.cond_stage_trainable=false"]
+    system = MAA3System.from_config([XL], frozen, device="cpu", compute_dtype=torch.float32)
+    data = tconfig.parse_data_config(tconfig.load_config([XL], frozen))
     trainer = Trainer(system, batch_size=2, log_every=1, ckpt_dir=str(tmp_path / "fit"))
+    assert trainer.state.cond is None
     before = [p.detach().clone() for p in system.dit.parameters()]
     m = trainer.fit(cli.build_loader(data, 2, 0, 8), max_steps=2)
     assert m["step"] == 2 and np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
@@ -251,10 +343,88 @@ def test_trainer_fit_and_cli_on_synth_clips(tmp_path, monkeypatch):
     val = trainer.evaluate(cli.build_loader(data, 2, 1, 8), max_batches=1)
     assert np.isfinite(val["val/loss_simple"])
 
+    ckpt = tmp_path / "cli"
     m = cli.main(["-b", XL, "--max_steps", "2", "--batch_size", "2", "--device", "cpu",
-                  "--fp32", "--remat", "--log_every", "1", "--ckpt_dir",
-                  str(tmp_path / "cli"), *over])
+                  "--fp32", "--remat", "--log_every", "1", "--ckpt_every", "1",
+                  "--ckpt_dir", str(ckpt), *over])
     assert m["step"] == 2 and np.isfinite(m["loss"])
+    assert sorted(os.listdir(ckpt)) == ["last.pt", "metrics.jsonl", "step_00000001.pt",
+                                        "step_00000002.pt"]
+    saved = torch.load(ckpt / "last.pt", weights_only=True)
+    assert sorted(saved["params"]) == ["cond", "dit"] and saved["step"] == 2
+    m = cli.main(["-b", XL, "-r", str(ckpt / "last.pt"), "--max_steps", "1",
+                  "--batch_size", "2", "--device", "cpu", "--fp32", "--log_every", "1",
+                  "--ckpt_every", "0", "--ckpt_dir", str(tmp_path / "resumed"), *over])
+    assert m["step"] == 3 and np.isfinite(m["loss"])
+    resumed = torch.load(tmp_path / "resumed" / "last.pt", weights_only=True)
+    assert resumed["step"] == 3 and resumed["scale_factor"] == saved["scale_factor"]
+
+
+def test_checkpoint_resume_equals_uninterrupted(tmp_path, monkeypatch, capsys):
+    """A Trainer of the YAML as written (DiT + conditioner) saves after step
+    1; a fresh Trainer restored from it takes step 2 exactly as the
+    uninterrupted one does. Then rotation (keep_last_k), the tags, the crash
+    save, a file without the frozen VAE, and the two refusals of a file
+    whose trainable set differs from the trainer's."""
+    from maa3_tpu_torch.system import MAA3System
+    from maa3_tpu_torch.train import __main__ as cli
+    from maa3_tpu_torch.train.loop import Trainer
+
+    over = _small_synth_setup(tmp_path, monkeypatch)
+    data = tconfig.parse_data_config(tconfig.load_config([XL], over))
+    raws = list(itertools.islice(cli.build_loader(data, 2, 0, 8), 2))
+
+    def make(ckpt_dir, train_cond=None):
+        s = MAA3System.from_config([XL], over, device="cpu", compute_dtype=torch.float32,
+                                   unfreeze=True)
+        return Trainer(s, batch_size=2, log_every=1, ckpt_every=0, ckpt_dir=str(ckpt_dir),
+                       train_cond=train_cond)
+
+    a = make(tmp_path / "a")
+    assert a.state.cond is a.system.cond
+    a.train_step(raws[0])
+    path = a.save_checkpoint()
+    assert os.path.basename(path) == "step_00000001.pt"
+    ma = a.train_step(raws[1])
+    b = make(tmp_path / "b")
+    b.restore_checkpoint(path)
+    assert b.state.step == 1 and b.state.scale_factor == a.state.scale_factor
+    mb = b.train_step(raws[1])
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(ma[k], mb[k]), k
+    for pa, pb in zip(a.state.trainable_parameters(), b.state.trainable_parameters()):
+        assert torch.equal(pa, pb)
+    b.sync_system_params()
+    assert b.system.cond is b.state.cond and b.system.scale_factor == b.state.scale_factor
+    payload = torch.load(path, weights_only=True)
+    del payload["frozen"]
+    torch.save(payload, tmp_path / "no_frozen.pt")
+
+    for _ in range(3):  # steps 3, 4, 5: periodic saves rotate, tagged ones stay
+        a.train_step(raws[0])
+        a.save_checkpoint(keep_last_k=2)
+    a.save_checkpoint(tag="last")
+    a.save_checkpoint(tag="usr1")
+
+    def boom(*_):
+        raise RuntimeError("boom")
+
+    a._train_step = boom
+    with pytest.raises(RuntimeError, match="boom"):
+        a.train_step(raws[0])
+    assert sorted(os.listdir(tmp_path / "a")) == [
+        "crash.pt", "last.pt", "step_00000004.pt", "step_00000005.pt", "usr1.pt"]
+
+    vae_before = [t.clone() for t in b.state.vae.state_dict().values()]
+    b.restore_checkpoint(str(tmp_path / "no_frozen.pt"))
+    assert "keeping the current one" in capsys.readouterr().out
+    assert all(torch.equal(x, y) for x, y in zip(vae_before, b.state.vae.state_dict().values()))
+
+    frozen = make(tmp_path / "frozen", train_cond=False)
+    with pytest.raises(ValueError, match="cond_stage_trainable"):
+        frozen.restore_checkpoint(str(tmp_path / "a" / "last.pt"))
+    with pytest.raises(ValueError, match="cond_stage_trainable"):
+        b.restore_checkpoint(frozen.save_checkpoint(tag="last"))
 
 
 def test_config_reads_training_settings():
