@@ -5,7 +5,10 @@
 
 Phases, each timed on a line of its own:
   1. environment: card name and power limit (nvidia-smi), torch, nvcc;
-  2. build: nvcc compiles maa3_tpu_torch/csrc into build/ (ctypes-loaded);
+  2. build: nvcc compiles maa3_tpu_torch/csrc into build/ (ctypes-loaded),
+     with each kernel's registers and spills; cuobjdump's SASS of the
+     library must show tensor-core instructions (HMMA/HGMMA) in every bf16
+     flash forward kernel and none in any fp32 kernel (no TF32);
   3. kernels: K1 (AA-snake) and K2 (AA-snake -> conv) against their plain
      PyTorch versions at every shape the XL batch-4 vocode gives them, in
      fp32 and bf16, with error, kernel time, plain time and bound;
@@ -22,10 +25,12 @@ Phases, each timed on a line of its own:
      at the XL training shape, the K3b route, the serving length, an odd
      masked length with a fully masked batch row, and a forced block_k, with
      kernel, plain, bound and library (scaled_dot_product_attention, timed
-     as a yardstick only) times; the split's dk / dv against K4a's and K4c's
-     dq the same bits over two launches; then the long-Lq timing at
-     (1, 16, 14336, 72) bf16: K4a against K4b + K4c against SDPA's backward,
-     and the split held to the plain versions two heads at a time;
+     as a yardstick only) times, and each forward's achieved TFLOP/s and
+     share of its bound; the split's dk / dv against K4a's, and K3a's / K3b's
+     o and lse and K4c's dq the same bits over two launches; then the long-Lq
+     timing at (1, 16, 14336, 72) bf16: the K3b forward against SDPA's
+     forward, K4a against K4b + K4c against SDPA's backward, all held to the
+     plain versions two heads at a time;
   7. small training on the card against the CPU: two fp32 steps of a small
      DiT with flash attention forced on, same weights and draws; then two
      Trainer steps that also train a small conditioner with
@@ -121,6 +126,46 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def kernel_name(mangled: str) -> str:
+    """A short name of a mangled kernel symbol, e.g.
+    ..._26flash_fwd_tc_direct_kernelILi72ELi8EEEv... -> flash_fwd_tc_direct_kernel<72, 8>."""
+    m = re.search(r"\d([a-z][a-z_]*kernel)I((?:f|13__nv_bfloat16|Li\d+E|Lb[01]E)+)E",
+                  mangled)
+    if not m:
+        return mangled[:60]
+    args = [{"f": "fp32", "13__nv_bfloat16": "bf16"}.get(a, a.strip("LibE") or "0")
+            for a in re.findall(r"f|13__nv_bfloat16|Li\d+E|Lb[01]E", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def check_sass(lib_path: str, nvcc: str) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) per kernel in the built
+    library's SASS (cuobjdump): every bf16 flash forward kernel must have
+    some, and no kernel instantiated for fp32 may have any (that would be
+    TF32). Returns {short name: count}."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = kernel_name(fn.group(1))
+            counts[name] = 0
+        elif name and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    fwd_tc = {k: v for k, v in counts.items() if k.startswith("flash_fwd_tc_")}
+    fp32 = {k: v for k, v in counts.items() if "<fp32" in k}
+    for k in sorted(fwd_tc):
+        log(f"sass: {k}: {fwd_tc[k]} HMMA/HGMMA")
+    log(f"sass: {len(counts)} kernels; fp32 kernels with tensor-core instructions: "
+        f"{sorted(k for k, v in fp32.items() if v)}")
+    require(len(fwd_tc) == 16 and all(v > 0 for v in fwd_tc.values()),
+            f"every bf16 flash forward kernel runs on the tensor cores: {fwd_tc}")
+    require(fp32 and not any(fp32.values()), f"no fp32 kernel uses TF32: {fp32}")
+    return counts
 
 
 def time_ms(fn, reps: int = 7) -> float:
@@ -391,7 +436,12 @@ def check_flash(torch, fa, full_fp32):
                     return fa.flash_fwd_plain(q, k, v, mask, scale, route)
 
             o, lse = fwd()
+            o_again, lse_again = fwd()
             o_ref, lse_ref = fwd_plain()
+            torch.cuda.synchronize()
+            require(torch.equal(o, o_again) and torch.equal(lse, lse_again),
+                    f"{fwd_name} gives the same bits over two launches at {(b, h, L, d)}")
+            del o_again, lse_again
             delta = (do.float() * o_ref.float()).sum(-1)
 
             def bwd():
@@ -474,16 +524,21 @@ def check_flash(torch, fa, full_fp32):
                                  err=err, tol=min(errs[x][1] for x in keys),
                                  errs={x: errs[x] for x in keys},
                                  ms=time_ms(kern), plain_ms=time_ms(plain),
-                                 library_ms=time_ms(lib),
+                                 library_ms=time_ms(lib), flops=flops,
                                  bytes_ms=nbytes / PEAK_BW * 1e3,
                                  ops_ms=flops / peak * 1e3))
             del q, k, v, do, ql, kl, vl, lo, delta, lse_ref
             torch.cuda.empty_cache()
     for r in rows:
         r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+        # useful operations per second (the unpadded head dim, valid keys only)
+        # and the share of the bound, for the forward rows
+        rate = (f" ({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, "
+                f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound)"
+                if r["kernel"] in ("K3a", "K3b") else "")
         log(f"{r['kernel']} {r['dtype']:8s} {str(r['shape']):40s} err {r['err']:.3e} "
-            f"kernel {r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms bound "
-            f"{r['bound_ms']:.4f} ms library {r['library_ms']:.3f} ms")
+            f"kernel {r['ms']:.4f} ms{rate} plain {r['plain_ms']:.3f} ms bound "
+            f"{r['bound_ms']:.4f} ms library {r['library_ms']:.4f} ms")
     bad = [r for r in rows if not all(e <= lim for e, lim in r["errs"].values())]
     require(not bad, f"flash kernels agree with their plain versions: {bad}")
     return rows
@@ -500,7 +555,33 @@ def long_lq(torch, fa, full_fp32):
     q, k, v, do = (torch.randn(b, h, L, d, generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(4))
     scale = d ** -0.5
-    o, lse = fa.flash_fwd(q, k, v, None, scale, fa.route_for(L))
+    route = fa.route_for(L)
+    require(route == "online", "long-Lq: the forward takes the online route (K3b)")
+    o, lse = fa.flash_fwd(q, k, v, None, scale, route)
+    # the forward (K3b, the inference route above 4096 tokens) against SDPA's
+    # forward, and held to the plain version two heads at a time
+    fwd_ms = time_ms(lambda: fa.flash_fwd(q, k, v, None, scale, route), reps=5)
+    with torch.no_grad():
+        sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                              reps=5)
+    fwd_err = 0.0
+    for h0 in range(0, h, 2):
+        sl = slice(h0, h0 + 2)
+        with full_fp32():
+            o_ref, lse_ref = fa.flash_fwd_plain(*(t[:, sl].contiguous() for t in (q, k, v)),
+                                                None, scale, route)
+        for got, want, tol in ((o[:, sl], o_ref, TOL_BF16), (lse[sl], lse_ref, TOL_FP32)):
+            err = (got.float() - want.float()).abs().max().item()
+            lim = tol * max(1.0, want.abs().max().item())
+            require(bool(torch.isfinite(got).all()) and err <= lim,
+                    f"long-Lq forward heads {h0}-{h0 + 1}: {err} <= {lim}")
+        fwd_err = max(fwd_err, (o[:, sl].float() - o_ref.float()).abs().max().item())
+        del o_ref, lse_ref
+    flops = 4 * b * h * L * L * d
+    bound = max(flops / PEAK_BF16, (4 * b * h * L * d * 2 + 4 * b * h * L) / PEAK_BW) * 1e3
+    log(f"long-Lq {LONG_LQ} bf16 forward: K3b {fwd_ms:.3f} ms "
+        f"({flops / fwd_ms / 1e9:.1f} TFLOP/s, {100 * bound / fwd_ms:.1f} % of the bound "
+        f"{bound:.4f} ms), SDPA forward {sdpa_fwd_ms:.3f} ms, max |o - plain| {fwd_err:.3e}")
     delta = (do.float() * o.float()).sum(-1)
     del o
     args = (q, k, v, None, lse, do, delta, scale)
@@ -512,6 +593,7 @@ def long_lq(torch, fa, full_fp32):
           "library": time_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
                                                          retain_graph=True), reps=3)}
     ms["split"] = ms["K4b"] + ms["K4c"]
+    ms["K3b"], ms["library_fwd"] = fwd_ms, sdpa_fwd_ms
     del lo, ql, kl, vl
     fused = fa.flash_bwd(*args)
     split = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
@@ -852,14 +934,11 @@ def main() -> int:
     kernel = ""
     for line in cuda.build_info["log"].splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
-        if entry:  # e.g. ..._23flash_bwd_dq_kernelI13__nv_bfloat16Li72EE... -> short name
-            m = re.search(r"\d([a-z][a-z_]*kernel)I(f|13__nv_bfloat16)(?:Li(\d+)E)?",
-                          entry.group(1))
-            kernel = (f"{m.group(1)}<{'fp32' if m.group(2) == 'f' else 'bf16'}"
-                      f"{', ' + m.group(3) if m.group(3) else ''}>" if m
-                      else entry.group(1)[:60])
+        if entry:
+            kernel = kernel_name(entry.group(1))
         elif "registers" in line or "spill" in line or "error" in line.lower():
             log(f"build: {kernel}: {line.strip()}")
+    check_sass(cuda.build_info["path"], cuda.nvcc_path())
 
     from maa3_tpu_torch import system as system_mod
     from maa3_tpu_torch.ops import pallas_aa_snake as k1, pallas_amp as k2

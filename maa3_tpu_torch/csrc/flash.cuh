@@ -10,7 +10,9 @@
 // sit in shared memory as fp32 values already rounded to the input type, in
 // rows of pitch D_pad + 1 (or 64 + 1) so the strided reads of a product hit
 // distinct banks; D_pad is a multiple of 8 >= D and the columns D .. D_pad-1
-// are zero. Products are plain fp32 FMA loops (no tensor cores yet).
+// are zero. Products are plain fp32 FMA loops: the backward kernels and the
+// fp32 forward use them; the bf16 forward runs on the tensor cores with the
+// pieces of flash_mma.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -153,7 +155,9 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
   }
 }
 
-// The padded head dim a kernel is instantiated for (0: unsupported).
+// The padded head dim a kernel is instantiated for (0: unsupported). The
+// bf16 forward pads its products' depth further, to mma_k_dim (flash_mma.cuh:
+// 32 -> 32, 72 -> 80), and keeps this one for its output columns.
 inline int padded_dim(int d) {
   if (d <= 0) return 0;
   if (d <= 32) return 32;

@@ -1,6 +1,8 @@
 """K3a / K3b / K4a / K4b / K4c: flash attention at O(L) memory, forward and
 backward (counterpart of maa3_tpu/ops/flash_attention.py; the kernels are
 CUDA C++, csrc/flash_fwd.cu, csrc/flash_bwd.cu and csrc/flash_bwd_split.cu).
+The bf16 forward runs on the tensor cores (wgmma); the fp32 forward and the
+backward kernels run fp32 FMA loops.
 
 `flash_attention(q, k, v, mask)` on (B, H, L, D) tensors is differentiable
 through `_FlashCore`, the counterpart of the JAX custom VJP `_flash_core`: the

@@ -142,7 +142,15 @@ def _flash_inputs(b, h, lq, lk, d, dtype, dev, masked, seed=0):
     (1, 2, 1600, 1600, 72, False, None),  # K3b by length
     (3, 2, 100, 300, 48, True, 64),       # K3b by block_k, masked
     (2, 1, 65, 70, 50, False, None),      # a head dim padded to 72 in shared memory
-    (2, 2, 33, 40, 16, False, 64)])
+    (2, 2, 33, 40, 16, False, 64),
+    # edges of the bf16 tensor-core tiling: one query row and 5 keys (less
+    # than one 16-key mma depth) at D = 8; 17 rows and 129 keys (one key
+    # past two 64-key tiles) at D = 40 and 64; the ragged XL tail (1248 =
+    # 19.5 tiles of 64 rows)
+    (1, 2, 1, 5, 8, False, None),
+    (2, 2, 17, 129, 40, True, None),
+    (1, 3, 17, 129, 64, False, 64),
+    (2, 2, 1248, 1248, 72, False, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(cuda_dev, b, h, lq, lk, d, masked, block_k, dtype):
     q, k, v, do, mask = _flash_inputs(b, h, lq, lk, d, dtype, cuda_dev, masked)
@@ -167,6 +175,62 @@ def test_flash_kernels_match_plain(cuda_dev, b, h, lq, lk, d, masked, block_k, d
         assert err <= _tol(want), err
     if masked and b >= 3:  # a row with no valid key: o = 0, zero gradients
         assert not o[-1].any() and not any(g[-1].any() for g in grads)
+
+
+def _fwd_matches_plain(q, k, v, mask, route):
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, mask, scale, route)
+    with full_fp32():
+        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, mask, scale, route)
+    torch.cuda.synchronize()
+    live = lse_ref > -1e29
+    for got, want in ((o, o_ref), (lse[live], lse_ref[live])):
+        assert torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= _tol(want), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["direct", "online"])
+def test_flash_forward_large_scores_match_plain(cuda_dev, route):
+    """q and k scaled up so that the scaled scores reach about +-80: the row
+    max has to be subtracted before exp2, in bf16 on the tensor cores."""
+    q, k, v, _, mask = _flash_inputs(2, 4, 200, 300, 72, torch.bfloat16, cuda_dev, True,
+                                     seed=4)
+    q, k = (q.float() * 3.5).to(torch.bfloat16), (k.float() * 3.5).to(torch.bfloat16)
+    s = (q.float() @ k.float().transpose(-1, -2)) * 72 ** -0.5 * fa.LOG2E
+    assert 50 < s.abs().max().item() < 150
+    _fwd_matches_plain(q, k, v, mask, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_flash_forward_unaligned_rows_match_plain(cuda_dev, offset):
+    """q, k and v as contiguous views that start `offset` bf16 values into a
+    wider buffer: the copies fall back to 2-, 4- or 8-byte widths."""
+    q, k, v, _, _ = _flash_inputs(2, 3, 150, 150, 72, torch.bfloat16, cuda_dev, False)
+
+    def shifted(t):
+        wide = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        view = wide[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    q, k, v = shifted(q), shifted(k), shifted(v)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2 * offset % 16
+    for route in ("direct", "online"):
+        _fwd_matches_plain(q, k, v, None, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["direct", "online"])
+def test_flash_forward_is_deterministic(cuda_dev, route):
+    """Two bf16 launches of each forward route give the same bits."""
+    q, k, v, _, mask = _flash_inputs(3, 4, 500, 700, 72, torch.bfloat16, cuda_dev, True)
+    a = fa.flash_fwd(q, k, v, mask, 72 ** -0.5, route)
+    b = fa.flash_fwd(q, k, v, mask, 72 ** -0.5, route)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.cuda

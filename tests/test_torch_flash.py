@@ -56,7 +56,7 @@ def _jax(q, k, v, do, mask, block_k=None):
     return run(*(jnp.asarray(a) for a in (q, k, v, do)))
 
 
-@pytest.mark.parametrize("d,l", [(24, 40), (72, 200)])
+@pytest.mark.parametrize("d,l", [(24, 40), (72, 200), (50, 130)])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("block_k", [None, 16], ids=["direct", "online"])
 def test_flash_matches_jax(d, l, masked, block_k):
