@@ -8,7 +8,8 @@ Phases, each timed on a line of its own:
   2. build: nvcc compiles maa3_tpu_torch/csrc into build/ (ctypes-loaded),
      with each kernel's registers and spills; cuobjdump's SASS of the
      library must show tensor-core instructions (HMMA/HGMMA) in every bf16
-     flash forward kernel and none in any fp32 kernel (no TF32);
+     flash forward kernel (flash_fwd_tc_*) and every bf16 key-tile backward
+     kernel (flash_bwd_tc_*: K4a, K4b), and none in any fp32 kernel (no TF32);
   3. kernels: K1 (AA-snake) and K2 (AA-snake -> conv) against their plain
      PyTorch versions at every shape the XL batch-4 vocode gives them, in
      fp32 and bf16, with error, kernel time, plain time and bound;
@@ -25,12 +26,12 @@ Phases, each timed on a line of its own:
      at the XL training shape, the K3b route, the serving length, an odd
      masked length with a fully masked batch row, and a forced block_k, with
      kernel, plain, bound and library (scaled_dot_product_attention, timed
-     as a yardstick only) times, and each forward's achieved TFLOP/s and
+     as a yardstick only) times, and each kernel's achieved TFLOP/s and
      share of its bound; the split's dk / dv against K4a's, and K3a's / K3b's
-     o and lse and K4c's dq the same bits over two launches; then the long-Lq
-     timing at (1, 16, 14336, 72) bf16: the K3b forward against SDPA's
-     forward, K4a against K4b + K4c against SDPA's backward, all held to the
-     plain versions two heads at a time;
+     o and lse, K4b's dk and dv and K4c's dq the same bits over two launches;
+     then the long-Lq timing at (1, 16, 14336, 72) bf16: the K3b forward
+     against SDPA's forward, K4a against K4b + K4c against SDPA's backward,
+     all held to the plain versions two heads at a time;
   7. small training on the card against the CPU: two fp32 steps of a small
      DiT with flash attention forced on, same weights and draws; then two
      Trainer steps that also train a small conditioner with
@@ -142,9 +143,11 @@ def kernel_name(mangled: str) -> str:
 
 def check_sass(lib_path: str, nvcc: str) -> dict:
     """Tensor-core instructions (HMMA, HGMMA) per kernel in the built
-    library's SASS (cuobjdump): every bf16 flash forward kernel must have
-    some, and no kernel instantiated for fp32 may have any (that would be
-    TF32). Returns {short name: count}."""
+    library's SASS (cuobjdump): every bf16 flash forward kernel
+    (flash_fwd_tc_*, 16 instantiations) and every bf16 key-tile backward
+    kernel (flash_bwd_tc_*: K4a and K4b, 16) must have some, and no kernel
+    instantiated for fp32 may have any (that would be TF32). Returns
+    {short name: count}."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           timeout=300, check=True).stdout
@@ -156,14 +159,15 @@ def check_sass(lib_path: str, nvcc: str) -> dict:
             counts[name] = 0
         elif name and re.search(r"\bH(G)?MMA\b", line):
             counts[name] += 1
-    fwd_tc = {k: v for k, v in counts.items() if k.startswith("flash_fwd_tc_")}
     fp32 = {k: v for k, v in counts.items() if "<fp32" in k}
-    for k in sorted(fwd_tc):
-        log(f"sass: {k}: {fwd_tc[k]} HMMA/HGMMA")
+    for prefix, what in (("flash_fwd_tc_", "forward"), ("flash_bwd_tc_", "backward")):
+        tc = {k: v for k, v in counts.items() if k.startswith(prefix)}
+        for k in sorted(tc):
+            log(f"sass: {k}: {tc[k]} HMMA/HGMMA")
+        require(len(tc) == 16 and all(v > 0 for v in tc.values()),
+                f"every bf16 flash {what} kernel runs on the tensor cores: {tc}")
     log(f"sass: {len(counts)} kernels; fp32 kernels with tensor-core instructions: "
         f"{sorted(k for k, v in fp32.items() if v)}")
-    require(len(fwd_tc) == 16 and all(v > 0 for v in fwd_tc.values()),
-            f"every bf16 flash forward kernel runs on the tensor cores: {fwd_tc}")
     require(fp32 and not any(fp32.values()), f"no fp32 kernel uses TF32: {fp32}")
     return counts
 
@@ -468,10 +472,12 @@ def check_flash(torch, fa, full_fp32):
             grads, grads_ref = bwd(), bwd_plain()
             split = (dq(), *dkv())
             split_ref = (dq_plain(), *dkv_plain())
-            dq_again = dq()
+            dq_again, (dk_again, dv_again) = dq(), dkv()
             torch.cuda.synchronize()
             require(torch.equal(split[0], dq_again),
                     f"K4c's dq is the same bits over two launches at {(b, h, L, d)}")
+            require(torch.equal(split[1], dk_again) and torch.equal(split[2], dv_again),
+                    f"K4b's dk and dv are the same bits over two launches at {(b, h, L, d)}")
             live = lse_ref > -1e29
             errs = {}
             for nm, got, want in (("o", o, o_ref), ("lse", lse[live], lse_ref[live]),
@@ -494,7 +500,7 @@ def check_flash(torch, fa, full_fp32):
             if masked:
                 require(not o[-1].any() and not any(t[-1].any() for t in grads + split),
                         "a fully masked row gives o = 0 and zero gradients")
-            del o, lse, grads, grads_ref, o_ref, split, split_ref, dq_again
+            del o, lse, grads, grads_ref, o_ref, split, split_ref, dq_again, dk_again, dv_again
 
             am = None if mask is None else mask.bool()[:, None, None, :]
             ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
@@ -532,13 +538,12 @@ def check_flash(torch, fa, full_fp32):
     for r in rows:
         r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
         # useful operations per second (the unpadded head dim, valid keys only)
-        # and the share of the bound, for the forward rows
-        rate = (f" ({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, "
-                f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound)"
-                if r["kernel"] in ("K3a", "K3b") else "")
+        # and the share of the bound
         log(f"{r['kernel']} {r['dtype']:8s} {str(r['shape']):40s} err {r['err']:.3e} "
-            f"kernel {r['ms']:.4f} ms{rate} plain {r['plain_ms']:.3f} ms bound "
-            f"{r['bound_ms']:.4f} ms library {r['library_ms']:.4f} ms")
+            f"kernel {r['ms']:.4f} ms ({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound) plain "
+            f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.4f} ms library "
+            f"{r['library_ms']:.4f} ms")
     bad = [r for r in rows if not all(e <= lim for e, lim in r["errs"].values())]
     require(not bad, f"flash kernels agree with their plain versions: {bad}")
     return rows
@@ -599,6 +604,8 @@ def long_lq(torch, fa, full_fp32):
     split = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
     require(torch.equal(split[0], fa.flash_bwd_dq(*args)),
             "long-Lq: K4c's dq is the same bits on every run")
+    require(all(torch.equal(a, b) for a, b in zip(split[1:], fa.flash_bwd_dkv(*args))),
+            "long-Lq: K4b's dk and dv are the same bits on every run")
     worst = 0.0
     for h0 in range(0, h, 2):
         sl = slice(h0, h0 + 2)
@@ -619,10 +626,16 @@ def long_lq(torch, fa, full_fp32):
         del dq_ref, dk_ref, dv_ref, part
     del q, k, v, do, lse, delta, split, fused
     torch.cuda.empty_cache()
+    # useful operations and the bound (operations) of each backward
+    pairs = b * h * L * L
+    rate = {n: (f * pairs * d / ms[n] / 1e9, 100 * f * pairs * d / PEAK_BF16 * 1e3 / ms[n])
+            for n, f in (("K4a", 10), ("K4b", 8), ("K4c", 6))}
     log(f"long-Lq {LONG_LQ} bf16: K4a {ms['K4a']:.2f} ms, split {ms['split']:.2f} ms "
         f"(K4b {ms['K4b']:.2f} + K4c {ms['K4c']:.2f}), SDPA backward "
         f"{ms['library']:.2f} ms; split / K4a {ms['split'] / ms['K4a']:.3f}; "
-        f"max |kernel - plain| {worst:.3e}")
+        + "; ".join(f"{n} {t:.1f} TFLOP/s, {p:.1f} % of its bound"
+                    for n, (t, p) in rate.items())
+        + f"; max |kernel - plain| {worst:.3e}")
     return ms
 
 
@@ -963,9 +976,10 @@ def main() -> int:
     log(f"flash kernels: {len(frows)} checks passed, {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     long_ms = long_lq(torch, fa, full_fp32)
-    log(f"long-Lq: auto runs K4a at every length; the split is "
-        f"{'FASTER' if long_ms['split'] < long_ms['K4a'] else 'slower'} than K4a at "
-        f"Lq {LONG_LQ[2]}, {time.perf_counter() - t:.2f} s")
+    log(f"long-Lq: auto runs K4a at every length, which "
+        f"{'NO LONGER holds' if long_ms['split'] < long_ms['K4a'] else 'still holds'}: "
+        f"the split is {'FASTER' if long_ms['split'] < long_ms['K4a'] else 'slower'} "
+        f"than K4a at Lq {LONG_LQ[2]}, {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     small_train_reference(torch, config_path, fa, full_fp32)

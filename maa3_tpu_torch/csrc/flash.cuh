@@ -1,5 +1,10 @@
 // Device code shared by the flash-attention kernels (flash_fwd.cu: K3a, K3b;
-// flash_bwd.cu: K4a; flash_bwd_split.cu: K4b, K4c).
+// flash_bwd.cu: K4a; flash_bwd_split.cu: K4b, K4c): the scalar fp32 FMA
+// route, and the constants and helpers the tensor-core route
+// (flash_mma.cuh, flash_bwd_tc.cuh) shares with it. The kernels built on it
+// replace the TPU kernels of maa3_tpu/ops/flash_attention.py named in each
+// .cu file (K4c: _bwd_dq_kernel, :299), and are bound by the FMA pipes'
+// rate: five products of a tile pair per 4 (Lq + Lk) D elements.
 //
 // Layout: q, o, do (BH, Lq, D) and k, v (BH, Lk, D), row-major, no padding
 // in device memory; an optional key mask (B, Lk) int32 (nonzero = valid)
@@ -10,9 +15,11 @@
 // sit in shared memory as fp32 values already rounded to the input type, in
 // rows of pitch D_pad + 1 (or 64 + 1) so the strided reads of a product hit
 // distinct banks; D_pad is a multiple of 8 >= D and the columns D .. D_pad-1
-// are zero. Products are plain fp32 FMA loops: the backward kernels and the
-// fp32 forward use them; the bf16 forward runs on the tensor cores with the
-// pieces of flash_mma.cuh.
+// are zero. Products are plain fp32 FMA loops (67 TFLOP/s at most on an H100,
+// against 989 for bf16 on the tensor cores): every fp32 kernel uses them,
+// since the tensor cores would take fp32 only as TF32, and so does K4c in
+// bf16 (a block per query tile, redesign pending); bf16 K3a, K3b, K4a and K4b
+// run on the tensor cores (flash_mma.cuh, flash_bwd_tc.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -110,7 +117,9 @@ __device__ __forceinline__ void key_valid(bool (&valid)[8], const int* mrow,
   }
 }
 
-// The backward's per-tile-pair step, shared by K4a, K4b and K4c. From the
+// The scalar backward's per-tile-pair step, shared by K4a and K4b in fp32 and
+// by K4c in both types (the bf16 K4a / K4b compute the same values
+// transposed, flash_bwd_tc.cuh). From the
 // shared tiles qs (scaled q), dos, ks, vs ([64][DP + 1]) and the rows' lse
 // (times log2 e) and delta: S = q_s . k^T and dP = do . v^T, then
 // p = exp2(S - lse) (0 where !valid[j] or for tile rows >= rows), written to

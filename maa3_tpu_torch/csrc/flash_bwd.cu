@@ -1,24 +1,31 @@
-// Fused flash-attention backward: dq, dk and dv from one recompute of the
-// scores with the saved lse, and delta = rowsum(do * o) computed outside.
+// Fused flash-attention backward (K4a): dq, dk and dv from one recompute of
+// the scores with the saved lse, and delta = rowsum(do * o) computed outside.
 //
 // Replaces the TPU kernel maa3_tpu/ops/flash_attention.py::_bwd_fused_kernel
 // (:224, pallas_call :654, called from _flash_pallas_bwd :588).
 //
-// What bounds it on the H100: 10 * Lq * Lk * D operations (five products of a
-// 64 x 64 tile pair) against (4 Lq + 4 Lk) * D elements in and out, so
-// arithmetic at training lengths. The design: a block owns one (b, h) pair
-// and one 64-key tile. It keeps k and v in shared memory and dk, dv in
-// registers, and walks over every 64-row query tile: S = q_s . k^T and
-// dP = do . v^T, p = exp2(S - lse * log2 e) (0 for keys past Lk or masked
-// out, and for query rows past Lq), dv += p_T^T . do with p rounded to v's
-// type, ds = p * (dP - delta) rounded to q's type, dk += ds^T . q_s, and
-// dq += ds . k * scale added to an fp32 (BH, Lq, D) buffer with atomicAdd,
-// the counterpart of the Pallas body's full-length dq block. dk is scaled by
-// ln 2 at the end (q_s carries scale * log2 e). The maskless Pallas body
-// clamps the exponent at 120 (:278) because its zero-padded keys see
-// exp2(-lse * log2 e); here such keys do not exist, so there is no clamp.
-// Atomics make dq's last bits depend on the order the blocks finish.
-#include "flash.cuh"
+// What bounds it on the H100: 10 * Lq * Lk * D operations (five products of
+// a key tile and a query tile) against (4 Lq + 4 Lk) * D elements in and out,
+// so arithmetic at training lengths. Both routes keep k, v and the sums of
+// dk, dv of a key tile on the chip and walk every query tile; dq is summed
+// over key tiles with fp32 atomics into a zeroed (BH, Lq, D) buffer, the
+// counterpart of the Pallas body's full-length dq block, so its last bits
+// depend on the order the blocks finish. dk is scaled by ln 2 at the end
+// (q_s carries scale * log2 e). The maskless Pallas body clamps the exponent
+// at 120 (:278) because its zero-padded keys see exp2(-lse * log2 e); here
+// such keys do not exist, so there is no clamp.
+// - bf16 runs on the tensor cores: flash_bwd_tc_fused_kernel in
+//   flash_bwd_tc.cuh (two warpgroups own 128 keys; transposed scores on
+//   wgmma, P^T and dS^T as register A operands of dV and dK, dQ as a shared x
+//   shared wgmma split by columns between the warpgroups; q_s written by a
+//   prologue kernel and streamed with do through a cp.async ring).
+// - fp32 stays on the scalar kernel below (the tensor cores take fp32 only as
+//   TF32, which would miss the fp32 gates): a block owns one (b, h) pair and
+//   one 64-key tile, 128 threads, fp32 shared tiles and FMA loops (flash.cuh):
+//   S = q_s . k^T and dP = do . v^T, p = exp2(S - lse * log2 e) (0 for keys
+//   past Lk or masked out, and for query rows past Lq), dv += p^T . do,
+//   ds = p * (dP - delta), dk += ds^T . q_s, dq += ds . k * scale.
+#include "flash_bwd_tc.cuh"
 
 namespace maa3_flash {
 namespace {
@@ -129,11 +136,10 @@ int launch(const BwdArgs& a, int bh, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const BwdArgs& a, int bh, cudaStream_t s) {
+int dispatch_fp32(const BwdArgs& a, int bh, cudaStream_t s) {
   switch (padded_dim(a.d)) {
-    case 32: return launch<T, 32>(a, bh, s);
-    case 72: return launch<T, 72>(a, bh, s);
+    case 32: return launch<float, 32>(a, bh, s);
+    case 72: return launch<float, 72>(a, bh, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -143,13 +149,14 @@ int dispatch(const BwdArgs& a, int bh, cudaStream_t s) {
 
 // q/do (bh, lq, d), k/v (bh, lk, d) in the input type; lse, delta (bh, lq)
 // fp32; mask (bh / h, lk) int32 or null; dq (bh, lq, d) fp32 zeroed by the
-// caller, dk/dv (bh, lk, d) fp32. dtype: 0 = float32, 1 = bfloat16. Returns
-// the cudaError_t of the launch.
+// caller, dk/dv (bh, lk, d) fp32; qs: bf16 scratch of q's size (bf16 only,
+// else null). dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of
+// the launches.
 extern "C" int maa3_flash_bwd(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* mask, void* dq,
-                              void* dk, void* dv, int bh, int h, int lq, int lk,
-                              int d, float qmul, float scale, int dtype,
+                              void* dk, void* dv, void* qs, int bh, int h, int lq,
+                              int lk, int d, float qmul, float scale, int dtype,
                               void* stream) {
   using namespace maa3_flash;
   BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
@@ -157,7 +164,13 @@ extern "C" int maa3_flash_bwd(const void* q, const void* k, const void* v,
             static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
             h, lq, lk, d, qmul, scale};
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, bh, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, bh, s);
+  if (dtype == 0) return dispatch_fp32(a, bh, s);
+  if (dtype == 1) {
+    BwdTcArgs t{nullptr, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                static_cast<const bf16*>(dout), a.lse, a.delta, a.mask, a.dq, dk, dv,
+                h, lq, lk, d, scale};
+    return run_bwd_tc<true>(t, static_cast<const bf16*>(q), static_cast<bf16*>(qs), bh, qmul,
+                            s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,27 +6,32 @@
 // (K4b, :170, pallas_call :689) and ::_bwd_dq_kernel (K4c, :299, pallas_call
 // :718), the split branch of _flash_pallas_bwd (:676-742).
 //
-// What bounds them on the H100: K4b does four products of a 64 x 64 tile
-// pair (S, dP, dv, dk: 8 * Lq * Lk * D operations), K4c three (S, dP, dq:
-// 6 * Lq * Lk * D), against (4 Lq + 4 Lk) * D elements in and out, so
+// What bounds them on the H100: K4b does four products of a key tile and a
+// query tile (S, dP, dv, dk: 8 * Lq * Lk * D operations), K4c three (S, dP,
+// dq: 6 * Lq * Lk * D), against (4 Lq + 4 Lk) * D elements in and out, so
 // arithmetic at training lengths, like K4a (five products, 10 * Lq * Lk * D).
-// The design:
-// - K4b: a block owns one (b, h) pair and one 64-key tile. It keeps k and v in
-//   shared memory and dk, dv in fp32 registers, and walks every 64-row query
-//   tile: p = exp2(S - lse * log2 e) (0 for keys past Lk or masked out, and for
-//   query rows past Lq), dv += p_T^T . do with p rounded to v's type,
-//   ds = p * (dP - delta) rounded to q's type, dk += ds^T . q_s. dk is scaled
-//   by ln 2 at the end (q_s carries scale * log2 e); dk and dv are written once,
-//   in k's and v's type. It is K4a without the dq atomics.
-// - K4c: a block owns one (b, h) pair and one 64-query tile. It keeps q_s, do,
-//   lse and delta of its rows in shared memory and dq in fp32 registers, and
-//   walks every 64-key tile with the same S, p, dP and ds, then
-//   dq += ds . k. dq is scaled by `scale` and written once, in q's type. No
-//   atomics: dq is the same bits on every run.
-// Both take the mask as it comes (null: every key valid); there is no padding
+// The designs:
+// - K4b is K4a without the dq product. In bf16 it runs on the tensor cores,
+//   flash_bwd_tc_dkv_kernel in flash_bwd_tc.cuh, the design K4a's bf16 route
+//   shares: two warpgroups own 128 keys of one (b, h) pair, S^T = k . q_s^T and
+//   dP^T = v . do^T on wgmma, P^T and dS^T as the register A operands of
+//   dV += P^T . do and dK += dS^T . q_s, q_s (from a prologue kernel) and do
+//   streamed through a cp.async ring. In fp32 it runs the scalar kernel
+//   below: a block owns one (b, h) pair and one 64-key tile, keeps k, v in
+//   fp32 shared tiles and dk, dv in fp32 registers, and walks every 64-row
+//   query tile with the FMA loops of flash.cuh. Either way dk is scaled by
+//   ln 2 at the end (q_s carries scale * log2 e), dk and dv are written once
+//   in the input type, and every sum runs in a fixed order: two launches
+//   give the same bits.
+// - K4c (both types, scalar): a block owns one (b, h) pair and one 64-query
+//   tile. It keeps q_s, do, lse and delta of its rows in shared memory and dq
+//   in fp32 registers, and walks every 64-key tile with the same S, p, dP and
+//   ds (bwd_p_ds), then dq += ds . k. dq is scaled by `scale` and written
+//   once, in q's type. No atomics: dq is the same bits on every run.
+// All take the mask as it comes (null: every key valid); there is no padding
 // and no exp2 clamp, and a query row whose keys are all masked gets p = 0,
-// hence zero gradients. The products are plain fp32 FMA loops (flash.cuh).
-#include "flash.cuh"
+// hence zero gradients.
+#include "flash_bwd_tc.cuh"
 
 namespace maa3_flash {
 namespace {
@@ -165,33 +170,30 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(SplitArgs a) {
   }
 }
 
-template <typename T, int DP>
-int launch(const SplitArgs& a, int bh, bool dkv, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * split_smem_floats<DP>(dkv);
-  void (*kern)(SplitArgs) =
-      dkv ? &flash_bwd_dkv_kernel<T, DP> : &flash_bwd_dq_kernel<T, DP>;
+template <typename T, int DP, bool DKV>
+int launch(const SplitArgs& a, int bh, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * split_smem_floats<DP>(DKV);
+  void (*kern)(SplitArgs);
+  if constexpr (DKV) {
+    kern = &flash_bwd_dkv_kernel<T, DP>;
+  } else {
+    kern = &flash_bwd_dq_kernel<T, DP>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(((dkv ? a.lk : a.lq) + kTile - 1) / kTile, bh);
+  dim3 grid(((DKV ? a.lk : a.lq) + kTile - 1) / kTile, bh);
   kern<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const SplitArgs& a, int bh, bool dkv, cudaStream_t s) {
+template <typename T, bool DKV>
+int dispatch_scalar(const SplitArgs& a, int bh, cudaStream_t s) {
   switch (padded_dim(a.d)) {
-    case 32: return launch<T, 32>(a, bh, dkv, s);
-    case 72: return launch<T, 72>(a, bh, dkv, s);
+    case 32: return launch<T, 32, DKV>(a, bh, s);
+    case 72: return launch<T, 72, DKV>(a, bh, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-int run(const SplitArgs& a, int bh, bool dkv, int dtype, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, bh, dkv, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, bh, dkv, s);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -201,17 +203,27 @@ int run(const SplitArgs& a, int bh, bool dkv, int dtype, void* stream) {
 // fp32; mask (bh / h, lk) int32 or null. dtype: 0 = float32, 1 = bfloat16.
 // Each returns the cudaError_t of the launch.
 
-// K4b: dk, dv (bh, lk, d) in the input type.
+// K4b: dk, dv (bh, lk, d) in the input type; qs: bf16 scratch of q's size
+// (bf16 only, else null).
 extern "C" int maa3_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, const void* mask, void* dk,
-                                  void* dv, int bh, int h, int lq, int lk, int d,
-                                  float qmul, int dtype, void* stream) {
+                                  void* dv, void* qs, int bh, int h, int lq, int lk,
+                                  int d, float qmul, int dtype, void* stream) {
   using namespace maa3_flash;
+  if (dtype == 1) {
+    BwdTcArgs t{nullptr, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<const int*>(mask), nullptr,
+                dk, dv, h, lq, lk, d, 1.0f};
+    return run_bwd_tc<false>(t, static_cast<const bf16*>(q), static_cast<bf16*>(qs), bh, qmul,
+                             static_cast<cudaStream_t>(stream));
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   SplitArgs a{q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), static_cast<const int*>(mask),
               dk, dv, h, lq, lk, d, qmul, 1.0f};
-  return run(a, bh, true, dtype, stream);
+  return dispatch_scalar<float, true>(a, bh, static_cast<cudaStream_t>(stream));
 }
 
 // K4c: dq (bh, lq, d) in the input type.
@@ -224,5 +236,8 @@ extern "C" int maa3_flash_bwd_dq(const void* q, const void* k, const void* v,
   SplitArgs a{q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), static_cast<const int*>(mask),
               dq, nullptr, h, lq, lk, d, qmul, scale};
-  return run(a, bh, false, dtype, stream);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_scalar<float, false>(a, bh, s);
+  if (dtype == 1) return dispatch_scalar<__nv_bfloat16, false>(a, bh, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -242,7 +242,7 @@ __device__ __forceinline__ void flash_fwd_tc(const FwdArgs& a) {
       if (with_v) copy_tile<VEC>(ks + TILE, vg, t * kTile, a.lk, a.d);
       if (masked && threadIdx.x < kTile) {
         const int key = t * kTile + threadIdx.x;
-        copy_async_i32(mring + (t % kStages) * kTile + threadIdx.x,
+        copy_async_4(mring + (t % kStages) * kTile + threadIdx.x,
                        key < a.lk ? mrow + key : mrow, key < a.lk);
       }
       cp_async_commit();
@@ -269,7 +269,7 @@ __device__ __forceinline__ void flash_fwd_tc(const FwdArgs& a) {
       wgmma_ss_n64(d, wgmma_desc(qw + kk * 2 * kTile * 8, kSlice, 128),
                    wgmma_desc(ks + kk * 2 * kTile * 8, kSlice, 128), kk > 0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
   };
 
   // m[i], l[i]: fragment row g = lane / 4 + 8 i of this warp
@@ -324,20 +324,14 @@ __device__ __forceinline__ void flash_fwd_tc(const FwdArgs& a) {
     // o += bf16(p) . v: the accumulator layout of p is the A fragment
     // layout of keys 16kk .. 16kk + 15, so p stays in registers
     uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
+    to_a_frags(pa, s);
     float(&od)[DP / 2] = reinterpret_cast<float(&)[DP / 2]>(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs<DP>(od, pa[kk], wgmma_desc(vs + 16 * kk * 8, 128, kSlice));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
   });
 
   bf16* og = static_cast<bf16*>(a.o) + static_cast<size_t>(bh) * a.lq * a.d;
@@ -364,11 +358,11 @@ __device__ __forceinline__ void flash_fwd_tc(const FwdArgs& a) {
 }
 
 template <int DP, int VEC>
-__global__ void __launch_bounds__(kFwdThreads) flash_fwd_tc_direct_kernel(FwdArgs a) {
+__global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_direct_kernel(FwdArgs a) {
   flash_fwd_tc<DP, VEC, true>(a);
 }
 template <int DP, int VEC>
-__global__ void __launch_bounds__(kFwdThreads) flash_fwd_tc_online_kernel(FwdArgs a) {
+__global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_online_kernel(FwdArgs a) {
   flash_fwd_tc<DP, VEC, false>(a);
 }
 
@@ -397,17 +391,13 @@ int launch_tc(const FwdArgs& a, int bh, bool direct, cudaStream_t stream) {
                       sizeof(int) * kStages * kTile;
   return launch_kernel(direct ? &flash_fwd_tc_direct_kernel<DP, VEC>
                               : &flash_fwd_tc_online_kernel<DP, VEC>,
-                       smem, kFwdRows, kFwdThreads, a, bh, stream);
+                       smem, kFwdRows, kTcThreads, a, bh, stream);
 }
 
-// The widest copy every row of q, k and v allows: VEC values of 2 bytes need
-// d % VEC == 0 and base pointers aligned to 2 VEC bytes.
+// The widest copy every row of q, k and v allows.
 inline int copy_width(const FwdArgs& a) {
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
-                         reinterpret_cast<uintptr_t>(a.v);
-  for (int vec = 8; vec > 1; vec /= 2)
-    if (a.d % vec == 0 && bits % (2 * vec) == 0) return vec;
-  return 1;
+  return copy_vec(a.d, reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                           reinterpret_cast<uintptr_t>(a.v));
 }
 
 template <int DP>

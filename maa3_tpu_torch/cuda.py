@@ -119,11 +119,11 @@ def load() -> ctypes.CDLL:
         lib.maa3_flash_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                        cf, ci, ci, vp]
         lib.maa3_flash_fwd.restype = ci
-        lib.maa3_flash_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
-                                       ci, ci, ci, ci, cf, cf, ci, vp]
+        lib.maa3_flash_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                       ci, ci, ci, ci, ci, cf, cf, ci, vp]
         lib.maa3_flash_bwd.restype = ci
-        lib.maa3_flash_bwd_dkv.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
-                                           ci, ci, ci, cf, ci, vp]
+        lib.maa3_flash_bwd_dkv.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+                                           ci, ci, ci, ci, cf, ci, vp]
         lib.maa3_flash_bwd_dkv.restype = ci
         lib.maa3_flash_bwd_dq.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                           ci, ci, cf, cf, ci, vp]

@@ -11,7 +11,8 @@ torch.sin, expf); bf16 two bf16 ulps of the largest value,
 difference of one ulp can flip that rounding). The flash backward's dq is a
 sum of per-key-tile parts added with fp32 atomics in no fixed order, so its
 last bits vary from run to run; the same tolerances cover that. The split
-backward's dq (K4c) has no atomics and must be the same bits on every run.
+backward (K4b's dk and dv, K4c's dq) has no atomics and must be the same bits
+on every run.
 """
 
 import numpy as np
@@ -145,14 +146,18 @@ def _flash_inputs(b, h, lq, lk, d, dtype, dev, masked, seed=0):
     (2, 2, 33, 40, 16, False, 64),
     # edges of the bf16 tensor-core tiling: one query row and 5 keys (less
     # than one 16-key mma depth) at D = 8; 17 rows and 129 keys (one key
-    # past two 64-key tiles) at D = 40 and 64; the ragged XL tail (1248 =
-    # 19.5 tiles of 64 rows)
+    # past two 64-key tiles, one past the backward's 128-key block) at D = 40
+    # and 64; the ragged XL tail (1248 = 19.5 tiles of 64 rows, 9.75 blocks
+    # of 128 keys); Lq != Lk across a 64-row and a 128-key edge at D = 72
     (1, 2, 1, 5, 8, False, None),
     (2, 2, 17, 129, 40, True, None),
     (1, 3, 17, 129, 64, False, 64),
-    (2, 2, 1248, 1248, 72, False, None)])
+    (2, 2, 1248, 1248, 72, False, None),
+    (2, 3, 65, 257, 72, False, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(cuda_dev, b, h, lq, lk, d, masked, block_k, dtype):
+    """The forward (K3a or K3b), K4a and K4b against their plain versions,
+    with launch counts; K4b's dk and dv are the same bits over two launches."""
     q, k, v, do, mask = _flash_inputs(b, h, lq, lk, d, dtype, cuda_dev, masked)
     scale = d ** -0.5
     route = fa.route_for(lk, block_k)
@@ -163,18 +168,24 @@ def test_flash_kernels_match_plain(cuda_dev, b, h, lq, lk, d, masked, block_k, d
         o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, mask, scale, route)
     delta = (do.float() * o_ref.float()).sum(-1)
     grads = fa.flash_bwd(q, k, v, mask, lse_ref, do, delta, scale)
+    dkv = fa.flash_bwd_dkv(q, k, v, mask, lse_ref, do, delta, scale)
+    dkv_again = fa.flash_bwd_dkv(q, k, v, mask, lse_ref, do, delta, scale)
     with full_fp32():
         grads_ref = fa.flash_bwd_plain(q, k, v, mask, lse_ref, do, delta, scale)
     torch.cuda.synchronize()
     assert fa.launches[name] == n[name] + 1 and fa.launches["K4a"] == n["K4a"] + 1
+    assert fa.launches["K4b"] == n["K4b"] + 2
     assert o.dtype == dtype and lse.shape == (b * h, lq)
+    assert all(g.dtype == dtype for g in grads + dkv)
+    assert torch.equal(dkv[0], dkv_again[0]) and torch.equal(dkv[1], dkv_again[1])
     live = lse_ref > -1e29  # rows with a valid key (lse of an empty row is ~-6.9e29)
-    for got, want in ((o, o_ref), (lse[live], lse_ref[live]), *zip(grads, grads_ref)):
+    for got, want in ((o, o_ref), (lse[live], lse_ref[live]), *zip(grads, grads_ref),
+                      *zip(dkv, grads_ref[1:])):
         assert torch.isfinite(got).all()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= _tol(want), err
     if masked and b >= 3:  # a row with no valid key: o = 0, zero gradients
-        assert not o[-1].any() and not any(g[-1].any() for g in grads)
+        assert not o[-1].any() and not any(g[-1].any() for g in grads + dkv)
 
 
 def _fwd_matches_plain(q, k, v, mask, route):
@@ -220,6 +231,68 @@ def test_flash_forward_unaligned_rows_match_plain(cuda_dev, offset):
     assert q.is_contiguous() and q.data_ptr() % 16 == 2 * offset % 16
     for route in ("direct", "online"):
         _fwd_matches_plain(q, k, v, None, route)
+
+
+def _bwd_matches_plain(q, k, v, do, mask):
+    """K4a and K4b against the plain backward, from the plain forward's lse."""
+    scale = q.shape[-1] ** -0.5
+    with full_fp32():
+        o, lse = fa.flash_fwd_plain(q, k, v, mask, scale, fa.route_for(k.shape[2]))
+        delta = (do.float() * o.float()).sum(-1)
+        want = fa.flash_bwd_plain(q, k, v, mask, lse, do, delta, scale)
+    got = (*fa.flash_bwd(q, k, v, mask, lse, do, delta, scale),
+           *fa.flash_bwd_dkv(q, k, v, mask, lse, do, delta, scale))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want + want[1:]):
+        assert torch.isfinite(g).all()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= _tol(w), err
+
+
+@pytest.mark.cuda
+def test_flash_backward_large_scores_match_plain(cuda_dev):
+    """K4a and K4b in bf16 with q and k scaled up so that the scaled scores
+    reach about +-80: p = exp2(S - lse) must take the saved lse as it is."""
+    q, k, v, do, mask = _flash_inputs(2, 4, 200, 300, 72, torch.bfloat16, cuda_dev, True,
+                                      seed=4)
+    q, k = (q.float() * 3.5).to(torch.bfloat16), (k.float() * 3.5).to(torch.bfloat16)
+    s = (q.float() @ k.float().transpose(-1, -2)) * 72 ** -0.5 * fa.LOG2E
+    assert 50 < s.abs().max().item() < 150
+    _bwd_matches_plain(q, k, v, do, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_flash_backward_unaligned_rows_match_plain(cuda_dev, offset):
+    """K4a and K4b on q, k, v and do as contiguous views that start `offset`
+    bf16 values into a wider buffer: the copies fall back to 2-, 4- or 8-byte
+    widths (the scaled-q prologue too)."""
+    q, k, v, do, _ = _flash_inputs(2, 3, 150, 150, 72, torch.bfloat16, cuda_dev, False)
+
+    def shifted(t):
+        wide = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        view = wide[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    q, k, v, do = shifted(q), shifted(k), shifted(v), shifted(do)
+    assert do.is_contiguous() and do.data_ptr() % 16 == 2 * offset % 16
+    _bwd_matches_plain(q, k, v, do, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_backward_dkv_is_deterministic(cuda_dev, masked):
+    """Two bf16 launches of K4b give the same dk and dv bits."""
+    q, k, v, do, mask = _flash_inputs(3, 4, 500, 700, 72, torch.bfloat16, cuda_dev, masked)
+    scale = 72 ** -0.5
+    with full_fp32():
+        o, lse = fa.flash_fwd_plain(q, k, v, mask, scale, "direct")
+    delta = (do.float() * o.float()).sum(-1)
+    a = fa.flash_bwd_dkv(q, k, v, mask, lse, do, delta, scale)
+    b = fa.flash_bwd_dkv(q, k, v, mask, lse, do, delta, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.cuda
@@ -311,8 +384,8 @@ def test_cuda_train_step_matches_cpu(cuda_dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_backward_kernels_match_plain(cuda_dev, b, h, l, d, masked, block_k, dtype):
     """K4b (dk, dv) and K4c (dq) against their plain versions at the shapes of
-    chip_smoke.py's phase 6, with launch counts; dq is the same bits over two
-    launches, and dk / dv agree with K4a's."""
+    chip_smoke.py's phase 6, with launch counts; dq, dk and dv are the same
+    bits over two launches, and dk / dv agree with K4a's."""
     q, k, v, do, mask = _flash_inputs(b, h, l, l, d, dtype, cuda_dev, masked)
     scale = d ** -0.5
     with full_fp32():
@@ -320,12 +393,13 @@ def test_split_backward_kernels_match_plain(cuda_dev, b, h, l, d, masked, block_
     delta = (do.float() * o.float()).sum(-1)
     n = dict(fa.launches)
     dk, dv = fa.flash_bwd_dkv(q, k, v, mask, lse, do, delta, scale)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, mask, lse, do, delta, scale)
     dq = fa.flash_bwd_dq(q, k, v, mask, lse, do, delta, scale)
     dq2 = fa.flash_bwd_dq(q, k, v, mask, lse, do, delta, scale)
     torch.cuda.synchronize()
     assert (fa.launches["K4b"] - n["K4b"], fa.launches["K4c"] - n["K4c"],
-            fa.launches["K4a"] - n["K4a"]) == (1, 2, 0)
-    assert torch.equal(dq, dq2)
+            fa.launches["K4a"] - n["K4a"]) == (2, 2, 0)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
     with full_fp32():
         want_k, want_v = fa.flash_bwd_dkv_plain(q, k, v, mask, lse, do, delta, scale)
         want_q = fa.flash_bwd_dq_plain(q, k, v, mask, lse, do, delta, scale)

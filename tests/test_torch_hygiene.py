@@ -130,3 +130,30 @@ def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, alone):
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
     assert ("checkout of the repository" if alone else "no CUDA device") in out.stderr
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("mangled,short", [
+    ("_ZN10maa3_flash12_GLOBAL__N_126flash_fwd_tc_direct_kernelILi72ELi8EEEvNS0_7FwdArgsE",
+     "flash_fwd_tc_direct_kernel<72, 8>"),
+    ("_ZN10maa3_flash12_GLOBAL__N_125flash_bwd_tc_fused_kernelILi72ELi8EEEvNS0_9BwdTcArgsE",
+     "flash_bwd_tc_fused_kernel<72, 8>"),
+    ("_ZN10maa3_flash12_GLOBAL__N_123flash_bwd_tc_dkv_kernelILi32ELi2EEEvNS0_9BwdTcArgsE",
+     "flash_bwd_tc_dkv_kernel<32, 2>"),
+    ("_ZN10maa3_flash12_GLOBAL__N_124flash_bwd_scale_q_kernelILi8EEEvPK13__nv_bfloat16PS2_mf",
+     "flash_bwd_scale_q_kernel<8>"),
+    ("_ZN10maa3_flash12_GLOBAL__N_116flash_bwd_kernelIfLi72EEEvNS0_7BwdArgsE",
+     "flash_bwd_kernel<fp32, 72>"),
+    ("_ZN10maa3_flash12_GLOBAL__N_119flash_bwd_dq_kernelI13__nv_bfloat16Li72EEEvNS0_9SplitArgsE",
+     "flash_bwd_dq_kernel<bf16, 72>")])
+def test_chip_smoke_reads_kernel_names(mangled, short):
+    """The SASS check of chip_smoke.py finds the tensor-core kernels by these
+    short names (flash_fwd_tc_*, flash_bwd_tc_*) and the fp32 ones by <fp32."""
+    assert _chip_smoke().kernel_name(mangled) == short
