@@ -8,11 +8,14 @@ Phases, each timed on a line of its own:
   2. build: nvcc compiles maa3_tpu_torch/csrc into build/ (ctypes-loaded),
      with each kernel's registers and spills; cuobjdump's SASS of the
      library must show tensor-core instructions (HMMA/HGMMA) in every bf16
-     flash forward kernel (flash_fwd_tc_*) and every bf16 key-tile backward
-     kernel (flash_bwd_tc_*: K4a, K4b), and none in any fp32 kernel (no TF32);
+     flash forward kernel (flash_fwd_tc_*), every bf16 flash backward kernel
+     (flash_bwd_tc_*: K4a, K4b, K4c) and every bf16 K2 kernel
+     (conv_snake_tc_*), and none in any fp32 kernel (no TF32);
   3. kernels: K1 (AA-snake) and K2 (AA-snake -> conv) against their plain
      PyTorch versions at every shape the XL batch-4 vocode gives them, in
-     fp32 and bf16, with error, kernel time, plain time and bound;
+     fp32 and bf16, with error, kernel time, plain time and bound (K2 also
+     with its conv's TFLOP/s, its share of the bound, and the time of one
+     call alone between two events, the older method of PERF.md's records);
   4. reference: a small system on the card against the same weights on the
      CPU (plain versions), fp32;
   5. main path: the XL system (random weights from a seed, zero-init gates
@@ -50,9 +53,11 @@ Phases, each timed on a line of its own:
      28, K4c 28), each with one warm step and three timed steps (--profile
      adds one step of each under torch.profiler); the conditioner's
      parameters must move.
-Then the `kernels` JSON line, the card line, and the result line. Any failure
-exits non-zero without the result line; without a CUDA device, or without
-the rest of the repository beside it, the script exits 2 at once.
+Kernel, plain and library times are per call over 10 calls queued back to
+back (time_ms). Then the `kernels` JSON line, the card line, and the result
+line. Any failure exits non-zero without the result line; without a CUDA
+device, or without the rest of the repository beside it, the script exits 2
+at once.
 """
 
 import contextlib
@@ -141,13 +146,19 @@ def kernel_name(mangled: str) -> str:
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
+# tensor-core kernels by name prefix: the instantiations each must have
+TC_KERNELS = (("flash_fwd_tc_", "flash forward (K3a, K3b)", 16),
+              ("flash_bwd_tc_", "flash backward (K4a, K4b, K4c)", 24),
+              ("conv_snake_tc_", "K2", 6))
+
+
 def check_sass(lib_path: str, nvcc: str) -> dict:
     """Tensor-core instructions (HMMA, HGMMA) per kernel in the built
     library's SASS (cuobjdump): every bf16 flash forward kernel
-    (flash_fwd_tc_*, 16 instantiations) and every bf16 key-tile backward
-    kernel (flash_bwd_tc_*: K4a and K4b, 16) must have some, and no kernel
-    instantiated for fp32 may have any (that would be TF32). Returns
-    {short name: count}."""
+    (flash_fwd_tc_*, 16 instantiations), every bf16 flash backward kernel
+    (flash_bwd_tc_*: K4a, K4b and K4c, 24) and every bf16 K2 kernel
+    (conv_snake_tc_*, 6) must have some, and no kernel instantiated for fp32
+    may have any (that would be TF32). Returns {short name: count}."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           timeout=300, check=True).stdout
@@ -160,30 +171,41 @@ def check_sass(lib_path: str, nvcc: str) -> dict:
         elif name and re.search(r"\bH(G)?MMA\b", line):
             counts[name] += 1
     fp32 = {k: v for k, v in counts.items() if "<fp32" in k}
-    for prefix, what in (("flash_fwd_tc_", "forward"), ("flash_bwd_tc_", "backward")):
+    for prefix, what, want in TC_KERNELS:
         tc = {k: v for k, v in counts.items() if k.startswith(prefix)}
         for k in sorted(tc):
             log(f"sass: {k}: {tc[k]} HMMA/HGMMA")
-        require(len(tc) == 16 and all(v > 0 for v in tc.values()),
-                f"every bf16 flash {what} kernel runs on the tensor cores: {tc}")
+        require(len(tc) == want and all(v > 0 for v in tc.values()),
+                f"every bf16 {what} kernel runs on the tensor cores: {tc}")
     log(f"sass: {len(counts)} kernels; fp32 kernels with tensor-core instructions: "
         f"{sorted(k for k, v in fp32.items() if v)}")
     require(fp32 and not any(fp32.values()), f"no fp32 kernel uses TF32: {fp32}")
     return counts
 
 
-def time_ms(fn, reps: int = 7) -> float:
+def time_ms(fn, reps: int = 7, launches: int = 10) -> float:
+    """Milliseconds per call: CUDA events around `launches` calls queued back
+    to back (the card's time per call in a run of many, without the idle gap
+    of one call's host work), the median over `reps` such runs."""
     import torch
     fn()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(launches):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / launches)
     return statistics.median(times)
+
+
+def time_once_ms(fn, reps: int = 7) -> float:
+    """Milliseconds of one call alone between two events (the older method of
+    PERF.md's records: it adds the call's host work to the card's time), the
+    median over `reps`."""
+    return time_ms(fn, reps, launches=1)
 
 
 def check_kernels(torch, k1, k2, full_fp32):
@@ -249,16 +271,22 @@ def check_kernels(torch, k1, k2, full_fp32):
                 rows.append(dict(kernel="K2", dtype=str(dtype)[6:],
                                  shape=(B, c, t, c_out, k, d), launches=launches,
                                  err=err, tol=lim, ms=time_ms(kern),
+                                 once_ms=time_once_ms(kern),
                                  plain_ms=time_ms(plain),
                                  bytes_ms=nbytes / PEAK_BW * 1e3,
-                                 ops_ms=t_ops * 1e3))
+                                 ops_ms=t_ops * 1e3,
+                                 conv_flops=2 * n * c_out * c * k))
                 del got, want
             del x
     for r in rows:
         r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+        # K2: the conv's operations per second, and the share of the bound
+        rate = (f" ({r['conv_flops'] / r['ms'] / 1e9:.1f} TFLOP/s conv, "
+                f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound; one call alone "
+                f"{r['once_ms']:.4f} ms)" if r["kernel"] == "K2" else "")
         log(f"{r['kernel']} {r['dtype']:8s} {str(r['shape']):34s} err {r['err']:.3e} "
-            f"(tol {r['tol']:.3e}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-            f"bound {r['bound_ms']:.4f} ms")
+            f"(tol {r['tol']:.3e}) kernel {r['ms']:.4f} ms{rate} plain "
+            f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms")
     bad = [r for r in rows if not r["err"] <= r["tol"]]
     require(not bad, f"kernels agree with their plain versions: {bad}")
     return rows
@@ -338,6 +366,12 @@ def profile_run(torch, run, ref_ms) -> None:
     for e in sorted(evts, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"profile: {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.key[:90]}")
+    for e in sorted(evts, key=lambda e: e.key):  # the port's own kernels, each
+        name = re.match(r"void (?:maa3_flash::)?\(anonymous namespace\)::"
+                        r"((?:flash|conv_snake|aa_snake)_\w*kernel<[^>]*>)", e.key)
+        if name:
+            log(f"profile: port kernel {e.self_device_time_total / 1e3:9.2f} ms "
+                f"{e.count:6d}x {name.group(1)}")
 
 
 def main_path(torch, system_mod, config_path, k1, k2, profile=False):

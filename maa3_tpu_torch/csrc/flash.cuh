@@ -3,8 +3,8 @@
 // route, and the constants and helpers the tensor-core route
 // (flash_mma.cuh, flash_bwd_tc.cuh) shares with it. The kernels built on it
 // replace the TPU kernels of maa3_tpu/ops/flash_attention.py named in each
-// .cu file (K4c: _bwd_dq_kernel, :299), and are bound by the FMA pipes'
-// rate: five products of a tile pair per 4 (Lq + Lk) D elements.
+// .cu file, and are bound by the FMA pipes' rate: five products of a tile
+// pair per 4 (Lq + Lk) D elements.
 //
 // Layout: q, o, do (BH, Lq, D) and k, v (BH, Lk, D), row-major, no padding
 // in device memory; an optional key mask (B, Lk) int32 (nonzero = valid)
@@ -12,14 +12,15 @@
 // works on 64 x 64 tiles: thread (ty, tx) = (tid / 8, tid % 8) owns tile rows
 // ty*4 .. ty*4+3 and columns tx + 8*j, so the 8 threads of a row group are
 // lanes of one warp and row reductions are three xor shuffles. Operand tiles
-// sit in shared memory as fp32 values already rounded to the input type, in
-// rows of pitch D_pad + 1 (or 64 + 1) so the strided reads of a product hit
-// distinct banks; D_pad is a multiple of 8 >= D and the columns D .. D_pad-1
-// are zero. Products are plain fp32 FMA loops (67 TFLOP/s at most on an H100,
-// against 989 for bf16 on the tensor cores): every fp32 kernel uses them,
-// since the tensor cores would take fp32 only as TF32, and so does K4c in
-// bf16 (a block per query tile, redesign pending); bf16 K3a, K3b, K4a and K4b
-// run on the tensor cores (flash_mma.cuh, flash_bwd_tc.cuh).
+// sit in shared memory as fp32 values, in rows of pitch D_pad + 1 (or
+// 64 + 1) so the strided reads of a product hit distinct banks; D_pad is a
+// multiple of 8 >= D and the columns D .. D_pad-1 are zero. Products are
+// plain fp32 FMA loops (67 TFLOP/s at most on an H100, against 989 for bf16
+// on the tensor cores): every fp32 kernel uses them, since the tensor cores
+// would take fp32 only as TF32; every bf16 kernel runs on the tensor cores
+// (flash_mma.cuh, flash_bwd_tc.cuh). The scalar kernels are templates on the
+// input type, instantiated for fp32 alone, so that their names say fp32 to
+// the SASS check of chip_smoke.py (no tensor-core instructions there).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,18 +36,11 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// x rounded to T's precision (round to nearest even), kept in fp32
+// x rounded to T's precision, kept in fp32 (exact for the fp32 kernels)
 __device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // Rows [r0, r0 + 64) of a (n, d) matrix into s[64][dp + 1]; zero past n and
 // in columns d .. dp-1. With `mul`, each value is multiplied by it in fp32
@@ -117,9 +111,9 @@ __device__ __forceinline__ void key_valid(bool (&valid)[8], const int* mrow,
   }
 }
 
-// The scalar backward's per-tile-pair step, shared by K4a and K4b in fp32 and
-// by K4c in both types (the bf16 K4a / K4b compute the same values
-// transposed, flash_bwd_tc.cuh). From the
+// The scalar backward's per-tile-pair step, shared by the fp32 K4a, K4b and
+// K4c (the bf16 kernels compute the same values on the tensor cores,
+// flash_bwd_tc.cuh). From the
 // shared tiles qs (scaled q), dos, ks, vs ([64][DP + 1]) and the rows' lse
 // (times log2 e) and delta: S = q_s . k^T and dP = do . v^T, then
 // p = exp2(S - lse) (0 where !valid[j] or for tile rows >= rows), written to

@@ -169,7 +169,7 @@ extern "C" int maa3_flash_bwd(const void* q, const void* k, const void* v,
     BwdTcArgs t{nullptr, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
                 static_cast<const bf16*>(dout), a.lse, a.delta, a.mask, a.dq, dk, dv,
                 h, lq, lk, d, scale};
-    return run_bwd_tc<true>(t, static_cast<const bf16*>(q), static_cast<bf16*>(qs), bh, qmul,
+    return run_bwd_tc<kK4a>(t, static_cast<const bf16*>(q), static_cast<bf16*>(qs), bh, qmul,
                             s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

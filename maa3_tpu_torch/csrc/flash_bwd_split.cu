@@ -11,26 +11,29 @@
 // dq: 6 * Lq * Lk * D), against (4 Lq + 4 Lk) * D elements in and out, so
 // arithmetic at training lengths, like K4a (five products, 10 * Lq * Lk * D).
 // The designs:
-// - K4b is K4a without the dq product. In bf16 it runs on the tensor cores,
-//   flash_bwd_tc_dkv_kernel in flash_bwd_tc.cuh, the design K4a's bf16 route
-//   shares: two warpgroups own 128 keys of one (b, h) pair, S^T = k . q_s^T and
+// - In bf16 both run on the tensor cores (flash_bwd_tc.cuh), after the
+//   prologue kernel there has written q_s = bf16(q * scale * log2 e) to a
+//   scratch. K4b (flash_bwd_tc_dkv_kernel) is K4a without the dq product:
+//   two warpgroups own 128 keys of one (b, h) pair, S^T = k . q_s^T and
 //   dP^T = v . do^T on wgmma, P^T and dS^T as the register A operands of
-//   dV += P^T . do and dK += dS^T . q_s, q_s (from a prologue kernel) and do
-//   streamed through a cp.async ring. In fp32 it runs the scalar kernel
-//   below: a block owns one (b, h) pair and one 64-key tile, keeps k, v in
-//   fp32 shared tiles and dk, dv in fp32 registers, and walks every 64-row
-//   query tile with the FMA loops of flash.cuh. Either way dk is scaled by
-//   ln 2 at the end (q_s carries scale * log2 e), dk and dv are written once
-//   in the input type, and every sum runs in a fixed order: two launches
-//   give the same bits.
-// - K4c (both types, scalar): a block owns one (b, h) pair and one 64-query
-//   tile. It keeps q_s, do, lse and delta of its rows in shared memory and dq
-//   in fp32 registers, and walks every 64-key tile with the same S, p, dP and
-//   ds (bwd_p_ds), then dq += ds . k. dq is scaled by `scale` and written
-//   once, in q's type. No atomics: dq is the same bits on every run.
-// All take the mask as it comes (null: every key valid); there is no padding
-// and no exp2 clamp, and a query row whose keys are all masked gets p = 0,
-// hence zero gradients.
+//   dV += P^T . do and dK += dS^T . q_s, q_s and do streamed through a
+//   cp.async ring. K4c (flash_bwd_tc_dq_kernel) walks the other way: two
+//   warpgroups own 128 query rows, q_s and do stay resident, k and v tiles
+//   stream through the ring, S = q_s . k^T and dP = do . v^T on wgmma, and
+//   dS is the register A operand of dQ += dS . k.
+// - In fp32 (the tensor cores would take fp32 only as TF32) both run the
+//   scalar kernels below with the FMA loops of flash.cuh: K4b's block owns
+//   one (b, h) pair and one 64-key tile, keeps k, v in fp32 shared tiles and
+//   dk, dv in fp32 registers, and walks every 64-row query tile; K4c's block
+//   owns one 64-query tile, keeps q_s, do, lse and delta of its rows in
+//   shared memory and dq in fp32 registers, and walks every 64-key tile with
+//   the same S, p, dP and ds (bwd_p_ds), then dq += ds . k.
+// Either way dk is scaled by ln 2 at the end (q_s carries scale * log2 e)
+// and dq by `scale`, each output is written once in the input type, nothing
+// is added atomically and every sum runs in a fixed order: two launches give
+// the same bits. All take the mask as it comes (null: every key valid);
+// there is no padding and no exp2 clamp, and a query row whose keys are all
+// masked gets p = 0, hence zero gradients.
 #include "flash_bwd_tc.cuh"
 
 namespace maa3_flash {
@@ -200,11 +203,11 @@ int dispatch_scalar(const SplitArgs& a, int bh, cudaStream_t s) {
 }  // namespace maa3_flash
 
 // q/do (bh, lq, d), k/v (bh, lk, d) in the input type; lse, delta (bh, lq)
-// fp32; mask (bh / h, lk) int32 or null. dtype: 0 = float32, 1 = bfloat16.
-// Each returns the cudaError_t of the launch.
+// fp32; mask (bh / h, lk) int32 or null; qs: bf16 scratch of q's size for the
+// bf16 kernels' scaled q (else null). dtype: 0 = float32, 1 = bfloat16. Each
+// returns the cudaError_t of its launches.
 
-// K4b: dk, dv (bh, lk, d) in the input type; qs: bf16 scratch of q's size
-// (bf16 only, else null).
+// K4b: dk, dv (bh, lk, d) in the input type.
 extern "C" int maa3_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, const void* mask, void* dk,
@@ -216,8 +219,8 @@ extern "C" int maa3_flash_bwd_dkv(const void* q, const void* k, const void* v,
                 static_cast<const bf16*>(dout), static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<const int*>(mask), nullptr,
                 dk, dv, h, lq, lk, d, 1.0f};
-    return run_bwd_tc<false>(t, static_cast<const bf16*>(q), static_cast<bf16*>(qs), bh, qmul,
-                             static_cast<cudaStream_t>(stream));
+    return run_bwd_tc<kK4b>(t, static_cast<const bf16*>(q), static_cast<bf16*>(qs), bh, qmul,
+                            static_cast<cudaStream_t>(stream));
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   SplitArgs a{q, k, v, dout, static_cast<const float*>(lse),
@@ -230,14 +233,21 @@ extern "C" int maa3_flash_bwd_dkv(const void* q, const void* k, const void* v,
 extern "C" int maa3_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, const void* mask, void* dq,
-                                 int bh, int h, int lq, int lk, int d, float qmul,
-                                 float scale, int dtype, void* stream) {
+                                 void* qs, int bh, int h, int lq, int lk, int d,
+                                 float qmul, float scale, int dtype, void* stream) {
   using namespace maa3_flash;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    BwdTcArgs t{nullptr, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<const int*>(mask), dq,
+                nullptr, nullptr, h, lq, lk, d, scale};
+    return run_bwd_tc<kK4c>(t, static_cast<const bf16*>(q), static_cast<bf16*>(qs), bh, qmul,
+                            s);
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   SplitArgs a{q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), static_cast<const int*>(mask),
               dq, nullptr, h, lq, lk, d, qmul, scale};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_scalar<float, false>(a, bh, s);
-  if (dtype == 1) return dispatch_scalar<__nv_bfloat16, false>(a, bh, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_scalar<float, false>(a, bh, s);
 }

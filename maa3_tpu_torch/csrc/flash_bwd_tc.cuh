@@ -1,16 +1,19 @@
-// The bf16 flash-attention backward on the tensor cores, one design for K4a
-// (flash_bwd.cu: dq, dk, dv) and K4b (flash_bwd_split.cu: dk, dv), built from
-// the pieces of flash_mma.cuh.
+// The bf16 flash-attention backward on the tensor cores: one design for K4a
+// (flash_bwd.cu: dq, dk, dv) and K4b (flash_bwd_split.cu: dk, dv), which walk
+// the query tiles of a key block, and K4c (flash_bwd_split.cu: dq), which
+// walks the key tiles of a query block, all built from the pieces of
+// flash_mma.cuh.
 //
 // Replaces, in bf16, the TPU kernels maa3_tpu/ops/flash_attention.py::
-// _bwd_fused_kernel (:224, pallas_call :654) and ::_bwd_dkv_kernel (:170,
-// pallas_call :689).
+// _bwd_fused_kernel (:224, pallas_call :654), ::_bwd_dkv_kernel (:170,
+// pallas_call :689) and ::_bwd_dq_kernel (:299, pallas_call :718).
 //
-// What bounds it on the H100: five products of a key tile and a query tile
-// (K4a; four for K4b) against each input read once, 10 (8) * Lq * Lk * D
-// operations against (4 Lq + 4 Lk) * D bf16 elements, so the tensor cores at
-// training lengths (about 500 operations per byte at 1248 tokens). The design
-// (FlashAttention-3's transposed backward, without its warp specialisation):
+// What bounds them on the H100: five products of a key tile and a query
+// tile (K4a; four for K4b, three for K4c) against each input read once,
+// 10 (8, 6) * Lq * Lk * D operations against (4 Lq + 4 Lk) * D bf16
+// elements, so the tensor cores at training lengths (about 500 operations
+// per byte at 1248 tokens). The design of K4a and K4b (FlashAttention-3's
+// transposed backward, without its warp specialisation):
 // - A block of two warpgroups owns 128 keys of one (b, h) pair, 64 keys per
 //   warpgroup. Its k and v tiles stay resident in shared memory, bf16, in the
 //   interleave layout; dK and dV stay in fp32 registers and are written once.
@@ -45,6 +48,24 @@
 //   row, i.e. two flags per thread for the whole query loop. Query rows past
 //   Lq need no check: their q_s, do, lse and delta are zero-filled, so P^T
 //   is 1 there but multiplies a zero do row in dV, and dS^T is 0.
+// K4c (flash_bwd_tc_dq_kernel) walks the forward's direction, so that dq
+// needs no atomics:
+// - A block of two warpgroups owns 128 query rows of one (b, h) pair, 64 per
+//   warpgroup. Their q_s (from the same prologue) and do stay resident in
+//   shared memory; each thread keeps lse log2 e and delta of its two
+//   accumulator rows in registers, and dQ in fp32 registers.
+// - 64-key tiles of k and v (and of the mask) stream through the 2-slot
+//   cp.async ring, as in the forward. Per tile, S = q_s . k^T and
+//   dP = do . v^T (m64n64k16, both operands K-major from shared memory) are
+//   committed as two groups; p = exp2(S - lse log2 e) runs while dP is in
+//   flight, then dS = bf16(p (dP - delta)) is the register A operand of
+//   dQ += dS . k (m64n72k16, m64n32k16 at D <= 32; k read MN-major with the
+//   transpose bit, as v in the forward's p . v). Keys are checked only on
+//   tiles with a mask or past Lk.
+// - dQ is scaled by `scale` and written once, in bf16. Every sum runs in a
+//   fixed order and nothing is added atomically, so two launches give the
+//   same bits. Query rows past Lq are zero-filled (dS = 0 there) and never
+//   stored; a row whose keys are all masked gets p = 0, hence dq = 0.
 // exp2 is one ex2.approx per score (about 2^-22 relative, below the bf16
 // rounding of p).
 #pragma once
@@ -64,7 +85,7 @@ struct BwdTcArgs {
   const float* lse;    // (BH, Lq)
   const float* delta;  // (BH, Lq)
   const int* mask;     // (B, Lk) or null
-  float* dq;           // K4a: (BH, Lq, D) fp32, zeroed by the caller; K4b: null
+  void* dq;            // K4a: (BH, Lq, D) fp32, zeroed by the caller; K4c: bf16; K4b: null
   void* dk;            // (BH, Lk, D): fp32 for K4a, bf16 for K4b
   void* dv;
   int h, lq, lk, d;
@@ -146,7 +167,7 @@ __device__ __forceinline__ void tc_dq(const BwdTcArgs& a, const bf16* dst, const
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + 16 * warp + lane / 4 + 8 * i;
     if (row >= a.lq) continue;
-    float* out = a.dq + qoff + static_cast<size_t>(row) * a.d;
+    float* out = static_cast<float*>(a.dq) + qoff + static_cast<size_t>(row) * a.d;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       const int col = c0 + 8 * j;
@@ -349,6 +370,150 @@ __device__ __forceinline__ void flash_bwd_tc(const BwdTcArgs& a) {
   }
 }
 
+// p = exp2(s - lse log2 e) in place over one S tile (queries as rows): lse
+// of the thread's rows g and g + 8; 0 where the key is not valid when CHECK
+template <bool CHECK>
+__device__ __forceinline__ void dq_p(float (&s)[8][4], const float (&lse)[2],
+                                     const bool (&ok)[8][2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp2(s[j][e] - lse[e >> 1]);
+      s[j][e] = (!CHECK || ok[j][e & 1]) ? p : 0.0f;
+    }
+}
+
+// K4c: dq of kFwdRows query rows (DP: padded head dim, 32 or 72; VEC: copy
+// width).
+template <int DP, int VEC>
+__device__ __forceinline__ void flash_bwd_tc_dq(const BwdTcArgs& a) {
+  constexpr int DK = mma_k_dim(DP), ND = DP / 8;
+  constexpr int TILE = kTile * DK;         // elements of one 64-row tile
+  constexpr uint32_t kSlice = kTile * 16;  // bytes between 8-column slices
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // q_s: rows 0-63, 64-127 of the block
+  bf16* dos = qs + 2 * TILE;                     // do: the same
+  bf16* ring = dos + 2 * TILE;                   // kStages x {k, v}
+  int* mring = reinterpret_cast<int*>(ring + 2 * kStages * TILE);  // kStages x [64]
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kFwdRows;
+  const size_t qoff = static_cast<size_t>(bh) * a.lq * a.d;
+  const size_t koff = static_cast<size_t>(bh) * a.lk * a.d;
+  const bf16* kg = a.k + koff;
+  const bf16* vg = a.v + koff;
+  const int* mrow = a.mask ? a.mask + static_cast<size_t>(bh / a.h) * a.lk : nullptr;
+  const bool masked = mrow != nullptr;
+  const int nt = (a.lk + kTile - 1) / kTile;
+
+  // columns d .. DK-1 of every tile stay zero; the copies never touch them
+  zero_pad<DK>(qs, 4 + 2 * kStages, a.d);
+  for (int half = 0; half < 2; ++half) {
+    copy_tile<VEC>(qs + half * TILE, a.qs + qoff, q0 + half * kTile, a.lq, a.d);
+    copy_tile<VEC>(dos + half * TILE, a.dout + qoff, q0 + half * kTile, a.lq, a.d);
+  }
+  // key tile t (k, v and the mask) into slot t % kStages
+  auto issue = [&](int t) {
+    bf16* ks = ring + (t % kStages) * 2 * TILE;
+    copy_tile<VEC>(ks, kg, t * kTile, a.lk, a.d);
+    copy_tile<VEC>(ks + TILE, vg, t * kTile, a.lk, a.d);
+    if (masked && threadIdx.x < kTile) {
+      const int key = t * kTile + threadIdx.x;
+      copy_async_4(mring + (t % kStages) * kTile + threadIdx.x,
+                   key < a.lk ? mrow + key : mrow, key < a.lk);
+    }
+    cp_async_commit();
+  };
+  issue(0);  // one group with the q_s and do copies
+
+  // this thread's query rows row0 and row0 + 8: lse (times log2 e) and
+  // delta, 0 past Lq (q_s and do are zero there too, so dS = 0)
+  const int row0 = q0 + wg * kTile + 16 * warp + lane / 4;
+  float lse[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const size_t r = static_cast<size_t>(bh) * a.lq + row;
+    lse[i] = row < a.lq ? a.lse[r] * kLog2e : 0.0f;
+    delta[i] = row < a.lq ? a.delta[r] : 0.0f;
+  }
+  const bf16* qw = qs + wg * TILE;
+  const bf16* dw = dos + wg * TILE;
+
+  float s[8][4] = {}, dp[8][4] = {};
+  float dq[ND][4] = {};
+  bool ok[8][2];
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait_all();
+    fence_proxy_async();  // the copies are read by wgmma
+    __syncthreads();      // tile t is in; every warp is done with tile t - 1
+    if (t + 1 < nt) issue(t + 1);
+    const bf16* ks = ring + (t % kStages) * 2 * TILE;
+    const bf16* vs = ks + TILE;
+
+    // S = q_s . k^T, dP = do . v^T (queries as rows)
+    {
+      float(&sd)[32] = reinterpret_cast<float(&)[32]>(s);
+      float(&pd)[32] = reinterpret_cast<float(&)[32]>(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DK / 16; ++kk)
+        wgmma_ss_n64(sd, wgmma_desc(qw + kk * 2 * kTile * 8, kSlice, 128),
+                     wgmma_desc(ks + kk * 2 * kTile * 8, kSlice, 128), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DK / 16; ++kk)
+        wgmma_ss_n64(pd, wgmma_desc(dw + kk * 2 * kTile * 8, kSlice, 128),
+                     wgmma_desc(vs + kk * 2 * kTile * 8, kSlice, 128), kk > 0);
+      wgmma_commit();
+    }
+    wgmma_wait<1>();  // S is in; p runs while dP is in flight
+    if (masked || (t + 1) * kTile > a.lk) {
+      tile_valid(ok, mring + (t % kStages) * kTile, masked, t * kTile, a.lk, lane);
+      dq_p<true>(s, lse, ok);
+    } else {
+      dq_p<false>(s, lse, ok);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - delta[e >> 1]);
+    uint32_t da[4][4];
+    to_a_frags(da, dp);
+
+    // dQ += bf16(dS) . k (keys as the depth)
+    float(&dqd)[DP / 2] = reinterpret_cast<float(&)[DP / 2]>(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DP>(dqd, da[kk], wgmma_desc(ks + 16 * kk * 8, 128, kSlice));
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+
+  // dq = scale * dQ, written once in bf16
+  bf16* dqg = static_cast<bf16*>(a.dq) + qoff;
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= a.lq) continue;
+    bf16* out = dqg + static_cast<size_t>(row) * a.d;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int col = 8 * j + c0;
+      const float lo = dq[j][2 * i] * a.scale, hi = dq[j][2 * i + 1] * a.scale;
+      if ((a.d & 1) == 0 && col < a.d) {
+        *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(lo, hi);
+      } else {
+        if (col < a.d) out[col] = __float2bfloat16(lo);
+        if (col + 1 < a.d) out[col + 1] = __float2bfloat16(hi);
+      }
+    }
+  }
+}
+
 template <int DP, int VEC>
 __global__ void __launch_bounds__(kTcThreads) flash_bwd_tc_fused_kernel(BwdTcArgs a) {
   flash_bwd_tc<DP, VEC, true>(a);
@@ -356,6 +521,12 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_tc_fused_kernel(BwdTcArg
 template <int DP, int VEC>
 __global__ void __launch_bounds__(kTcThreads) flash_bwd_tc_dkv_kernel(BwdTcArgs a) {
   flash_bwd_tc<DP, VEC, false>(a);
+}
+// two blocks per SM (128 registers): one block's exponentials and epilogue
+// overlap the other's products
+template <int DP, int VEC>
+__global__ void __launch_bounds__(kTcThreads, 2) flash_bwd_tc_dq_kernel(BwdTcArgs a) {
+  flash_bwd_tc_dq<DP, VEC>(a);
 }
 
 // The prologue's launch: q (n values) -> qs = bf16(q * mul).
@@ -372,46 +543,58 @@ inline int scale_q(const bf16* q, bf16* qs, size_t n, float mul, cudaStream_t st
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP, int VEC, bool DQ>
+// Which backward a launch runs.
+enum BwdKind { kK4a, kK4b, kK4c };
+
+template <int DP, int VEC, BwdKind KIND>
 int launch_bwd_tc(const BwdTcArgs& a, int bh, cudaStream_t stream) {
   void (*kern)(BwdTcArgs);
-  if constexpr (DQ) {
-    kern = &flash_bwd_tc_fused_kernel<DP, VEC>;
-  } else {
-    kern = &flash_bwd_tc_dkv_kernel<DP, VEC>;
+  size_t smem;
+  dim3 grid;
+  if constexpr (KIND == kK4c) {  // query blocks
+    kern = &flash_bwd_tc_dq_kernel<DP, VEC>;
+    smem = sizeof(bf16) * (4 + 2 * kStages) * kTile * mma_k_dim(DP) +
+           sizeof(int) * kStages * kTile;
+    grid = dim3((a.lq + kFwdRows - 1) / kFwdRows, bh);
+  } else {  // key blocks
+    if constexpr (KIND == kK4a) {
+      kern = &flash_bwd_tc_fused_kernel<DP, VEC>;
+    } else {
+      kern = &flash_bwd_tc_dkv_kernel<DP, VEC>;
+    }
+    smem = bwd_tc_smem<DP, KIND == kK4a>();
+    grid = dim3((a.lk + kBwdKeys - 1) / kBwdKeys, bh);
   }
-  const size_t smem = bwd_tc_smem<DP, DQ>();
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.lk + kBwdKeys - 1) / kBwdKeys, bh);
   kern<<<grid, kTcThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP, bool DQ>
+template <int DP, BwdKind KIND>
 int launch_bwd_tc_vec(const BwdTcArgs& a, int bh, cudaStream_t s) {
   const uintptr_t bits = reinterpret_cast<uintptr_t>(a.qs) | reinterpret_cast<uintptr_t>(a.k) |
                          reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout);
   switch (copy_vec(a.d, bits)) {
-    case 8: return launch_bwd_tc<DP, 8, DQ>(a, bh, s);
-    case 4: return launch_bwd_tc<DP, 4, DQ>(a, bh, s);
-    case 2: return launch_bwd_tc<DP, 2, DQ>(a, bh, s);
-    default: return launch_bwd_tc<DP, 1, DQ>(a, bh, s);
+    case 8: return launch_bwd_tc<DP, 8, KIND>(a, bh, s);
+    case 4: return launch_bwd_tc<DP, 4, KIND>(a, bh, s);
+    case 2: return launch_bwd_tc<DP, 2, KIND>(a, bh, s);
+    default: return launch_bwd_tc<DP, 1, KIND>(a, bh, s);
   }
 }
 
-// K4a (DQ) or K4b in bf16: the prologue writes q_s = bf16(q * qmul) to the
+// K4a, K4b or K4c in bf16: the prologue writes q_s = bf16(q * qmul) to the
 // scratch qs (the size of q), then the kernel runs on it.
-template <bool DQ>
+template <BwdKind KIND>
 int run_bwd_tc(BwdTcArgs a, const bf16* q, bf16* qs, int bh, float qmul, cudaStream_t s) {
   if (qs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int err = scale_q(q, qs, static_cast<size_t>(bh) * a.lq * a.d, qmul, s);
   if (err != 0) return err;
   a.qs = qs;
   switch (padded_dim(a.d)) {
-    case 32: return launch_bwd_tc_vec<32, DQ>(a, bh, s);
-    case 72: return launch_bwd_tc_vec<72, DQ>(a, bh, s);
+    case 32: return launch_bwd_tc_vec<32, KIND>(a, bh, s);
+    case 72: return launch_bwd_tc_vec<72, KIND>(a, bh, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,17 +1,19 @@
 // Tensor-core building blocks of the bf16 flash-attention kernels, shared by
 // the forward (flash_fwd.cu: K3a, K3b) and the backward (flash_bwd_tc.cuh:
-// K4a in flash_bwd.cu, K4b in flash_bwd_split.cu), so that they cannot drift
-// apart in their tiling or their rounding points. Those kernels replace, in
-// bf16, the TPU kernels _fwd_single_kernel, _fwd_online_kernel,
-// _bwd_fused_kernel and _bwd_dkv_kernel of maa3_tpu/ops/flash_attention.py.
-// At training lengths all four are bound by the tensor cores' rate (4 to 10
-// Lq Lk D operations against (2 to 4) (Lq + Lk) D elements), so the pieces
+// K4a in flash_bwd.cu, K4b and K4c in flash_bwd_split.cu), so that they
+// cannot drift apart in their tiling or their rounding points. Those kernels
+// replace, in bf16, the TPU kernels _fwd_single_kernel, _fwd_online_kernel,
+// _bwd_fused_kernel, _bwd_dkv_kernel and _bwd_dq_kernel of
+// maa3_tpu/ops/flash_attention.py. At training lengths all five are bound by
+// the tensor cores' rate (4 to 10 Lq Lk D operations against (2 to 4)
+// (Lq + Lk) D elements), so the pieces
 // keep every operand bf16 in shared memory in the layout wgmma reads, keep
 // the scores in registers, and copy the next tile while this one is
 // multiplied.
 //
 // A block of kTcThreads = 256 threads is two warpgroups (4 warps each); in
-// the forward each warpgroup owns 64 query rows, in the backward 64 keys.
+// the forward and K4c each warpgroup owns 64 query rows, in K4a and K4b 64
+// keys.
 // Products are Hopper warpgroup products (wgmma m64nNk16, bf16 inputs, fp32
 // accumulators spread over the warpgroup's threads). Warp w of a warpgroup
 // holds rows 16w .. 16w + 15; lane l holds rows g = l / 4 and g + 8 and, for
@@ -21,7 +23,7 @@
 // row reduction is two xor shuffles, and the accumulator of a 64 x 64 score
 // tile is already the register A operand of the next product, whose depth is
 // the score tile's columns: p . v in the forward, P^T . do and dS^T . q_s in
-// the backward. Those scores never go through shared memory.
+// K4a and K4b, dS . k in K4c. Those scores never go through shared memory.
 //
 // Shared tiles hold 64 rows of bf16 in the no-swizzle ("interleave")
 // canonical layout of wgmma: the tile is cut into 8 x 8 core matrices (8
@@ -198,7 +200,7 @@ __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)
 }
 
 // d (+)= a . b, m64nNk16 (N = 40, 32 or 16), a and b from shared memory, both
-// MN-major (read with the transpose bits): the backward's dQ = dS . k, with
+// MN-major (read with the transpose bits): K4a's dQ = dS . k, with
 // dS stored as dS^T (keys as rows) and k as stored (keys as rows)
 template <int N>
 __device__ __forceinline__ void wgmma_ss_tt(float (&d)[N / 2], uint64_t da, uint64_t db,

@@ -101,33 +101,33 @@ def build() -> Path:
     return lib
 
 
+# The C signature of every extern "C" function in csrc/*.cu, as (return
+# type, argument types): c_void_p for each pointer and the stream, c_int,
+# c_float, c_longlong. tests/test_torch_hygiene.py holds it to the sources.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "maa3_aa_snake": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "maa3_conv_snake": (_I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _P)),
+    "maa3_conv_snake_smem": (ctypes.c_longlong, (_I, _I, _I, _I, _I)),
+    "maa3_flash_fwd": (_I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P)),
+    "maa3_flash_bwd": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _F, _F, _I, _P)),
+    "maa3_flash_bwd_dkv": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _F, _I, _P)),
+    "maa3_flash_bwd_dq": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                               _F, _I, _P)),
+}
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures set."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.maa3_aa_snake.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                      ci, vp]
-        lib.maa3_aa_snake.restype = ci
-        lib.maa3_conv_snake.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                        ci, ci, ci, ci, ci, ci, vp]
-        lib.maa3_conv_snake.restype = ci
-        lib.maa3_conv_snake_smem.argtypes = [ci, ci, ci]
-        lib.maa3_conv_snake_smem.restype = ctypes.c_longlong
-        cf = ctypes.c_float
-        lib.maa3_flash_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                       cf, ci, ci, vp]
-        lib.maa3_flash_fwd.restype = ci
-        lib.maa3_flash_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                       ci, ci, ci, ci, ci, cf, cf, ci, vp]
-        lib.maa3_flash_bwd.restype = ci
-        lib.maa3_flash_bwd_dkv.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
-                                           ci, ci, ci, ci, cf, ci, vp]
-        lib.maa3_flash_bwd_dkv.restype = ci
-        lib.maa3_flash_bwd_dq.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                          ci, ci, cf, cf, ci, vp]
-        lib.maa3_flash_bwd_dq.restype = ci
+        for name, (restype, argtypes) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, list(argtypes)
         _lib = lib
     return _lib
 

@@ -1,11 +1,10 @@
 """K3a / K3b / K4a / K4b / K4c: flash attention at O(L) memory, forward and
 backward (counterpart of maa3_tpu/ops/flash_attention.py; the kernels are
 CUDA C++, csrc/flash_fwd.cu, csrc/flash_bwd.cu and csrc/flash_bwd_split.cu).
-In bf16 the forward (K3a, K3b) and the key-tile backward (K4a, K4b; one
-design, csrc/flash_bwd_tc.cuh, whose prologue kernel writes the scaled q to a
-scratch the wrapper allocates) run on the tensor cores (wgmma); the
-query-tile backward K4c and every fp32 kernel run fp32 FMA loops (the tensor
-cores would take fp32 only as TF32).
+In bf16 the forward (K3a, K3b) and the backward (K4a, K4b and K4c,
+csrc/flash_bwd_tc.cuh, whose prologue kernel writes the scaled q to a scratch
+the wrapper allocates) run on the tensor cores (wgmma); every fp32 kernel
+runs fp32 FMA loops (the tensor cores would take fp32 only as TF32).
 
 `flash_attention(q, k, v, mask)` on (B, H, L, D) tensors is differentiable
 through `_FlashCore`, the counterpart of the JAX custom VJP `_flash_core`: the
@@ -22,9 +21,9 @@ only past the fused body's VMEM budget; K4a keeps dq in device memory, so
 that budget does not exist here. On an H100 80GB HBM3 at 700 W the split
 measured slower than K4a at every shape chip_smoke.py times, up to
 (1, 16, 14336, 72) bf16, the first 256-multiple past JAX's split point
-(K4b + K4c 77.28 ms against K4a 8.67 ms with the tensor-core K4a and K4b;
-chip_smoke.py's long-Lq timing, PERF.md), so `auto` runs K4a at every
-length.
+(K4b + K4c 8.54-8.70 ms against K4a 8.37-8.38 ms, all three on the tensor
+cores; chip_smoke.py's long-Lq timing, PERF.md), so `auto` runs K4a at
+every length.
 
 Routing of the forward is the JAX rule: the direct-softmax forward (K3a: the
 row max over the whole key range first, then one exp pass) iff `block_k` is
@@ -299,11 +298,12 @@ def flash_bwd_dq(q, k, v, mask: Optional[torch.Tensor], lse: torch.Tensor,
     b, h, lq, d = q.shape
     lk = k.shape[2]
     dq = torch.empty_like(q)
+    qs = _q_scratch(q)
     lib = cuda.load()
     with torch.cuda.device(q.device):
         err = lib.maa3_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), _ptr(mask), dq.data_ptr(), b * h, h, lq, lk, d,
+            delta.data_ptr(), _ptr(mask), dq.data_ptr(), _ptr(qs), b * h, h, lq, lk, d,
             ctypes.c_float(scale * LOG2E), ctypes.c_float(scale),
             cuda.DTYPE_CODES[q.dtype], cuda.stream_ptr(q))
     cuda.check(err, "flash_bwd_dq")

@@ -1,6 +1,8 @@
 """K2: fused [anti-aliased snake -> dilated Conv1d + bias] for the narrow
 BigVGAN stages (the counterpart of maa3_tpu/ops/pallas_amp.py, whose name it
-keeps; the kernel is CUDA C++, csrc/conv_snake.cu).
+keeps; the kernel is CUDA C++, csrc/conv_snake.cu). In bf16 the conv runs on
+the tensor cores (mma.sync) and takes C_in, C_out <= 64; fp32 runs an FMA
+loop (the tensor cores would take fp32 only as TF32).
 
 `conv_snake_fused(x, ...)` equals
 conv1d(aa_snake(x), w, b, padding=(k*d - d)//2, dilation=d) with the
@@ -65,7 +67,10 @@ def conv_snake_fused(x: torch.Tensor, alpha: torch.Tensor,
     if B > 65535:
         raise ValueError(f"conv_snake_fused: batch {B} exceeds the grid limit")
     lib = cuda.load()
-    smem = lib.maa3_conv_snake_smem(C, k, dilation)
+    smem = lib.maa3_conv_snake_smem(C, c_out, k, dilation, cuda.DTYPE_CODES[x.dtype])
+    if smem < 0:
+        raise ValueError(f"conv_snake_fused: the bf16 kernel takes C_in and C_out "
+                         f"<= 64, got C_in={C}, C_out={c_out}")
     if smem > SMEM_LIMIT:
         raise ValueError(f"conv_snake_fused: C_in={C}, k={k}, d={dilation} "
                          f"needs {smem} bytes of shared memory")

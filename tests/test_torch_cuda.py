@@ -67,7 +67,13 @@ def test_aa_snake_kernel_matches_plain(cuda_dev, shape, dtype, has_beta, logscal
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,d,c_in,c_out,T", [
     (3, 1, 8, 8, 300), (7, 3, 24, 24, 1000), (11, 5, 48, 48, 600),
-    (7, 1, 24, 1, 513), (3, 5, 4, 12, 7)])
+    (7, 1, 24, 1, 513), (3, 5, 4, 12, 7),
+    # the bf16 tensor-core tiling: 256-sample tiles (T not a multiple, one
+    # past, shorter than the halo E = (k d - d) / 2 <= 25), C_in padded to
+    # 16 / 32 / 48, C_out to 8 / 16 / 24 / 48 output channels
+    (11, 5, 48, 24, 20), (7, 3, 4, 48, 257), (3, 3, 48, 1, 2000),
+    (11, 1, 24, 12, 777), (7, 5, 48, 48, 4100), (3, 1, 24, 48, 5),
+    (11, 3, 4, 1, 1025), (7, 1, 4, 24, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_snake_kernel_matches_plain(cuda_dev, k, d, c_in, c_out, T, dtype):
     x, a, b = _inputs((2, c_in, T), dtype, cuda_dev, seed=k * d)
@@ -82,6 +88,35 @@ def test_conv_snake_kernel_matches_plain(cuda_dev, k, d, c_in, c_out, T, dtype):
         want = k2.conv_snake_plain(x, a, b, w, bias, k=k, dilation=d)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _tol(want), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d,c_in,c_out,T", [(7, 3, 24, 24, 1000), (3, 1, 48, 1, 300)])
+def test_conv_snake_bf16_libm_sin_matches_plain(cuda_dev, k, d, c_in, c_out, T):
+    """bf16 with fast_sin2=False (libm's sin, the kernel's compact run path
+    for every run) against the plain version."""
+    x, a, b = _inputs((2, c_in, T), torch.bfloat16, cuda_dev, seed=k)
+    g = torch.Generator().manual_seed(2)
+    w = (torch.randn(c_out, c_in, k, generator=g) / (c_in * k) ** 0.5).to(cuda_dev)
+    bias = (torch.randn(c_out, generator=g) * 0.1).to(cuda_dev)
+    got = k2.conv_snake_fused(x, a, b, w, bias, k=k, dilation=d, fast_sin2=False)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = k2.conv_snake_plain(x, a, b, w, bias, k=k, dilation=d, fast_sin2=False)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(want), err
+
+
+@pytest.mark.cuda
+def test_conv_snake_bf16_refuses_wide_channels(cuda_dev):
+    """The bf16 kernel takes C_in, C_out <= 64; wider shapes raise (no
+    fallback to the plain version)."""
+    x, a, b = _inputs((1, 72, 64), torch.bfloat16, cuda_dev)
+    w = torch.zeros(8, 72, 3, device=cuda_dev)
+    n = k2.launches
+    with pytest.raises(ValueError, match="<= 64"):
+        k2.conv_snake_fused(x, a, b, w, torch.zeros(8, device=cuda_dev), k=3)
+    assert k2.launches == n
 
 
 @pytest.mark.cuda
@@ -234,16 +269,18 @@ def test_flash_forward_unaligned_rows_match_plain(cuda_dev, offset):
 
 
 def _bwd_matches_plain(q, k, v, do, mask):
-    """K4a and K4b against the plain backward, from the plain forward's lse."""
+    """K4a, K4b and K4c against the plain backward, from the plain forward's
+    lse."""
     scale = q.shape[-1] ** -0.5
     with full_fp32():
         o, lse = fa.flash_fwd_plain(q, k, v, mask, scale, fa.route_for(k.shape[2]))
         delta = (do.float() * o.float()).sum(-1)
         want = fa.flash_bwd_plain(q, k, v, mask, lse, do, delta, scale)
     got = (*fa.flash_bwd(q, k, v, mask, lse, do, delta, scale),
-           *fa.flash_bwd_dkv(q, k, v, mask, lse, do, delta, scale))
+           *fa.flash_bwd_dkv(q, k, v, mask, lse, do, delta, scale),
+           fa.flash_bwd_dq(q, k, v, mask, lse, do, delta, scale))
     torch.cuda.synchronize()
-    for g, w in zip(got, want + want[1:]):
+    for g, w in zip(got, want + want[1:] + want[:1]):
         assert torch.isfinite(g).all()
         err = (g.float() - w.float()).abs().max().item()
         assert err <= _tol(w), err
@@ -251,7 +288,7 @@ def _bwd_matches_plain(q, k, v, do, mask):
 
 @pytest.mark.cuda
 def test_flash_backward_large_scores_match_plain(cuda_dev):
-    """K4a and K4b in bf16 with q and k scaled up so that the scaled scores
+    """K4a, K4b and K4c in bf16 with q and k scaled up so that the scaled scores
     reach about +-80: p = exp2(S - lse) must take the saved lse as it is."""
     q, k, v, do, mask = _flash_inputs(2, 4, 200, 300, 72, torch.bfloat16, cuda_dev, True,
                                       seed=4)
@@ -264,7 +301,7 @@ def test_flash_backward_large_scores_match_plain(cuda_dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", [1, 2, 4])
 def test_flash_backward_unaligned_rows_match_plain(cuda_dev, offset):
-    """K4a and K4b on q, k, v and do as contiguous views that start `offset`
+    """K4a, K4b and K4c on q, k, v and do as contiguous views that start `offset`
     bf16 values into a wider buffer: the copies fall back to 2-, 4- or 8-byte
     widths (the scaled-q prologue too)."""
     q, k, v, do, _ = _flash_inputs(2, 3, 150, 150, 72, torch.bfloat16, cuda_dev, False)
@@ -293,6 +330,38 @@ def test_flash_backward_dkv_is_deterministic(cuda_dev, masked):
     b = fa.flash_bwd_dkv(q, k, v, mask, lse, do, delta, scale)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,lq,lk,d,masked", [
+    (2, 3, 500, 700, 72, False),   # Lq != Lk both ways
+    (2, 3, 700, 500, 72, True),    # masked, a ragged row
+    (1, 2, 1, 5, 24, False),       # one query row, fewer keys than a 16-key depth
+    (2, 2, 130, 77, 33, False),    # odd head dim, 2-byte copies
+    (2, 2, 200, 150, 50, False),   # head dim padded to 72 (80 in the products)
+    (3, 2, 300, 200, 24, True)])   # a fully masked batch row
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_dq_kernel_matches_plain(cuda_dev, b, h, lq, lk, d, masked, dtype):
+    """K4c (the tensor-core kernel in bf16, the scalar one in fp32) against
+    flash_bwd_dq_plain at ragged shapes, with the launch count; two launches
+    give the same bits, and a row with no valid key gets dq = 0."""
+    q, k, v, do, mask = _flash_inputs(b, h, lq, lk, d, dtype, cuda_dev, masked, seed=3)
+    scale = d ** -0.5
+    with full_fp32():
+        o, lse = fa.flash_fwd_plain(q, k, v, mask, scale, "direct")
+        delta = (do.float() * o.float()).sum(-1)
+        want = fa.flash_bwd_dq_plain(q, k, v, mask, lse, do, delta, scale)
+    n = fa.launches["K4c"]
+    got = fa.flash_bwd_dq(q, k, v, mask, lse, do, delta, scale)
+    again = fa.flash_bwd_dq(q, k, v, mask, lse, do, delta, scale)
+    torch.cuda.synchronize()
+    assert fa.launches["K4c"] == n + 2
+    assert got.dtype == dtype and got.shape == q.shape and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(want), err
+    if masked and b >= 3:
+        assert not got[-1].any()
 
 
 @pytest.mark.cuda

@@ -152,8 +152,54 @@ def _chip_smoke():
     ("_ZN10maa3_flash12_GLOBAL__N_116flash_bwd_kernelIfLi72EEEvNS0_7BwdArgsE",
      "flash_bwd_kernel<fp32, 72>"),
     ("_ZN10maa3_flash12_GLOBAL__N_119flash_bwd_dq_kernelI13__nv_bfloat16Li72EEEvNS0_9SplitArgsE",
-     "flash_bwd_dq_kernel<bf16, 72>")])
+     "flash_bwd_dq_kernel<bf16, 72>"),
+    ("_ZN10maa3_flash12_GLOBAL__N_122flash_bwd_tc_dq_kernelILi72ELi8EEEvNS0_9BwdTcArgsE",
+     "flash_bwd_tc_dq_kernel<72, 8>"),
+    ("_ZN12_GLOBAL__N_120conv_snake_tc_kernelILi6EEEvNS_8ConvArgsE",
+     "conv_snake_tc_kernel<6>"),
+    ("_ZN12_GLOBAL__N_117conv_snake_kernelIfEEvPKT_PS1_PKfS6_S6_S6_iiiiibbb",
+     "conv_snake_kernel<fp32>")])
 def test_chip_smoke_reads_kernel_names(mangled, short):
     """The SASS check of chip_smoke.py finds the tensor-core kernels by these
-    short names (flash_fwd_tc_*, flash_bwd_tc_*) and the fp32 ones by <fp32."""
+    short names (flash_fwd_tc_*, flash_bwd_tc_*, conv_snake_tc_*) and the
+    fp32 ones by <fp32."""
     assert _chip_smoke().kernel_name(mangled) == short
+
+
+def _c_kind(decl: str) -> str:
+    """The ctypes kind of one C parameter or return type."""
+    decl = decl.strip()
+    if "*" in decl:
+        return "pointer"
+    for kind in ("long long", "float", "int"):
+        if re.match(rf"(const\s+)?{kind}\b", decl):
+            return kind
+    raise ValueError(f"unknown C type in {decl!r}")
+
+
+def _extern_c_functions():
+    """{name: (return kind, [argument kinds])} of every extern "C" function in
+    maa3_tpu_torch/csrc/*.cu."""
+    pat = re.compile(r'extern\s+"C"\s+([\w\s]+?)\s*\b(\w+)\s*\(([^)]*)\)\s*\{', re.S)
+    out = {}
+    for path in sorted((ROOT / "maa3_tpu_torch" / "csrc").glob("*.cu")):
+        for ret, name, args in pat.findall(path.read_text()):
+            out[name] = (_c_kind(ret), [_c_kind(a) for a in args.split(",")])
+    return out
+
+
+def test_ctypes_bindings_match_the_c_signatures():
+    """cuda.SIGNATURES binds every extern "C" function of the sources with the
+    same number and kinds of arguments, and the same return kind, so a
+    changed C signature fails here instead of misreading arguments on the
+    card (ctypes passes whatever the argtypes say)."""
+    import ctypes
+    from maa3_tpu_torch import cuda
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+             ctypes.c_float: "float", ctypes.c_longlong: "long long"}
+    c_funcs = _extern_c_functions()
+    assert len(c_funcs) >= 7, sorted(c_funcs)
+    assert sorted(c_funcs) == sorted(cuda.SIGNATURES)
+    for name, (ret, args) in c_funcs.items():
+        restype, argtypes = cuda.SIGNATURES[name]
+        assert (kinds[restype], [kinds[t] for t in argtypes]) == (ret, args), name
