@@ -6,16 +6,20 @@
 Phases, each timed on a line of its own:
   1. environment: card name and power limit (nvidia-smi), torch, nvcc;
   2. build: nvcc compiles maa3_tpu_torch/csrc into build/ (ctypes-loaded),
-     with each kernel's registers and spills; cuobjdump's SASS of the
+     with each kernel's registers and spills (every function of K1 must
+     spill nothing: its runs live in registers); cuobjdump's SASS of the
      library must show tensor-core instructions (HMMA/HGMMA) in every bf16
      flash forward kernel (flash_fwd_tc_*), every bf16 flash backward kernel
      (flash_bwd_tc_*: K4a, K4b, K4c) and every bf16 K2 kernel
-     (conv_snake_tc_*), and none in any fp32 kernel (no TF32);
+     (conv_snake_tc_*), and none in any fp32 kernel (no TF32); K1's
+     instruction mix is logged from the same SASS;
   3. kernels: K1 (AA-snake) and K2 (AA-snake -> conv) against their plain
      PyTorch versions at every shape the XL batch-4 vocode gives them, in
-     fp32 and bf16, with error, kernel time, plain time and bound (K2 also
-     with its conv's TFLOP/s, its share of the bound, and the time of one
-     call alone between two events, the older method of PERF.md's records);
+     fp32 and bf16, with error, kernel time, plain time, bound and share of
+     the bound (the bound's operations counted both as the kernels execute
+     the snake and with sin as one operation, the older count; K2 also with
+     its conv's TFLOP/s and the time of one call alone between two events,
+     the older method of PERF.md's records);
   4. reference: a small system on the card against the same weights on the
      CPU (plain versions), fp32;
   5. main path: the XL system (random weights from a seed, zero-init gates
@@ -76,9 +80,15 @@ T0 = time.perf_counter()
 # H100 SXM published peaks (NVIDIA data sheet): DRAM bytes/s, fp32 FLOP/s
 # outside the tensor cores, dense bf16 tensor-core FLOP/s.
 PEAK_BW, PEAK_FP32, PEAK_BF16 = 3.35e12, 67e12, 989e12
-# operations per output sample of the anti-aliased snake: two 6-tap FIRs
-# (24), two snakes counting sin as one operation (8), one 12-tap FIR (24)
-ACT_OPS = 56
+# fp32 operations (an FMA is two) per output sample of the anti-aliased
+# snake as the kernels execute it: two 6-tap FIRs (24), two snakes of 24
+# each (a v; sin2_poly's 21: a multiply, a round, a subtract, two
+# multiplies, seven FMAs, a subtract and a multiply; v + ib s^2 as an FMA),
+# one 12-tap FIR (24). fp32's libm sinf is counted as the polynomial (its
+# fast path, a three-term reduction and a short polynomial, is of that
+# size); the fp32 bound is the bytes either way. ACT_OPS_SIN_AS_ONE is the
+# older count, which took sin as one operation; phase 3 logs both.
+ACT_OPS, ACT_OPS_SIN_AS_ONE = 96, 56
 
 B, LATENT = 4, 312                       # 4 prompts, 10 s clips
 K1_STAGES = [(768, 2496), (384, 9984), (192, 19968), (96, 39936)]
@@ -152,24 +162,73 @@ TC_KERNELS = (("flash_fwd_tc_", "flash forward (K3a, K3b)", 16),
               ("conv_snake_tc_", "K2", 6))
 
 
+def ptxas_report(build_log: str) -> dict:
+    """{mangled name: {registers, stack, spill_stores, spill_loads}} of every
+    function in ptxas's -v report: the entry kernels and the device
+    functions they call."""
+    funcs, name = {}, None
+    for line in build_log.splitlines():
+        head = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)",
+                         line)
+        if head:
+            name = head.group(1)
+            funcs.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if frame:
+            funcs[name].update(stack=int(frame.group(1)), spill_stores=int(frame.group(2)),
+                               spill_loads=int(frame.group(3)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            funcs[name]["registers"] = int(regs.group(1))
+    return funcs
+
+
+def check_k1_spills(build_log: str) -> None:
+    """Every function of K1 (its two kernels and the generic run they call,
+    the instantiations over RowTail) spills nothing: its runs live in
+    registers."""
+    k1 = {n: v for n, v in ptxas_report(build_log).items()
+          if re.search(r"aa_snake_kernel|RowTail", n)}
+    for n, v in sorted(k1.items()):
+        log(f"build: K1 {kernel_name(n)}: {v}")
+    require(sum("aa_snake_kernel" in n for n in k1) == 2
+            and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+                    for v in k1.values()),
+            f"ptxas reports no spill in any function of K1: {k1}")
+
+
 def check_sass(lib_path: str, nvcc: str) -> dict:
     """Tensor-core instructions (HMMA, HGMMA) per kernel in the built
     library's SASS (cuobjdump): every bf16 flash forward kernel
     (flash_fwd_tc_*, 16 instantiations), every bf16 flash backward kernel
     (flash_bwd_tc_*: K4a, K4b and K4c, 24) and every bf16 K2 kernel
     (conv_snake_tc_*, 6) must have some, and no kernel instantiated for fp32
-    may have any (that would be TF32). Returns {short name: count}."""
+    may have any (that would be TF32). Also logs K1's instruction mix (its
+    kernels are issue-bound). Returns {short name: count}."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    counts, name = {}, None
+    counts, name, k1_ops = {}, None, {}
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
             name = kernel_name(fn.group(1))
             counts[name] = 0
-        elif name and re.search(r"\bH(G)?MMA\b", line):
+            continue
+        op = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if name and name.startswith("aa_snake_kernel") and op:
+            k1_ops.setdefault(name, {}).setdefault(op.group(1), 0)
+            k1_ops[name][op.group(1)] += 1
+        if name and re.search(r"\bH(G)?MMA\b", line):
             counts[name] += 1
+    for k, ops in sorted(k1_ops.items()):
+        fp32 = sum(ops.get(o, 0) for o in ("FFMA", "FMUL", "FADD"))
+        log(f"sass: {k}: {sum(ops.values())} instructions, {fp32} fp32 FFMA / FMUL / FADD, "
+            f"{ops.get('FRND', 0)} FRND, {ops.get('LDG', 0)} LDG, {ops.get('STG', 0)} STG")
     fp32 = {k: v for k, v in counts.items() if "<fp32" in k}
     for prefix, what, want in TC_KERNELS:
         tc = {k: v for k, v in counts.items() if k.startswith(prefix)}
@@ -237,7 +296,8 @@ def check_kernels(torch, k1, k2, full_fp32):
                              launches=18, err=err, tol=lim, ms=time_ms(kern),
                              plain_ms=time_ms(plain),
                              bytes_ms=(2 * n * item + 8 * c) / PEAK_BW * 1e3,
-                             ops_ms=n * ACT_OPS / PEAK_FP32 * 1e3))
+                             ops_ms=n * ACT_OPS / PEAK_FP32 * 1e3,
+                             ops_sin_as_one_ms=n * ACT_OPS_SIN_AS_ONE / PEAK_FP32 * 1e3))
             del x, got, want
         for (c, t), post in [(s, False) for s in K2_STAGES] + [(K2_STAGES[-1], True)]:
             combos = [(7, 1, 1)] if post else [(k, d, c) for k in KS for d in DILS]
@@ -264,7 +324,7 @@ def check_kernels(torch, k1, k2, full_fp32):
                 n = B * t
                 nbytes = n * (c + c_out) * item + 4 * (c_out * c * k + c_out + 2 * c)
                 peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
-                t_ops = n * c * ACT_OPS / PEAK_FP32 + 2 * n * c_out * c * k / peak
+                t_conv = 2 * n * c_out * c * k / peak
                 # launches per batch-4 vocode at this shape: convs1 (k, d)
                 # once per resblock; convs2 (k, 1) three times; post once
                 launches = 1 if post else (4 if d == 1 else 1)
@@ -274,19 +334,25 @@ def check_kernels(torch, k1, k2, full_fp32):
                                  once_ms=time_once_ms(kern),
                                  plain_ms=time_ms(plain),
                                  bytes_ms=nbytes / PEAK_BW * 1e3,
-                                 ops_ms=t_ops * 1e3,
+                                 ops_ms=(n * c * ACT_OPS / PEAK_FP32 + t_conv) * 1e3,
+                                 ops_sin_as_one_ms=(n * c * ACT_OPS_SIN_AS_ONE / PEAK_FP32
+                                                    + t_conv) * 1e3,
                                  conv_flops=2 * n * c_out * c * k))
                 del got, want
             del x
     for r in rows:
         r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
-        # K2: the conv's operations per second, and the share of the bound
-        rate = (f" ({r['conv_flops'] / r['ms'] / 1e9:.1f} TFLOP/s conv, "
-                f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound; one call alone "
-                f"{r['once_ms']:.4f} ms)" if r["kernel"] == "K2" else "")
+        # the share of the bound; K2: the conv's operations per second and
+        # one call alone
+        rate = (f"{r['conv_flops'] / r['ms'] / 1e9:.1f} TFLOP/s conv, "
+                if r["kernel"] == "K2" else "")
+        once = f"; one call alone {r['once_ms']:.4f} ms" if r["kernel"] == "K2" else ""
         log(f"{r['kernel']} {r['dtype']:8s} {str(r['shape']):34s} err {r['err']:.3e} "
-            f"(tol {r['tol']:.3e}) kernel {r['ms']:.4f} ms{rate} plain "
-            f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms")
+            f"(tol {r['tol']:.3e}) kernel {r['ms']:.4f} ms ({rate}"
+            f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound{once}) plain "
+            f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms (bytes "
+            f"{r['bytes_ms']:.4f}, operations {r['ops_ms']:.4f}; with sin as one "
+            f"operation {r['ops_sin_as_one_ms']:.4f})")
     bad = [r for r in rows if not r["err"] <= r["tol"]]
     require(not bad, f"kernels agree with their plain versions: {bad}")
     return rows
@@ -985,6 +1051,7 @@ def main() -> int:
             kernel = kernel_name(entry.group(1))
         elif "registers" in line or "spill" in line or "error" in line.lower():
             log(f"build: {kernel}: {line.strip()}")
+    check_k1_spills(cuda.build_info["log"])
     check_sass(cuda.build_info["path"], cuda.nvcc_path())
 
     from maa3_tpu_torch import system as system_mod

@@ -20,13 +20,14 @@
 //   w_j[o][c] for each tap j (C_out padded to NT * 8, C_in to C_pad, a
 //   multiple of 16), then walks (batch, 256-sample) tiles.
 // - Activation: every thread computes 16 consecutive outputs of one channel
-//   in registers (32 input samples, 22 pairs of snake phases, a 12-tap
-//   decimation), so the stage takes no block barrier per channel; the lanes
-//   of a warp take consecutive channels, so their bf16 stores into the
-//   time-major tile act[t][c] (row pitch C_pad + 8: conflict-free ldmatrix
-//   rows) hit distinct banks. Runs that touch the signal's ends take the
-//   clamped loads and edge rules of snake.cuh; the rest load x in 16-byte
-//   pieces.
+//   in registers (maa3::act_run of snake.cuh, shared with K1: 32 input
+//   samples, 22 pairs of snake phases, a 12-tap decimation), so the stage
+//   takes no block barrier per channel; the lanes of a warp take
+//   consecutive channels, so their bf16 stores into the time-major tile
+//   act[t][c] (row pitch C_pad + 8: conflict-free ldmatrix rows) hit
+//   distinct banks. Runs that touch the signal's ends take the clamped
+//   loads and edge rules of maa3::act_run_generic; the rest load x in
+//   16-byte pieces.
 // - Conv as an implicit GEMM: out^T (time x C_out) = sum_j act[t + j d - E, :]
 //   . w_j^T on mma.sync m16n8k16 (bf16 in, fp32 accumulators initialised to
 //   the bias). Each warp owns 32 output samples and all NT n-tiles; the A
@@ -232,96 +233,25 @@ __device__ __forceinline__ void put_act(bf16* act, int pitch, int c, int r0, int
   if (r >= 0 && r < rows) act[r * pitch + c] = __float2bfloat16(y);
 }
 
-// The activation at g = gs .. gs + kRun - 1 of one row (gs a multiple of
-// kRun, x[gs - 8 .. gs + kRun + 8) inside the row and 16-byte aligned, the
-// sin^2 polynomial), stored from row r0 of the act tile: the arithmetic of
-// snake_phases / down_at in registers, x read in 16-byte pieces (a bf16 is
-// the top half of its fp32), 22 pairs of snake phases, one 12-tap
-// decimation per output, all straight-line code.
-__device__ __forceinline__ void act_run(bf16* act, int pitch, int c, int r0, int rows,
-                                        const bf16* __restrict__ xrow, int gs, float a,
-                                        float ib) {
-  float xv[kRun + 16];  // x[gs - 8 + i]
-  const uint4* src = reinterpret_cast<const uint4*>(xrow + gs - 8);
-#pragma unroll
-  for (int q = 0; q < (kRun + 16) / 8; ++q) {
-    const uint4 u = __ldg(src + q);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      xv[8 * q + 2 * e] = __uint_as_float(w[e] << 16);
-      xv[8 * q + 2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
-    }
-  }
-  // s_even, s_odd at m = gs - 3 + i (up_even[m] = sum_{j odd} f[j]
-  // x[m + (15 - j)/2 - 5], up_odd[m] = sum_{j even} f[j] x[m + (16 - j)/2 - 5])
-  float se[kRun + 6], so[kRun + 6];
-#pragma unroll
-  for (int i = 0; i < kRun + 6; ++i) {
-    float ue = 0.0f, uo = 0.0f;
-#pragma unroll
-    for (int j = 1; j < 12; j += 2) ue += maa3::kFUp[j] * xv[i + (15 - j) / 2];
-#pragma unroll
-    for (int j = 0; j < 12; j += 2) uo += maa3::kFUp[j] * xv[i + (16 - j) / 2];
-    se[i] = maa3::snake(ue, a, ib, true);
-    so[i] = maa3::snake(uo, a, ib, true);
-  }
-  // y[g] = sum_j fdn[j] s~[2g + j - 5]
-#pragma unroll
-  for (int l = 0; l < kRun; ++l) {
-    float y = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 12; ++j)
-      y += maa3::kFDn[j] * ((j & 1) ? se[l + 3 + (j - 5) / 2] : so[l + 3 + (j - 6) / 2]);
+// Where maa3::act_run's outputs go: output l of a run as row r0 + l, column c
+// of the act tile.
+struct ActColumn {
+  bf16* act;
+  int pitch, c, r0, rows;
+  __device__ __forceinline__ void operator()(int l, float y) const {
     put_act(act, pitch, c, r0, rows, l, y);
   }
-}
+};
 
-// act_run for every other run: one that touches the row's ends (x read with
-// clamped indices; an s-index below 0 takes s_even[0], one past 2n - 1
-// takes s_odd[n - 1]; outputs outside [0, n) are 0), x rows off 16-byte
-// boundaries, or libm's sin. The same sums in the same order, in rolled
-// loops over local arrays: these runs are a few per row (all of them only
-// off the main path), so the code stays small rather than fast.
-__device__ __noinline__ void act_run_generic(bf16* act, int pitch, int c, int r0, int rows,
-                                             const bf16* __restrict__ xrow, int n, int gs,
-                                             float a, float ib, bool fast) {
-  float xv[kRun + 16], se[kRun + 6], so[kRun + 6];
-  for (int i = 0; i < kRun + 16; ++i)
-    xv[i] = __bfloat162float(xrow[maa3::clampi(gs - 8 + i, 0, n - 1)]);
-  float ue0 = 0.0f, uo1 = 0.0f;  // up_even at m = 0, up_odd at m = n - 1
-#pragma unroll
-  for (int j = 1; j < 12; j += 2)
-    ue0 += maa3::kFUp[j] * __bfloat162float(xrow[maa3::clampi((15 - j) / 2 - 5, 0, n - 1)]);
-#pragma unroll
-  for (int j = 0; j < 12; j += 2)
-    uo1 += maa3::kFUp[j] *
-           __bfloat162float(xrow[maa3::clampi(n - 1 + (16 - j) / 2 - 5, 0, n - 1)]);
-  const float first = maa3::snake(ue0, a, ib, fast), last = maa3::snake(uo1, a, ib, fast);
-  for (int i = 0; i < kRun + 6; ++i) {
-    const int m = gs - 3 + i;
-    float ue = 0.0f, uo = 0.0f;
-#pragma unroll
-    for (int j = 1; j < 12; j += 2) ue += maa3::kFUp[j] * xv[i + (15 - j) / 2];
-#pragma unroll
-    for (int j = 0; j < 12; j += 2) uo += maa3::kFUp[j] * xv[i + (16 - j) / 2];
-    if (m < 0) {
-      se[i] = so[i] = first;
-    } else if (m > n - 1) {
-      se[i] = so[i] = last;
-    } else {
-      se[i] = maa3::snake(ue, a, ib, fast);
-      so[i] = maa3::snake(uo, a, ib, fast);
-    }
+// The same for maa3::act_run_generic, whose outputs outside [0, n) are the
+// conv's zero padding.
+struct ActColumnPadded {
+  ActColumn col;
+  int gs, n;
+  __device__ __forceinline__ void operator()(int l, float y) const {
+    col(l, (gs + l >= 0 && gs + l < n) ? y : 0.0f);
   }
-  for (int l = 0; l < kRun; ++l) {
-    float y = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 12; ++j)
-      y += maa3::kFDn[j] * ((j & 1) ? se[l + 3 + (j - 5) / 2] : so[l + 3 + (j - 6) / 2]);
-    put_act(act, pitch, c, r0, rows, l, (gs + l >= 0 && gs + l < n) ? y : 0.0f);
-  }
-}
+};
 
 template <int NT>
 __global__ void __launch_bounds__(kTcThreads, 2) conv_snake_tc_kernel(ConvArgs a) {
@@ -371,9 +301,11 @@ __global__ void __launch_bounds__(kTcThreads, 2) conv_snake_tc_kernel(ConvArgs a
 #pragma unroll
         for (int l = 0; l < kRun; ++l) put_act(act, P, c, r0, L.rows, l, 0.0f);
       } else if (a.vec && a.fast && gs >= 8 && gs + kRun + 8 <= n) {
-        act_run(act, P, c, r0, L.rows, xrow, gs, ca[c], cib[c]);
+        ActColumn col{act, P, c, r0, L.rows};
+        maa3::act_run<kRun, true>(xrow, gs, ca[c], cib[c], col);
       } else {
-        act_run_generic(act, P, c, r0, L.rows, xrow, n, gs, ca[c], cib[c], a.fast != 0);
+        maa3::act_run_generic<kRun>(xrow, n, gs, ca[c], cib[c], a.fast != 0,
+                                    ActColumnPadded{{act, P, c, r0, L.rows}, gs, n});
       }
     }
     if (a.c_in < L.cpad) {  // the padded channels are the product's zero depth

@@ -1,7 +1,9 @@
 // Device code shared by the two anti-aliased snake kernels (aa_snake.cu,
 // conv_snake.cu): BigVGAN's Activation1d(snake / snake-beta) with the 2x /
-// 12-tap kaiser-sinc filters, computed by one thread block over a window of
-// one row of a (rows, T) signal.
+// 12-tap kaiser-sinc filters over one row of a (rows, T) signal, either as a
+// run of consecutive outputs computed by one thread in registers (act_run,
+// act_run_generic: K1, and K2's bf16 route) or by one thread block over a
+// window in shared memory (snake_phases, down_at: K2's fp32 route).
 //
 // Semantics are those of FusedActivation1d (maa3_tpu/ops/resample.py:174 and
 // maa3_tpu_torch/ops/resample.py): x is replicate-padded by 5, upsampled by
@@ -17,6 +19,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace maa3 {
 
@@ -136,6 +140,119 @@ __device__ __forceinline__ float down_at(const float* se, const float* so,
       y += kFDn[j] * so[l + 3 + (j - 6) / 2];
   }
   return y;
+}
+
+// The pair of snake phases at m from w[k] = x[m - 3 + k], k = 0 .. 6:
+// s_even = snake(up_even[m]), up_even[m] = sum_{j odd} f[j] x[m + (15 - j)/2 - 5];
+// s_odd = snake(up_odd[m]), up_odd[m] = sum_{j even} f[j] x[m + (16 - j)/2 - 5].
+__device__ __forceinline__ void snake_pair(const float* w, float a, float ib, bool fast,
+                                           float* se, float* so) {
+  float ue = 0.0f, uo = 0.0f;
+#pragma unroll
+  for (int j = 1; j < 12; j += 2) ue += kFUp[j] * w[(15 - j) / 2 - 2];
+#pragma unroll
+  for (int j = 0; j < 12; j += 2) uo += kFUp[j] * w[(16 - j) / 2 - 2];
+  *se = snake(ue, a, ib, fast);
+  *so = snake(uo, a, ib, fast);
+}
+
+// x[0 .. N) from p into fp32 registers in 16-byte pieces (p 16-byte
+// aligned; a bf16 is the top half of its fp32).
+template <int N>
+__device__ __forceinline__ void load_run(const float* __restrict__ p, float (&xv)[N]) {
+  static_assert(N % 4 == 0, "whole 16-byte pieces");
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p) + q);
+    xv[4 * q] = f.x;
+    xv[4 * q + 1] = f.y;
+    xv[4 * q + 2] = f.z;
+    xv[4 * q + 3] = f.w;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_run(const __nv_bfloat16* __restrict__ p,
+                                         float (&xv)[N]) {
+  static_assert(N % 8 == 0, "whole 16-byte pieces");
+#pragma unroll
+  for (int q = 0; q < N / 8; ++q) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + q);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      xv[8 * q + 2 * e] = __uint_as_float(w[e] << 16);
+      xv[8 * q + 2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+    }
+  }
+}
+
+// The activation at g = gs .. gs + R - 1 of one row, handed to sink(l, y)
+// for l = 0 .. R - 1 in order: the arithmetic of snake_phases / down_at in
+// registers, for a run whose x[gs - 8 .. gs + R + 8) lies inside the row
+// and starts on a 16-byte boundary (so no clamp and no edge rule binds).
+// x comes in 16-byte pieces; pair i of snake phases (at m = gs - 3 + i)
+// completes output i - 6, y[g] = sum_j fdn[j] s~[2g + j - 5], so the R + 6
+// pairs and R outputs are one straight-line sweep that keeps only a window
+// of phases live. kPoly picks sin2_poly, else libm's sinf.
+template <int R, bool kPoly, typename T, typename Sink>
+__device__ __forceinline__ void act_run(const T* __restrict__ xrow, int gs, float a,
+                                        float ib, Sink& sink) {
+  float xv[R + 16];  // x[gs - 8 + i]
+  load_run(xrow + gs - 8, xv);
+  float se[R + 6], so[R + 6];
+#pragma unroll
+  for (int i = 0; i < R + 6; ++i) {
+    snake_pair(xv + i + 2, a, ib, kPoly, se + i, so + i);
+    if (i >= 6) sink(i - 6, down_at(se, so, i - 6));
+  }
+}
+
+// act_run for every other run: one that touches the row's ends (x read with
+// clamped indices; an s-index below 0 takes s_even[0], one past 2n - 1
+// takes s_odd[n - 1]), a row off 16-byte boundaries, or the sin the
+// straight-line run was not built for. The same sums in the same order in a
+// rolled loop over the pairs, with sliding windows in registers (x[m - 3 ..
+// m + 3] for the pair at m, the phases of the last seven pairs) and no
+// local arrays: these runs are a few per row (all of them only off the main
+// path), so the code stays small, and its loads mostly hit L1. gs may lie
+// outside [0, n); sink(l, y) gets every l = 0 .. R - 1 and drops or zeroes
+// the outputs outside the row itself.
+template <int R, typename T, typename Sink>
+__device__ __noinline__ void act_run_generic(const T* __restrict__ xrow, int n, int gs,
+                                             float a, float ib, bool fast, Sink sink) {
+  float ue0 = 0.0f, uo1 = 0.0f;  // up_even at m = 0, up_odd at m = n - 1
+#pragma unroll
+  for (int j = 1; j < 12; j += 2) ue0 += kFUp[j] * load_f(xrow + clampi((15 - j) / 2 - 5, 0, n - 1));
+#pragma unroll
+  for (int j = 0; j < 12; j += 2)
+    uo1 += kFUp[j] * load_f(xrow + clampi(n - 1 + (16 - j) / 2 - 5, 0, n - 1));
+  const float first = snake(ue0, a, ib, fast), last = snake(uo1, a, ib, fast);
+  // w[k] = x[m - 3 + k] for the pair at m (clamped); pe[k], po[k] = s_even,
+  // s_odd of pair i - 6 + k after pair i
+  float w[7], pe[7] = {}, po[7] = {};
+#pragma unroll
+  for (int k = 1; k < 7; ++k) w[k] = load_f(xrow + clampi(gs - 7 + k, 0, n - 1));
+#pragma unroll 1
+  for (int i = 0; i < R + 6; ++i) {
+    const int m = gs - 3 + i;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) w[k] = w[k + 1];
+    w[6] = load_f(xrow + clampi(m + 3, 0, n - 1));
+    float sev = first, sov = first;
+    if (m > n - 1) {
+      sev = sov = last;
+    } else if (m >= 0) {
+      snake_pair(w, a, ib, fast, &sev, &sov);
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      pe[k] = pe[k + 1];
+      po[k] = po[k + 1];
+    }
+    pe[6] = sev;
+    po[6] = sov;
+    if (i >= 6) sink(i - 6, down_at(pe, po, 0));
+  }
 }
 
 }  // namespace maa3

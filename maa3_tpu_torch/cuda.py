@@ -78,7 +78,9 @@ def build() -> Path:
     out_dir = BUILD_ROOT / f"kernels-{h.hexdigest()[:16]}"
     lib = out_dir / LIB_NAME
     if lib.is_file():
-        build_info.update(path=str(lib), seconds=0.0, log="(reused)")
+        log = out_dir / "nvcc.log"
+        build_info.update(path=str(lib), seconds=0.0,
+                          log=log.read_text() if log.is_file() else "(reused)")
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, pid = nvcc_path(), os.getpid()

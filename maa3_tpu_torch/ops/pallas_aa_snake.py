@@ -76,6 +76,11 @@ def aa_snake_fused(x: torch.Tensor, alpha: torch.Tensor,
     B, C, T = x.shape
     if alpha.numel() != C or (has_beta and beta.numel() != C):
         raise ValueError("aa_snake_fused: alpha/beta must have C entries")
+    if B * C >= 2 ** 31 or T >= 2 ** 31:
+        raise ValueError(f"aa_snake_fused: B * C and T must be below 2^31, got "
+                         f"{tuple(x.shape)}")
+    if x.numel() == 0:
+        return torch.empty_like(x)
     x = x.contiguous()
     a, b = _params(alpha, beta, has_beta, x.device)
     y = torch.empty_like(x)

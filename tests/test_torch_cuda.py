@@ -49,7 +49,14 @@ def _inputs(shape, dtype, dev, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 8, 300), (1, 3, 5), (2, 16, 2500)])
+@pytest.mark.parametrize("shape", [
+    (2, 8, 300), (1, 3, 5), (2, 16, 2500),
+    # the kernel's routes (32-output runs, 8-sample halos, 16-byte pieces):
+    # rows of one sample, shorter than a run, one run, odd (rows off
+    # 16-byte boundaries), the vocoder's widest stage (interior runs and
+    # the two edge runs per row), and more rows than a grid's y dimension
+    (2, 4, 1), (2, 4, 16), (2, 4, 17), (2, 4, 40), (2, 4, 1001), (2, 8, 2496),
+    (1, 70000, 24)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("has_beta,logscale", [(True, True), (False, False)])
 def test_aa_snake_kernel_matches_plain(cuda_dev, shape, dtype, has_beta, logscale):
@@ -60,6 +67,23 @@ def test_aa_snake_kernel_matches_plain(cuda_dev, shape, dtype, has_beta, logscal
     assert k1.launches == n + 1
     want = k1.aa_snake_plain(x, a, b, logscale=logscale, has_beta=has_beta)
     assert got.dtype == dtype and got.shape == x.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(want), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset,fast", [
+    ((2, 8, 2496), 0, False), ((2, 3, 17), 0, False), ((2, 8, 2496), 1, True)])
+def test_aa_snake_bf16_generic_runs_match_plain(cuda_dev, shape, offset, fast):
+    """bf16 inputs that send every run of the kernel to its compact generic
+    run: libm's sin (fast_sin2=False), and data that starts one element past
+    a 16-byte boundary."""
+    x, a, b = _inputs(shape, torch.bfloat16, cuda_dev, seed=3)
+    x = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(shape)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    got = k1.aa_snake_fused(x, a, b, fast_sin2=fast)
+    want = k1.aa_snake_plain(x, a, b, fast_sin2=fast)
+    torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _tol(want), err
 

@@ -158,12 +158,54 @@ def _chip_smoke():
     ("_ZN12_GLOBAL__N_120conv_snake_tc_kernelILi6EEEvNS_8ConvArgsE",
      "conv_snake_tc_kernel<6>"),
     ("_ZN12_GLOBAL__N_117conv_snake_kernelIfEEvPKT_PS1_PKfS6_S6_S6_iiiiibbb",
-     "conv_snake_kernel<fp32>")])
+     "conv_snake_kernel<fp32>"),
+    ("_ZN12_GLOBAL__N_115aa_snake_kernelI13__nv_bfloat16EEvPKT_PS2_PKfS7_iiiixxbbb",
+     "aa_snake_kernel<bf16>")])
 def test_chip_smoke_reads_kernel_names(mangled, short):
     """The SASS check of chip_smoke.py finds the tensor-core kernels by these
     short names (flash_fwd_tc_*, flash_bwd_tc_*, conv_snake_tc_*) and the
     fp32 ones by <fp32."""
     assert _chip_smoke().kernel_name(mangled) == short
+
+
+_K1_BF16 = "_ZN12_GLOBAL__N_115aa_snake_kernelI13__nv_bfloat16EEvPKT_PS2_PKfS7_iiiixxbbb"
+_K1_FP32 = "_ZN12_GLOBAL__N_115aa_snake_kernelIfEEvPKT_PS1_PKfS6_iiiixxbbb"
+_K1_RUN = ("_ZN42_INTERNAL_2cb607d8_11_aa_snake_cu_113ee3744maa315act_run_genericILi8E"
+           "fN12_GLOBAL__N_17RowTailIfEEEEvPKT0_iiffbT1_")
+_PTXAS = f"""ptxas info    : Function properties for {_K1_RUN}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '{_K1_BF16}' for 'sm_90a'
+ptxas info    : Function properties for {_K1_BF16}
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 58 registers, used 0 barriers, 32 bytes cumulative stack size
+ptxas info    : Compiling entry function '{_K1_FP32}' for 'sm_90a'
+ptxas info    : Function properties for {_K1_FP32}
+    56 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 97 registers, used 0 barriers, 56 bytes cumulative stack size
+"""
+
+
+@pytest.mark.parametrize("log,ok", [
+    (_PTXAS, True),
+    # a spill in the fp32 kernel, in the generic run, or a kernel missing
+    (_PTXAS.replace("56 bytes stack frame, 0 bytes spill stores",
+                    "56 bytes stack frame, 8 bytes spill stores"), False),
+    (_PTXAS.replace("0 bytes spill stores, 0 bytes spill loads",
+                    "0 bytes spill stores, 4 bytes spill loads", 1), False),
+    (_PTXAS.split("ptxas info    : Compiling entry function '" + _K1_FP32)[0], False)])
+def test_chip_smoke_requires_k1_without_spills(log, ok):
+    """Phase 2 of chip_smoke.py reads ptxas's report per function and fails
+    when any function of K1 (its two kernels, the generic run they call)
+    spills, or when a K1 kernel is not in the report."""
+    cs = _chip_smoke()
+    report = cs.ptxas_report(log)
+    assert report[_K1_BF16] == {"stack": 32, "spill_stores": 0, "spill_loads": 0,
+                                "registers": 58} or not ok
+    if ok:
+        cs.check_k1_spills(log)
+    else:
+        with pytest.raises(RuntimeError, match="no spill in any function of K1"):
+            cs.check_k1_spills(log)
 
 
 def _c_kind(decl: str) -> str:

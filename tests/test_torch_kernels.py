@@ -48,6 +48,10 @@ def _np(t):
     ((2, 8, 300), 128, True),    # ragged last tile, banded-FIR body
     ((1, 6, 100), 8192, True),   # T < tile
     ((1, 4, 261), 128, False),   # tail of 5 columns
+    ((1, 4, 1), 128, False),     # one sample: every phase is an edge value
+    ((2, 3, 5), 128, True),      # shorter than the 12-tap filters
+    ((1, 4, 17), 128, False),    # odd, shorter than a kernel run and halo
+    ((2, 4, 40), 128, True),     # one kernel run plus a partial one
 ])
 @pytest.mark.parametrize("has_beta,logscale", [(True, True), (False, True),
                                                (False, False)])
