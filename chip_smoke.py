@@ -15,7 +15,8 @@ Phases, each timed on a line of its own:
      instruction mix is logged from the same SASS;
   3. kernels: K1 (AA-snake) and K2 (AA-snake -> conv) against their plain
      PyTorch versions at every shape the XL batch-4 vocode gives them, in
-     fp32 and bf16, with error, kernel time, plain time, bound and share of
+     fp32 and bf16, and at every shape phase 11's served batch-8 music
+     vocode gives them, in bf16, with error, kernel time, plain time, bound and share of
      the bound (the bound's operations counted both as the kernels execute
      the snake and with sin as one operation, the older count; K2 also with
      its conv's TFLOP/s and the time of one call alone between two events,
@@ -56,7 +57,23 @@ Phases, each timed on a line of its own:
      unset (auto: K3a 28, K4a 28 per step), then with `split` (K3a 28, K4b
      28, K4c 28), each with one warm step and three timed steps (--profile
      adds one step of each under torch.profiler); the conditioner's
-     parameters must move.
+     parameters must move;
+ 11. serving from checkpoint files: the text-to-music model of
+     configs/txt2music-cfm-cfg.yaml at full width (DiT 768 x 16, FLAN-T5-large,
+     VAE, BigVGAN 1536; random weights from a seed) written as a Lightning
+     `.ckpt` (a full `model_ema.` section that differs from the live weights,
+     HF's tied T5 embedding, a scale_factor) and a vocoder directory
+     (config.json, generator.pt, weight norm in both namings); loaded with
+     MAA3System.from_config (EMA chosen, every tensor as written, vocoder
+     folded within 1e-6, the file's scale_factor) and served by AudioServer
+     on 127.0.0.1: 8 concurrent requests and 2 of another group, then the 8
+     twice more (each round one launch of 8, the same bytes both times),
+     every response a 16 kHz wav of 131,072 samples, no error, K1 72 / K2 37
+     launches per batch vocode, no thread left after shutdown; p50 latency
+     and audio seconds per second at batch 8; then the XL ODE at batch 8 and
+     16 with MAA3_ODE_CHUNK 0 and 8; then an AMPBlock2 and an lrelu vocoder
+     at BigVGAN 1536 width on the card against the CPU (fp32, 1e-3; AMP2
+     reaches K1 and K2, lrelu neither). --profile leaves it unprofiled.
 Kernel, plain and library times are per call over 10 calls queued back to
 back (time_ms). Then the `kernels` JSON line, the card line, and the result
 line. Any failure exits non-zero without the result line; without a CUDA
@@ -65,6 +82,7 @@ at once.
 """
 
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -93,6 +111,11 @@ ACT_OPS, ACT_OPS_SIN_AS_ONE = 96, 56
 B, LATENT = 4, 312                       # 4 prompts, 10 s clips
 K1_STAGES = [(768, 2496), (384, 9984), (192, 19968), (96, 39936)]
 K2_STAGES = [(48, 79872), (24, 159744)]
+# phase 11's served music vocode (batch 8, mel 512 -> 131,072 samples): its
+# K1 / K2 stage shapes, held against the plain versions in phase 3 (bf16)
+MUSIC_B = 8
+MUSIC_K1_STAGES = [(768, 2048), (384, 8192), (192, 16384), (96, 32768)]
+MUSIC_K2_STAGES = [(48, 65536), (24, 131072)]
 KS, DILS = (3, 7, 11), (1, 3, 5)
 TOL_FP32, TOL_BF16 = 1e-4, 2.0 ** -6     # times max(1, max|plain|)
 
@@ -111,6 +134,14 @@ XL_TRAIN = (6, 1248)     # phases 8 and 10: batch x latent length
 K3B_TRAIN = (2, 2048)    # phase 9
 NO_COND = "model.params.cond_stage_trainable=false"
 FLASH_KERNELS = ("K3a", "K3b", "K4a", "K4b", "K4c")
+# phase 11: the text-to-music model served from checkpoint files
+MUSIC_SAMPLES = 131072              # latent 256 -> mel 512 -> 8.19 s at 16 kHz
+SERVE_PROMPTS = ["a calm piano melody", "an upbeat drum and bass loop",
+                 "a string quartet plays a waltz", "lo-fi hip hop with vinyl crackle",
+                 "a solo acoustic guitar ballad", "an epic orchestral crescendo",
+                 "a jazz trio in a smoky bar", "synthwave with a driving bassline"]
+K1_K2_PER_VOCODE = (72, 37)         # AMPBlock1, BigVGAN 1536: phase 5's counts
+K1_K2_PER_AMP2_VOCODE = (24, 13)    # AMPBlock2, dilations (1, 3): one site per dilation
 
 
 @contextlib.contextmanager
@@ -268,16 +299,21 @@ def time_once_ms(fn, reps: int = 7) -> float:
 
 
 def check_kernels(torch, k1, k2, full_fp32):
-    """Phase 3: returns per-shape rows."""
+    """Phase 3: returns per-shape rows, each with its path: "xl" (phase 5's
+    batch-4 XL vocode, fp32 and bf16) or "music" (phase 11's batch-8 served
+    vocode, bf16 as it is served)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for path, nb, k1_stages, k2_stages, dtype in (
+            ("xl", B, K1_STAGES, K2_STAGES, torch.float32),
+            ("xl", B, K1_STAGES, K2_STAGES, torch.bfloat16),
+            ("music", MUSIC_B, MUSIC_K1_STAGES, MUSIC_K2_STAGES, torch.bfloat16)):
         item = torch.finfo(dtype).bits // 8
         tol = TOL_FP32 if dtype == torch.float32 else TOL_BF16
         fast = dtype == torch.bfloat16
-        for c, t in K1_STAGES:
-            x = (torch.randn(B, c, t, generator=g, device=dev) * 2).to(dtype)
+        for c, t in k1_stages:
+            x = (torch.randn(nb, c, t, generator=g, device=dev) * 2).to(dtype)
             a = torch.randn(c, generator=g, device=dev) * 0.5
             bt = torch.randn(c, generator=g, device=dev) * 0.5
 
@@ -291,17 +327,17 @@ def check_kernels(torch, k1, k2, full_fp32):
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             lim = tol * max(1.0, want.abs().max().item())
-            n = B * c * t
-            rows.append(dict(kernel="K1", dtype=str(dtype)[6:], shape=(B, c, t),
+            n = nb * c * t
+            rows.append(dict(kernel="K1", path=path, dtype=str(dtype)[6:], shape=(nb, c, t),
                              launches=18, err=err, tol=lim, ms=time_ms(kern),
                              plain_ms=time_ms(plain),
                              bytes_ms=(2 * n * item + 8 * c) / PEAK_BW * 1e3,
                              ops_ms=n * ACT_OPS / PEAK_FP32 * 1e3,
                              ops_sin_as_one_ms=n * ACT_OPS_SIN_AS_ONE / PEAK_FP32 * 1e3))
             del x, got, want
-        for (c, t), post in [(s, False) for s in K2_STAGES] + [(K2_STAGES[-1], True)]:
+        for (c, t), post in [(s, False) for s in k2_stages] + [(k2_stages[-1], True)]:
             combos = [(7, 1, 1)] if post else [(k, d, c) for k in KS for d in DILS]
-            x = (torch.randn(B, c, t, generator=g, device=dev) * 2).to(dtype)
+            x = (torch.randn(nb, c, t, generator=g, device=dev) * 2).to(dtype)
             a = torch.randn(c, generator=g, device=dev) * 0.5
             bt = torch.randn(c, generator=g, device=dev) * 0.5
             for k, d, c_out in combos:
@@ -321,15 +357,15 @@ def check_kernels(torch, k1, k2, full_fp32):
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 lim = tol * max(1.0, want.abs().max().item())
-                n = B * t
+                n = nb * t
                 nbytes = n * (c + c_out) * item + 4 * (c_out * c * k + c_out + 2 * c)
                 peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
                 t_conv = 2 * n * c_out * c * k / peak
-                # launches per batch-4 vocode at this shape: convs1 (k, d)
+                # launches per vocode at this shape: convs1 (k, d)
                 # once per resblock; convs2 (k, 1) three times; post once
                 launches = 1 if post else (4 if d == 1 else 1)
-                rows.append(dict(kernel="K2", dtype=str(dtype)[6:],
-                                 shape=(B, c, t, c_out, k, d), launches=launches,
+                rows.append(dict(kernel="K2", path=path, dtype=str(dtype)[6:],
+                                 shape=(nb, c, t, c_out, k, d), launches=launches,
                                  err=err, tol=lim, ms=time_ms(kern),
                                  once_ms=time_once_ms(kern),
                                  plain_ms=time_ms(plain),
@@ -347,7 +383,7 @@ def check_kernels(torch, k1, k2, full_fp32):
         rate = (f"{r['conv_flops'] / r['ms'] / 1e9:.1f} TFLOP/s conv, "
                 if r["kernel"] == "K2" else "")
         once = f"; one call alone {r['once_ms']:.4f} ms" if r["kernel"] == "K2" else ""
-        log(f"{r['kernel']} {r['dtype']:8s} {str(r['shape']):34s} err {r['err']:.3e} "
+        log(f"{r['kernel']} {r['path']:5s} {r['dtype']:8s} {str(r['shape']):34s} err {r['err']:.3e} "
             f"(tol {r['tol']:.3e}) kernel {r['ms']:.4f} ms ({rate}"
             f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound{once}) plain "
             f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms (bytes "
@@ -498,8 +534,8 @@ def main_path(torch, system_mod, config_path, k1, k2, profile=False):
     require(0 < np.abs(wav).max() <= 1.0, "wav in [-1, 1] and not silent")
     for k, v in times.items():
         log(f"main path stage {k}: {v * 1e3:.2f} ms")
-    log(f"main path launches: K1 {counts[0]} (expect 72), K2 {counts[1]} (expect 37)")
-    require(counts == (72, 37), f"launch counts {counts} == (72, 37)")
+    log(f"main path launches: K1 {counts[0]}, K2 {counts[1]} (expect {K1_K2_PER_VOCODE})")
+    require(counts == K1_K2_PER_VOCODE, f"launch counts {counts} == {K1_K2_PER_VOCODE}")
     if profile:
         profile_run(torch, run, times["end_to_end"] * 1e3)
     return times, counts
@@ -1013,6 +1049,292 @@ def train_path(torch, system_mod, config_path, fa, batch, latent, depth=None,
     return results, peak, tf32
 
 
+def weight_normed(torch, state: dict, seed: int) -> dict:
+    """A vocoder state dict with every conv weight as weight norm's (g, v),
+    the two namings (weight_g / weight_v and parametrizations'
+    original0 / original1) alternating."""
+    g = torch.Generator().manual_seed(seed)
+    out, i = {}, 0
+    for k, w in state.items():
+        if k.endswith(".weight") and w.dim() == 3:
+            name = k[:-len(".weight")]
+            norm = w.double().square().sum(dim=(1, 2), keepdim=True).sqrt().float()
+            v = w * (0.5 + torch.rand(w.shape[0], 1, 1, generator=g))
+            names = (("weight_g", "weight_v") if i % 2 else
+                     ("parametrizations.weight.original0", "parametrizations.weight.original1"))
+            out[f"{name}.{names[0]}"], out[f"{name}.{names[1]}"] = norm, v
+            i += 1
+        else:
+            out[k] = w
+    return out
+
+
+def write_music_files(torch, system_mod, music_path, tmp):
+    """Phase 11, step 1: a Lightning .ckpt and a vocoder directory of the
+    full-width text-to-music model. Returns (ckpt path, vocoder dir, the EMA
+    DiT tensors written, the vocoder's weights before weight norm, the
+    scale factor written, parameter counts)."""
+    t = time.perf_counter()
+    src = system_mod.MAA3System.from_config([music_path], seed=11, device="cuda",
+                                            compute_dtype=torch.float32, unfreeze=True)
+    counts = {k: sum(p.numel() for p in getattr(src, k).parameters())
+              for k in ("dit", "cond", "vae", "vocoder")}
+    g = torch.Generator(device="cuda").manual_seed(12)
+    sd, ema = {}, {}
+    for k, v in src.dit.state_dict().items():
+        sd["model.diffusion_model." + k] = v.cpu()
+        ema[k] = (v + 0.01 * torch.randn(v.shape, generator=g, device="cuda")).cpu()
+        sd["model_ema." + ("diffusion_model." + k).replace(".", "")] = ema[k]
+    sd["model_ema.decay"] = torch.tensor(0.9999)
+    sd["model_ema.num_updates"] = torch.tensor(100000, dtype=torch.int32)
+    sd.update({"first_stage_model." + k: v.cpu() for k, v in src.vae.state_dict().items()})
+    cond = {k: v.cpu() for k, v in src.cond.state_dict().items()}
+    cond["transformer.encoder.embed_tokens.weight"] = cond["transformer.shared.weight"]
+    sd.update({"cond_stage_model." + k: v for k, v in cond.items()})
+    scale = 0.4728
+    sd["scale_factor"] = torch.tensor(scale)
+    voc = {k: v.cpu() for k, v in src.vocoder.state_dict().items()}
+    voc_cfg = dataclasses.asdict(src.vocoder.cfg)
+    del src, cond
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serve files: source weights made on the card and copied to the host, "
+        f"{time.perf_counter() - t:.2f} s; parameters (M): "
+        + ", ".join(f"{k} {n / 1e6:.1f}" for k, n in counts.items()))
+    ckpt, vdir = os.path.join(tmp, "music.ckpt"), os.path.join(tmp, "vocoder")
+    t = time.perf_counter()
+    torch.save({"state_dict": sd, "global_step": 100000, "epoch": 40}, ckpt)
+    os.makedirs(vdir)
+    with open(os.path.join(vdir, "config.json"), "w") as f:
+        json.dump(dict(voc_cfg, segment_size=8192), f)
+    torch.save({"generator": weight_normed(torch, voc, 13)},
+               os.path.join(vdir, "generator.pt"))
+    write_s = time.perf_counter() - t
+    sizes = [os.path.getsize(ckpt), os.path.getsize(os.path.join(vdir, "generator.pt"))]
+    log(f"serve files: wrote {sizes[0] / 2 ** 30:.3f} GiB Lightning file ({len(sd)} keys) "
+        f"and {sizes[1] / 2 ** 20:.1f} MiB generator in {write_s:.2f} s")
+    return ckpt, vdir, ema, voc, scale, counts, {"write_s": write_s, "sizes": sizes}
+
+
+def _http(port, body=None, path="/generate"):
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    t = time.perf_counter()
+    with urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=data), timeout=600) as r:
+        return r.status, r.read(), time.perf_counter() - t
+
+
+def _pcm(data: bytes):
+    import io
+    import wave
+    import numpy as np
+    with wave.open(io.BytesIO(data)) as w:
+        return w.getframerate(), np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def _round(port, bodies):
+    """The requests sent at once, one thread each; returns (responses in
+    order, the round's wall seconds)."""
+    import threading
+    out = [None] * len(bodies)
+
+    def go(i):
+        out[i] = _http(port, bodies[i])
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(len(bodies))]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return out, time.perf_counter() - t
+
+
+def serve_from_files(torch, system_mod, music_path, k1, k2):
+    """Phase 11, steps 1-5: write, load, serve, shut down. Returns the
+    measurements and the K1 / K2 launches of the counted requests."""
+    import tempfile
+    import threading
+    import numpy as np
+    from maa3_tpu_torch.models.clap import FLAN
+    from maa3_tpu_torch.serving import AudioServer, ServeConfig
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+        ckpt, vdir, ema, voc, scale, counts, out = write_music_files(
+            torch, system_mod, music_path, tmp)
+        t = time.perf_counter()
+        system = system_mod.MAA3System.from_config(
+            [music_path], ckpt_path=ckpt, vocoder_dir=vdir, device="cuda",
+            compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t
+    log(f"serve files: loaded onto the card in {out['load_s']:.2f} s")
+    require(system.spec.cond_kind == "flan" and isinstance(system.cond, FLAN),
+            "the music config's FLAN conditioner")
+    require(all(torch.equal(v, ema[k].cuda()) for k, v in system.dit.state_dict().items())
+            and len(ema) == len(system.dit.state_dict()),
+            "the EMA weights were chosen, each DiT tensor as written")
+    voc_err = max((v.cpu() - voc[k]).abs().max().item() / max(1.0, voc[k].abs().max().item())
+                  for k, v in system.vocoder.state_dict().items())
+    require(voc_err <= 1e-6 and len(voc) == len(system.vocoder.state_dict()),
+            f"vocoder weights equal the folded ones within 1e-6: {voc_err}")
+    require(abs(system.scale_factor - scale) < 1e-6, "scale_factor read from the file")
+    del ema, voc
+    log(f"serve files: EMA DiT as written, vocoder within {voc_err:.2e} of its "
+        f"unnormed weights, scale factor {system.scale_factor:.6f}")
+
+    before = set(threading.enumerate())
+    server = AudioServer(system, ServeConfig(max_batch=8, batch_window_ms=50.0),
+                         host="127.0.0.1", port=0)
+    t = time.perf_counter()
+    server.batcher.warmup((1, 8))
+    torch.cuda.synchronize()
+    log(f"serve: warm-up of buckets 1 and 8, {time.perf_counter() - t:.2f} s")
+    server.start()
+    bodies = [{"prompt": p, "seed": 100 + i} for i, p in enumerate(SERVE_PROMPTS)]
+    other = [{"prompt": "a music box lullaby", "seed": 200 + i, "steps": 10}
+             for i in range(2)]
+    try:
+        health = json.loads(_http(server.port, path="/healthz")[1])
+        require(health["ok"] and health["device"] == torch.cuda.get_device_name(0),
+                f"/healthz names the card: {health}")
+        hists, rounds = [], []
+
+        def hist():
+            return dict(server.batcher.stats()["batch_histogram"])
+
+        k1.launches = k2.launches = 0  # count exactly the requests below
+        for bs in (bodies + other, bodies, bodies):
+            h0 = hist()
+            rounds.append(_round(server.port, bs))
+            h1 = hist()
+            hists.append({n: h1[n] - h0.get(n, 0) for n in h1 if h1[n] != h0.get(n, 0)})
+        h0 = hist()
+        alone = _http(server.port, bodies[0])
+        h1 = hist()
+        hists.append({n: h1[n] - h0.get(n, 0) for n in h1 if h1[n] != h0.get(n, 0)})
+        launches = (k1.launches, k2.launches)
+        stats = server.batcher.stats()
+    finally:
+        server.shutdown()
+    left = set(threading.enumerate()) - before
+    require(not left, f"no thread of the server is left: {left}")
+    n_batches = sum(sum(h.values()) for h in hists)
+    log(f"serve: batch histograms per round {hists}; stats {stats}")
+    responses = [r for rs, _ in rounds for r in rs] + [alone]
+    for status, data, _ in responses:
+        rate, pcm = _pcm(data)
+        require(status == 200 and rate == 16000 and pcm.size == MUSIC_SAMPLES
+                and np.isfinite(pcm.astype(np.float32) / 32767).all()
+                and np.abs(pcm).max() > 0,
+                f"a 16 kHz wav of {MUSIC_SAMPLES} samples: {status}, {rate}, {pcm.size}")
+    # served: the warm-up's 1 + 8, then 10 + 8 + 8 + 1 requests
+    require(stats["errors"] == 0 and stats["served"] == 9 + 27, f"/stats: {stats}")
+    require(sum(hists[0].values()) < 10 and max(hists[0]) > 1,
+            f"the concurrent requests coalesced: {hists[0]}")
+    require(hists[1] == {8: 1} and hists[2] == {8: 1},
+            f"the 8 concurrent requests ran as one launch of 8: {hists[1:3]}")
+    same = [rounds[1][0][i][1] == rounds[2][0][i][1] for i in range(8)]
+    require(all(same), f"a repeated {{prompt, seed}} in the same bucket gives the same "
+                       f"bytes: {same}")
+    require(launches == (K1_K2_PER_VOCODE[0] * n_batches, K1_K2_PER_VOCODE[1] * n_batches),
+            f"K1 / K2 launches {launches} over {n_batches} batch vocodes")
+    diff = np.abs(_pcm(alone[1])[1].astype(np.int32)
+                  - _pcm(rounds[1][0][0][1])[1].astype(np.int32)).max()
+    lat = sorted(r[2] for rs, _ in rounds[1:] for r in rs)
+    p50 = statistics.median(lat)
+    walls = [rounds[1][1], rounds[2][1]]
+    rate = 8 * MUSIC_SAMPLES / 16000 / statistics.median(walls)
+    log(f"serve: one request alone against the same co-batched: max |pcm diff| {diff} "
+        f"16-bit steps (bf16 GEMMs may differ by batch; not gated)")
+    log(f"serve: batch 8 of 8.19 s clips: p50 latency {p50 * 1e3:.1f} ms, round walls "
+        f"{[round(w * 1e3, 1) for w in walls]} ms, {rate:.2f} s of audio per s; "
+        f"launches per batch vocode K1 {launches[0] // n_batches}, "
+        f"K2 {launches[1] // n_batches} ({n_batches} batches)")
+    out.update(p50_ms=p50 * 1e3, audio_s_per_s=rate, launches=launches,
+               n_batches=n_batches, alone_diff=int(diff), counts=counts)
+    del system, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ode_chunk_probe(torch, system_mod, config_path):
+    """Phase 11: the XL serving ODE (25 steps, latent 312, bf16) at batch 8
+    and 16 with MAA3_ODE_CHUNK 0 and 8 in turns (0, 8, 0, 8 after one warm
+    call per batch); returns {(batch, chunk): [ms, ms]}."""
+    system = system_mod.MAA3System.from_config(
+        [config_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    old = os.environ.pop("MAA3_ODE_CHUNK", None)
+    ms = {}
+    try:
+        for b in (8, 16):
+            c, uc = (torch.randn(b, 154, 1024, generator=g, device="cuda") for _ in range(2))
+            x0 = torch.randn(b, 20, LATENT, generator=g, device="cuda")
+            zs = {}
+            for i, chunk in enumerate((8, 0, 8, 0, 8)):
+                os.environ["MAA3_ODE_CHUNK"] = str(chunk)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                zs[chunk] = system.sample_cfg(c, 5.0, uc, x0=x0, timesteps=25)
+                torch.cuda.synchronize()
+                if i:  # the first call warms up
+                    ms.setdefault((b, chunk), []).append((time.perf_counter() - t) * 1e3)
+            dz = (zs[8] - zs[0]).abs().max().item()
+            require(torch.isfinite(zs[8]).all(), "finite chunked latents")
+            log(f"ODE chunk: XL batch {b}: chunk 0 {[round(x, 1) for x in ms[(b, 0)]]} ms, "
+                f"chunk 8 {[round(x, 1) for x in ms[(b, 8)]]} ms; max |z_8 - z_0| {dz:.3e}")
+    finally:
+        os.environ.pop("MAA3_ODE_CHUNK", None)
+        if old is not None:
+            os.environ["MAA3_ODE_CHUNK"] = old
+    del system
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms
+
+
+def amp2_lrelu_vocoders(torch, k1, k2, full_fp32):
+    """Phase 11, step 6: an AMPBlock2 vocoder (dilations (1, 3)) and an lrelu
+    vocoder at BigVGAN 1536 width from a seed (snake parameters nonzero), on
+    the card against the CPU's plain path, fp32 at 1e-3. Returns the
+    AMP2 run's K1 / K2 launches."""
+    import copy
+    from maa3_tpu_torch.models.bigvgan import (BigVGAN, BigVGANConfig, Snake,
+                                               bigvgan_apply, bigvgan_init_)
+    out = {}
+    for name, kw, want in (
+            ("AMP2", dict(resblock="2", resblock_dilation_sizes=((1, 3),) * 3),
+             K1_K2_PER_AMP2_VOCODE),
+            ("lrelu", dict(activation="lrelu"), (0, 0))):
+        gen = torch.Generator().manual_seed(14)
+        voc_c = bigvgan_init_(BigVGAN(BigVGANConfig(**kw)), gen)
+        with torch.no_grad():
+            for m in voc_c.modules():
+                if isinstance(m, Snake):
+                    for p in m.parameters():
+                        p.uniform_(-0.3, 0.3, generator=gen)
+        voc_g = copy.deepcopy(voc_c).cuda()
+        mel = torch.randn(2, 80, 32, generator=gen)
+        with full_fp32():
+            k1.launches = k2.launches = 0
+            wav_g = bigvgan_apply(voc_g, mel.cuda())
+            torch.cuda.synchronize()
+            n = (k1.launches, k2.launches)
+            wav_c = bigvgan_apply(voc_c, mel)
+        err = (wav_g.cpu() - wav_c).abs().max().item()
+        log(f"{name} vocoder (BigVGAN 1536, {sum(p.numel() for p in voc_c.parameters()) / 1e6:.1f}"
+            f" M parameters) {tuple(wav_g.shape)}: max |cuda - cpu| {err:.3e}; launches "
+            f"K1 {n[0]}, K2 {n[1]} (expect {want})")
+        require(err <= 1e-3 and bool(torch.isfinite(wav_g).all()), f"{name} vocoder")
+        require(n == want, f"{name} vocoder launches {n} == {want}")
+        out[name] = n
+    return out["AMP2"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1124,24 +1446,43 @@ def main() -> int:
             f"median of the timed steps after the first {statistics.median(tail):.1f} ms, "
             f"peak {peak:.2f} GiB, done, {time.perf_counter() - t:.2f} s")
 
+    t = time.perf_counter()
+    music_path = os.path.join(root, "configs", "txt2music-cfm-cfg.yaml")
+    serve = serve_from_files(torch, system_mod, music_path, k1, k2)
+    chunk_ms = ode_chunk_probe(torch, system_mod, config_path)
+    amp2 = amp2_lrelu_vocoders(torch, k1, k2, full_fp32)
+    log(f"serving from checkpoint files: done, {time.perf_counter() - t:.2f} s")
+
     kernels = []
-    for name, src, rep, cnt in (
+    # launches, ms and the bound: phase 5's batch-4 XL vocode (bf16), as in
+    # earlier runs; the other counted paths (phase 11's served requests, one
+    # AMPBlock1 vocode per batch, and its AMPBlock2 vocoder), each counted
+    # from 0, only under launches_by_path, and the music shapes' phase 3
+    # error under max_abs_err_by_path
+    for i, (name, src, rep) in enumerate((
             ("K1 aa_snake_fused", "maa3_tpu_torch/csrc/aa_snake.cu",
-             "maa3_tpu/ops/pallas_aa_snake.py:381", counts[0]),
+             "maa3_tpu/ops/pallas_aa_snake.py:381"),
             ("K2 conv_snake_fused", "maa3_tpu_torch/csrc/conv_snake.cu",
-             "maa3_tpu/ops/pallas_amp.py:165", counts[1])):
-        mine = [r for r in rows if r["kernel"] == name[:2] and r["dtype"] == "bfloat16"]
+             "maa3_tpu/ops/pallas_amp.py:165"))):
+        by_path = {"xl_serving": counts[i], "music_server": serve["launches"][i],
+                   "amp2_vocoder": amp2[i]}
+        err = {path: max(r["err"] for r in rows if r["kernel"] == name[:2]
+                         and r["path"] == path and r["dtype"] == "bfloat16")
+               for path in ("xl", "music")}
+        mine = [r for r in rows if r["kernel"] == name[:2] and r["path"] == "xl"
+                and r["dtype"] == "bfloat16"]
         per_vocode = {key: sum(r[key] * r["launches"] for r in mine)
                       for key in ("ms", "plain_ms", "bound_ms", "bytes_ms",
                                   "ops_ms")}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": cnt, "max_abs_err": max(r["err"] for r in mine),
+            "launches": counts[i], "max_abs_err": err["xl"],
             "ms": per_vocode["ms"], "plain_ms": per_vocode["plain_ms"],
             "bound_ms": per_vocode["bound_ms"],
             "bound_by": ("bytes" if per_vocode["bytes_ms"] >= per_vocode["ops_ms"]
                          else "operations"),
-            "library_ms": None})
+            "library_ms": None, "launches_by_path": by_path,
+            "max_abs_err_by_path": err})
     # flash: per training step of the path that runs it (bf16), i.e. the
     # time at its main-path shape times its launches in one step
     xl_shape, k3b_shape = (6, 16, 1248, 72), (2, 16, 2048, 72)
@@ -1167,6 +1508,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"] * cnt,
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
             "library_ms": r["library_ms"] * cnt})
+    log(f"ODE chunk (XL, 25 steps, ms): " + "; ".join(
+        f"batch {b} chunk {c}: {[round(x, 1) for x in v]}" for (b, c), v in chunk_ms.items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -123,6 +123,15 @@ SUPPORTED_TARGETS = {
     "ldm.modules.diffusionmodules.flag_large_dit.TxtFlagLargeImprovedDiTV2",
     "ldm.models.autoencoder1d.AutoencoderKL",
     "ldm.modules.encoders.modules.FrozenCLAPFLANEmbedder",
+    "ldm.modules.encoders.modules.FrozenFLANEmbedder",
+    "ldm.modules.encoders.modules.FrozenCLAPEmbedder",
+}
+
+# the conditioner kind of each cond-stage target (maa3_tpu/config.py:84-87)
+COND_KINDS = {
+    "ldm.modules.encoders.modules.FrozenCLAPFLANEmbedder": "clap_flan",
+    "ldm.modules.encoders.modules.FrozenFLANEmbedder": "flan",
+    "ldm.modules.encoders.modules.FrozenCLAPEmbedder": "clap",
 }
 
 
@@ -137,6 +146,7 @@ class ModelSpec:
     scale_by_std: bool = False
     cond_stage_trainable: bool = False
     base_learning_rate: float = 3.0e-6
+    cond_kind: str = "clap_flan"  # clap_flan | flan | clap (COND_KINDS)
 
 
 @dataclasses.dataclass
@@ -154,7 +164,8 @@ REMAT_POLICIES = ("nothing",)
 
 def parse_model_config(cfg: dict) -> ModelSpec:
     """cfg: the full YAML dict (with `model:`) or the model subtree. The port
-    covers text-to-audio CFM with the text DiT, the 1-D VAE and CLAP+FLAN."""
+    covers text-to-audio and text-to-music CFM with the text DiT, the 1-D
+    VAE and the CLAP+FLAN, FLAN or CLAP conditioner."""
     model = cfg.get("model", cfg)
     params = model.get("params", {})
     unet = params["unet_config"]
@@ -191,7 +202,8 @@ def parse_model_config(cfg: dict) -> ModelSpec:
         kernel_size=dd.get("kernel_size", 5),
         z_channels=dd.get("z_channels", 20), double_z=dd.get("double_z", True),
         embed_dim=fp.get("embed_dim", 20))
-    for sub in (model, unet, first, params.get("cond_stage_config", {})):
+    cond = params.get("cond_stage_config", {})
+    for sub in (model, unet, first, cond):
         if sub.get("target") not in SUPPORTED_TARGETS:
             raise KeyError(f"config target not supported by the port: "
                            f"{sub.get('target')}")
@@ -202,7 +214,8 @@ def parse_model_config(cfg: dict) -> ModelSpec:
         timesteps=params.get("timesteps", 1000),
         scale_by_std=params.get("scale_by_std", False),
         cond_stage_trainable=params.get("cond_stage_trainable", False),
-        base_learning_rate=model.get("base_learning_rate", 3.0e-6))
+        base_learning_rate=model.get("base_learning_rate", 3.0e-6),
+        cond_kind=COND_KINDS[cond["target"]])
 
 
 def parse_data_config(cfg: dict) -> DataSpec:

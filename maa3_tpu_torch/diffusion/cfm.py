@@ -1,5 +1,6 @@
 """Conditional flow matching: the training loss, and Euler ODE sampling
-with classifier-free guidance (counterpart of maa3_tpu/diffusion/cfm.py).
+with and without classifier-free guidance (counterpart of
+maa3_tpu/diffusion/cfm.py).
 
 Loss (cfm1_audio.py:37-58): integer t in [0, 1000) for the model, t / 1000
 for the interpolant x_t = t x1 + (1 - (1 - s) t) x0 with target
@@ -71,6 +72,23 @@ def _pairs(steps: int, t_start: Optional[int]):
             for a, b in zip(grid[:-1], grid[1:])]
 
 
+def _t_int(t: float, b: int, num_timesteps: int, device) -> torch.Tensor:
+    return torch.full((b,), int(np.floor(np.float32(t) * np.float32(num_timesteps))),
+                      dtype=torch.int32, device=device)
+
+
+def sample(velocity_fn: Callable, x0: torch.Tensor, context: torch.Tensor,
+           steps: int = 25, t_start: Optional[int] = None,
+           num_timesteps: int = 1000) -> torch.Tensor:
+    """Euler ODE without guidance (CFM.sample, maa3_tpu/diffusion/cfm.py:72);
+    velocity_fn(x, t_int, context) on the batch as given."""
+    x = x0
+    for t, dt in _pairs(steps, t_start):
+        x = x + dt * velocity_fn(x, _t_int(t, x0.shape[0], num_timesteps, x0.device),
+                                 context)
+    return x
+
+
 def sample_cfg(velocity_fn: Callable, x0: torch.Tensor, context: torch.Tensor,
                uncond_context: torch.Tensor, guidance_scale: float,
                steps: int = 25, t_start: Optional[int] = None,
@@ -80,9 +98,7 @@ def sample_cfg(velocity_fn: Callable, x0: torch.Tensor, context: torch.Tensor,
     ctx_in = torch.cat([uncond_context, context], dim=0)
     x = x0
     for t, dt in _pairs(steps, t_start):
-        t_int = torch.full((2 * b,), int(np.floor(np.float32(t)
-                                                   * np.float32(num_timesteps))),
-                           dtype=torch.int32, device=x0.device)
+        t_int = _t_int(t, 2 * b, num_timesteps, x0.device)
         e_uc, e_c = velocity_fn(torch.cat([x, x]), t_int, ctx_in).chunk(2)
         x = x + dt * (e_uc + guidance_scale * (e_c - e_uc))
     return x

@@ -1,16 +1,20 @@
 """BigVGAN vocoder generator: (B, 80, T) log-mel -> (B, 256 T) wav
-(counterpart of maa3_tpu/models/bigvgan.py, AMP1 resblocks).
+(counterpart of maa3_tpu/models/bigvgan.py).
 
 conv_pre(7) -> per stage [ConvTranspose1d upsample (polyphase lowering);
-AMPBlock1s averaged] -> anti-aliased snake -> conv_post(7) -> tanh.
+AMPBlock1s or AMPBlock2s averaged] -> activation -> conv_post(7) -> tanh.
 Weights are plain (weight norm folded, as the JAX package stores them).
+The activation is the anti-aliased snake / snake-beta, or `lrelu`: a
+leaky ReLU of slope 0.1 without anti-aliasing or parameters (HiFiGAN).
 
 Kernel routing (maa3_tpu/models/bigvgan.py:459-503, applied at every batch
 size): act->conv sites of stages with C <= 48, and activation_post ->
 conv_post there, run K2 (ops/pallas_amp.py::conv_snake_fused); every other
 anti-aliased activation runs K1 (ops/pallas_aa_snake.py::aa_snake_fused)
-followed by a plain conv. On CPU tensors both wrappers run their plain
-versions, which compute the same functions.
+followed by a plain conv. AMPBlock1 has two sites per dilation
+(convs1, convs2), AMPBlock2 one (convs). lrelu takes neither kernel. On CPU
+tensors both wrappers run their plain versions, which compute the same
+functions.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import dataclasses
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from maa3_tpu_torch.ops.conv import (conv1d, conv_transpose1d,
@@ -40,6 +45,29 @@ class BigVGANConfig:
     resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = ((1, 3, 5),) * 3
     activation: str = "snakebeta"
     snake_logscale: bool = True
+    resblock: str = "1"
+    sampling_rate: int = 16000
+
+    @classmethod
+    def from_dict(cls, h: dict) -> "BigVGANConfig":
+        """A vocoder directory's config.json (maa3_tpu/models/bigvgan.py:46)."""
+        return cls(
+            num_mels=h.get("num_mels", 80),
+            upsample_rates=tuple(h["upsample_rates"]),
+            upsample_kernel_sizes=tuple(h["upsample_kernel_sizes"]),
+            upsample_initial_channel=h["upsample_initial_channel"],
+            resblock=str(h.get("resblock", "1")),
+            resblock_kernel_sizes=tuple(h["resblock_kernel_sizes"]),
+            resblock_dilation_sizes=tuple(
+                tuple(d) if isinstance(d, (list, tuple)) else d
+                for d in h["resblock_dilation_sizes"]),
+            activation=h.get("activation", "snakebeta"),
+            snake_logscale=bool(h.get("snake_logscale", True)),
+            sampling_rate=h.get("sampling_rate", 16000))
+
+
+ACTIVATIONS = ("snake", "snakebeta", "lrelu")
+LRELU_SLOPE = 0.1
 
 
 class Snake(nn.Module):
@@ -53,32 +81,46 @@ class Snake(nn.Module):
 
 
 class Activation1d(nn.Module):
-    """Holds `.act` so the keys read `<...>.act.alpha` as in the reference."""
+    """Holds `.act` so the keys read `<...>.act.alpha` as in the reference;
+    lrelu holds nothing."""
 
-    def __init__(self, ch: int, has_beta: bool):
+    def __init__(self, ch: int, activation: str):
         super().__init__()
-        self.act = Snake(ch, has_beta)
+        if activation != "lrelu":
+            self.act = Snake(ch, activation == "snakebeta")
 
 
 class AMPBlock1(nn.Module):
-    def __init__(self, ch: int, k: int, dilations: Sequence[int], has_beta: bool):
+    def __init__(self, ch: int, k: int, dilations: Sequence[int], activation: str):
         super().__init__()
         self.k, self.dilations = k, tuple(dilations)
         self.convs1 = nn.ModuleList(nn.Conv1d(ch, ch, k, dilation=d)
                                     for d in dilations)
         self.convs2 = nn.ModuleList(nn.Conv1d(ch, ch, k) for _ in dilations)
-        self.activations = nn.ModuleList(Activation1d(ch, has_beta)
+        self.activations = nn.ModuleList(Activation1d(ch, activation)
                                          for _ in range(2 * len(dilations)))
+
+
+class AMPBlock2(nn.Module):
+    """One act -> dilated conv per dilation (models.py:99-128)."""
+
+    def __init__(self, ch: int, k: int, dilations: Sequence[int], activation: str):
+        super().__init__()
+        self.k, self.dilations = k, tuple(dilations)
+        self.convs = nn.ModuleList(nn.Conv1d(ch, ch, k, dilation=d)
+                                   for d in dilations)
+        self.activations = nn.ModuleList(Activation1d(ch, activation)
+                                         for _ in dilations)
 
 
 class BigVGAN(nn.Module):
     def __init__(self, cfg: BigVGANConfig):
         super().__init__()
-        if cfg.activation not in ("snake", "snakebeta"):
-            raise NotImplementedError(
-                "the port runs snake / snake-beta activations")
+        if cfg.activation not in ACTIVATIONS or cfg.resblock not in ("1", "2"):
+            raise ValueError(f"unknown vocoder: activation {cfg.activation!r}, "
+                             f"resblock {cfg.resblock!r}")
         self.cfg = cfg
-        has_beta = cfg.activation == "snakebeta"
+        block = AMPBlock1 if cfg.resblock == "1" else AMPBlock2
         c0 = cfg.upsample_initial_channel
         self.conv_pre = nn.Conv1d(cfg.num_mels, c0, 7)
         ups, res = [], []
@@ -89,11 +131,11 @@ class BigVGAN(nn.Module):
                                                        padding=(k - u) // 2)]))
             for rk, rd in zip(cfg.resblock_kernel_sizes,
                               cfg.resblock_dilation_sizes):
-                res.append(AMPBlock1(cout, rk, rd, has_beta))
+                res.append(block(cout, rk, rd, cfg.activation))
         self.ups = nn.ModuleList(ups)
         self.resblocks = nn.ModuleList(res)
         ch = c0 // (2 ** len(cfg.upsample_rates))
-        self.activation_post = Activation1d(ch, has_beta)
+        self.activation_post = Activation1d(ch, cfg.activation)
         self.conv_post = nn.Conv1d(ch, 1, 7)
 
 
@@ -122,7 +164,10 @@ def _snake_args(act: Activation1d, cfg: BigVGANConfig, fast: bool) -> dict:
                 has_beta=cfg.activation == "snakebeta", fast_sin2=fast)
 
 
-def _aa(act: Activation1d, x, cfg, fast):
+def _act(act: Activation1d, x, cfg, fast):
+    """The activation of an unfused site: K1, or the leaky ReLU."""
+    if cfg.activation == "lrelu":
+        return F.leaky_relu(x, LRELU_SLOPE)
     return aa_snake_fused(x, act.act.alpha, **_snake_args(act, cfg, fast))
 
 
@@ -137,16 +182,30 @@ def _conv_site(conv: nn.Conv1d, x, k, d, compute_dtype):
                   dilation=d, compute_dtype=compute_dtype)
 
 
-def _amp1_apply(rb: AMPBlock1, x, cfg, compute_dtype, fused: bool, fast: bool):
-    k = rb.k
-    for i, d in enumerate(rb.dilations):
-        a1, a2 = rb.activations[2 * i], rb.activations[2 * i + 1]
-        if fused:
-            xt = _fused_site(a1, rb.convs1[i], x.to(compute_dtype), k, d, cfg, fast)
-            xt = _fused_site(a2, rb.convs2[i], xt, k, 1, cfg, fast)
-        else:
-            xt = _conv_site(rb.convs1[i], _aa(a1, x, cfg, fast), k, d, compute_dtype)
-            xt = _conv_site(rb.convs2[i], _aa(a2, xt, cfg, fast), k, 1, compute_dtype)
+def _act_conv(act: Activation1d, conv: nn.Conv1d, x, k, d, cfg, compute_dtype,
+              fused: bool, fast: bool):
+    """One act -> conv site: K2 when fused, else the activation and a conv."""
+    if fused:
+        return _fused_site(act, conv, x.to(compute_dtype), k, d, cfg, fast)
+    return _conv_site(conv, _act(act, x, cfg, fast), k, d, compute_dtype)
+
+
+def _residual_steps(rb):
+    """Per dilation, the (activation, conv, dilation) sites of one residual
+    step: AMPBlock1 two (convs1 at d, convs2 at 1), AMPBlock2 one."""
+    if isinstance(rb, AMPBlock1):
+        return [((rb.activations[2 * i], rb.convs1[i], d),
+                 (rb.activations[2 * i + 1], rb.convs2[i], 1))
+                for i, d in enumerate(rb.dilations)]
+    return [((rb.activations[i], rb.convs[i], d),) for i, d in enumerate(rb.dilations)]
+
+
+def _amp_apply(rb, x, cfg, compute_dtype, fused: bool, fast: bool):
+    """AMPBlock1 / AMPBlock2 (maa3_tpu/models/bigvgan.py:355-419)."""
+    for sites in _residual_steps(rb):
+        xt = x
+        for act, conv, d in sites:
+            xt = _act_conv(act, conv, xt, rb.k, d, cfg, compute_dtype, fused, fast)
         x = xt + x
     return x
 
@@ -168,17 +227,13 @@ def bigvgan_apply(voc: BigVGAN, mel: torch.Tensor,
         else:
             x = conv_transpose1d(x, up.weight, up.bias, u, pad,
                                  compute_dtype=compute_dtype)
-        fused = x.shape[1] <= FUSED_MAX_CH
+        fused = cfg.activation != "lrelu" and x.shape[1] <= FUSED_MAX_CH
         xs = None
         for j in range(nk):
-            y = _amp1_apply(voc.resblocks[i * nk + j], x, cfg, compute_dtype,
-                            fused, fast)
+            y = _amp_apply(voc.resblocks[i * nk + j], x, cfg, compute_dtype,
+                           fused, fast)
             xs = y if xs is None else xs + y
         x = xs / nk
-    if x.shape[1] <= FUSED_MAX_CH:
-        x = _fused_site(voc.activation_post, voc.conv_post,
-                        x.to(compute_dtype), 7, 1, cfg, fast)
-    else:
-        x = _conv_site(voc.conv_post, _aa(voc.activation_post, x, cfg, fast),
-                       7, 1, compute_dtype)
+    x = _act_conv(voc.activation_post, voc.conv_post, x, 7, 1, cfg, compute_dtype,
+                  cfg.activation != "lrelu" and x.shape[1] <= FUSED_MAX_CH, fast)
     return torch.tanh(x)[:, 0, :]

@@ -1,12 +1,16 @@
-"""CLAP caption tower plus the combined CLAP + FLAN-T5 conditioner
-(counterpart of maa3_tpu/models/clap.py).
+"""The text conditioners (counterpart of maa3_tpu/models/clap.py).
 
-FrozenCLAPFLANEmbedder.encode (modules.py:174-191):
+FrozenCLAPFLANEmbedder.encode (modules.py:174-191), `CLAPFLAN`:
   z  = Projection(BERT(ori caption).last_hidden)     (B, 77, 1024)
   z2 = T5(struct caption).last_hidden                 (B, 77, 1024)
   return cat([z, z2], 1)                              (B, 154, 1024)
 Keys: caption_encoder.base.* (BERT), caption_encoder.projection.{linear1,
 linear2,layer_norm}, t5_transformer.* (T5 encoder).
+FrozenCLAPEmbedder (modules.py:91-129), `CLAP`: the CLAP branch alone,
+under the same caption_encoder.* keys -> (B, 77, 1024).
+FrozenFLANEmbedder (modules.py:54-88), `FLAN`: the T5 alone, under
+transformer.* -> (B, 77, d_model).
+All three take a CLAPFLANConfig; each reads only its towers' parts of it.
 """
 
 from __future__ import annotations
@@ -30,22 +34,45 @@ class CLAPFLANConfig:
     d_proj: int = 1024
 
 
+def _caption_encoder(cfg: CLAPFLANConfig) -> nn.Module:
+    d_in = cfg.bert.hidden_size
+    proj = _ns(linear1=nn.Linear(d_in, cfg.d_proj, bias=False),
+               linear2=nn.Linear(cfg.d_proj, cfg.d_proj, bias=False),
+               layer_norm=nn.LayerNorm(cfg.d_proj))
+    return _ns(base=Bert(cfg.bert), projection=proj)
+
+
 class CLAPFLAN(nn.Module):
     def __init__(self, cfg: CLAPFLANConfig):
         super().__init__()
         self.cfg = cfg
-        d_in = cfg.bert.hidden_size
-        proj = _ns(linear1=nn.Linear(d_in, cfg.d_proj, bias=False),
-                   linear2=nn.Linear(cfg.d_proj, cfg.d_proj, bias=False),
-                   layer_norm=nn.LayerNorm(cfg.d_proj))
-        self.caption_encoder = _ns(base=Bert(cfg.bert), projection=proj)
+        self.caption_encoder = _caption_encoder(cfg)
         self.t5_transformer = T5Encoder(cfg.t5)
 
 
+class CLAP(nn.Module):
+    def __init__(self, cfg: CLAPFLANConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.caption_encoder = _caption_encoder(cfg)
+
+
+class FLAN(nn.Module):
+    def __init__(self, cfg: CLAPFLANConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.transformer = T5Encoder(cfg.t5)
+
+
+# the conditioner module of each cond_kind (config.ModelSpec)
+COND_MODULES = {"clap_flan": CLAPFLAN, "clap": CLAP, "flan": FLAN}
+
+
 @torch.no_grad()
-def clap_flan_init_(m: CLAPFLAN, generator: torch.Generator) -> CLAPFLAN:
-    """As clap_flan_init: embeddings N(0, 0.02) (T5 shared N(0, 1), relative
-    bias N(0, 0.1)), xavier-uniform linears with zero bias, unit norms."""
+def clap_flan_init_(m: nn.Module, generator: torch.Generator) -> nn.Module:
+    """As clap_flan_init, for any of the three conditioners: embeddings
+    N(0, 0.02) (T5 shared N(0, 1), relative bias N(0, 0.1)), xavier-uniform
+    linears with zero bias, unit norms."""
     for name, mod in m.named_modules():
         if isinstance(mod, nn.Embedding):
             std = 0.02
@@ -85,9 +112,29 @@ def clap_flan_encode(m: CLAPFLAN, ori_ids: torch.Tensor, struct_ids: torch.Tenso
     return torch.cat([z, z2], dim=1)
 
 
-def clap_flan_encode_batch(m: CLAPFLAN, tokens: dict) -> torch.Tensor:
-    """clap_flan_encode of a token batch {ori_ids, ori_mask, struct_ids,
-    struct_mask} (MAA3System.tokenize): the trainable conditioner's call,
-    under autograd when the caller trains it."""
+def clap_encode(m: CLAP, ids: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """FrozenCLAPEmbedder: (B, 77) BERT ids -> (B, 77, d_proj)."""
+    z = bert_apply(m.caption_encoder.base, ids, mask)
+    return projection_apply(m.caption_encoder.projection, z)
+
+
+def flan_encode(m: FLAN, ids: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """FrozenFLANEmbedder: (B, 77) T5 ids -> (B, 77, d_model)."""
+    return t5_apply(m.transformer, ids, mask)
+
+
+def clap_flan_encode_batch(m: nn.Module, tokens: dict) -> torch.Tensor:
+    """The conditioner's encode of a token batch {ori_ids, ori_mask,
+    struct_ids, struct_mask} (MAA3System.tokenize): CLAPFLAN reads both,
+    CLAP the original captions' BERT ids, FLAN the structured captions' T5
+    ids (as the JAX trainer feeds them, maa3_tpu/train/loop.py:257-268).
+    The trainable conditioner's call, under autograd when the caller trains
+    it."""
+    if isinstance(m, FLAN):
+        return flan_encode(m, tokens["struct_ids"], tokens.get("struct_mask"))
+    if isinstance(m, CLAP):
+        return clap_encode(m, tokens["ori_ids"], tokens.get("ori_mask"))
     return clap_flan_encode(m, tokens["ori_ids"], tokens["struct_ids"],
                             tokens.get("ori_mask"), tokens.get("struct_mask"))

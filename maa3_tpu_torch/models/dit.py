@@ -50,6 +50,9 @@ class DiTConfig:
     # bf16 serving carries the residual stream between blocks in fp32
     # (system.py:421-433); no effect in fp32
     fp32_residual: bool = False
+    # bf16 serving keeps the dense attention logits in fp32 (a drift lever;
+    # maa3_tpu/models/dit.py:80); no effect in fp32
+    fp32_scores: bool = False
     # flash attention for self-attention: None = by sequence length and mode
     # (flash_for_len), True/False = always / never
     use_flash: Optional[bool] = None
@@ -180,7 +183,8 @@ def _block_apply(blk: TransformerBlock, cfg: DiTConfig, x, cos, sin, mod,
                  shift_msa, scale_msa),
         cos, sin, y=y, y_kv=y_kv, x_mask=x_mask, y_mask=y_mask,
         n_heads=cfg.num_heads, n_kv_heads=cfg.n_kv_heads,
-        compute_dtype=compute_dtype, use_flash=cfg.flash_for_len(x.shape[1]))
+        compute_dtype=compute_dtype, use_flash=cfg.flash_for_len(x.shape[1]),
+        fp32_scores=cfg.fp32_scores)
     h = x + gate_msa[:, None, :].to(x.dtype) * h_attn
     h_ffn = feed_forward_apply(
         blk.feed_forward,

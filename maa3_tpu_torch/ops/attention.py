@@ -2,7 +2,8 @@
 cross-attention (counterpart of maa3_tpu/ops/attention.py:89-169).
 
 Self-attention is dense (`_sdpa`: plain matmuls, the (L, L) logits stored
-in bf16 in bf16 mode with fp32 softmax statistics, as in JAX) unless the
+in bf16 in bf16 mode with fp32 softmax statistics, as in JAX; kept in fp32
+with `fp32_scores`) unless the
 caller asks for flash attention (ops/flash_attention.py: K3a/K3b forward,
 K4a backward), as the DiT does in training from 1248 tokens
 (models/dit.py `flash_for_len`). Cross-attention is always dense.
@@ -48,11 +49,15 @@ class Attention(nn.Module):
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-          mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Softmax attention on (B, L, H, D); mask: (B, Lk) bool, True = valid."""
+          mask: Optional[torch.Tensor], fp32_scores: bool = False) -> torch.Tensor:
+    """Softmax attention on (B, L, H, D); mask: (B, Lk) bool, True = valid.
+    In bf16 the logits are stored in bf16 unless fp32_scores
+    (maa3_tpu/ops/attention.py:63-80)."""
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if fp32_scores:  # fp32 products of the bf16 inputs, never rounded to bf16
+        qh, kh = qh.float(), kh.float()
     logits = torch.matmul(qh, kh.transpose(-1, -2)).float() * scale
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and not fp32_scores:
         logits = logits.to(torch.bfloat16)
     if mask is not None:
         logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
@@ -79,10 +84,12 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
                     n_heads: int = 8, n_kv_heads: Optional[int] = None,
                     compute_dtype: Optional[torch.dtype] = None,
                     y_kv: Optional[tuple] = None,
-                    use_flash: bool = False) -> torch.Tensor:
+                    use_flash: bool = False,
+                    fp32_scores: bool = False) -> torch.Tensor:
     """x: (B, L, D); y: (B, Ly, y_dim) normed context, or y_kv: its
     precomputed (yk, yv), each (B, Ly, n_kv * head_dim). use_flash routes
-    self-attention through the flash kernels."""
+    self-attention through the flash kernels; fp32_scores keeps the dense
+    logits in fp32 in bf16 mode."""
     b, l, d = x.shape
     n_kv = n_heads if n_kv_heads is None else n_kv_heads
     hd = d // n_heads
@@ -110,7 +117,7 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
                               xv.transpose(1, 2), mask=x_mask,
                               scale=scale).transpose(1, 2)
     else:
-        out = _sdpa(xq, xk, xv, scale, x_mask)
+        out = _sdpa(xq, xk, xv, scale, x_mask, fp32_scores)
 
     if hasattr(att, "wk_y") and (y is not None or y_kv is not None):
         yk, yv = y_kv if y_kv is not None else context_kv(att, y, compute_dtype)
@@ -120,7 +127,7 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
         if rep > 1:
             yk = yk.repeat_interleave(rep, dim=2)
             yv = yv.repeat_interleave(rep, dim=2)
-        out_y = _sdpa(xq, yk, yv, scale, y_mask)
+        out_y = _sdpa(xq, yk, yv, scale, y_mask, fp32_scores)
         gate = torch.tanh(att.gate.float()).to(out_y.dtype)
         out = out + out_y * gate[None, None, :, None]
     return dense(out.reshape(b, l, n_heads * hd), att.wo.weight, None,

@@ -1,0 +1,94 @@
+"""Text-to-audio server on the port (the flags of scripts/serve.py):
+
+    python -m maa3_tpu_torch.serve -b configs/txt2music-cfm-cfg.yaml \\
+        -r model.ckpt --vocoder-ckpt vocoder/ --port 8000 --warmup 1,8
+
+    curl -X POST localhost:8000/generate -d '{"prompt": "a dog barks"}' -o dog.wav
+    curl localhost:8000/healthz
+
+Builds MAA3System.from_config on --device (cuda unless asked for cpu) from
+the checkpoint (-r: a Lightning .ckpt of the reference or a .pt of the
+port's Trainer) and the vocoder directory, runs the --warmup buckets, and
+serves until interrupted (serving.AudioServer). --precision: bf16 (the
+default; bf16 serving copy of the DiT, fp32 residual, bf16 vocoder), fp32
+(fp32 throughout, without TF32), or fp32_highest, which names the JAX
+package's six-pass fp32 matmul setting and is fp32 here: the card's fp32
+path already runs without TF32. --fp32 is the deprecated alias of
+--precision fp32. Not yet in the port: --quant (int8 serving) and
+--n_model (tensor-parallel serving).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--host", type=str, default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("-b", "--base", type=str, default="",
+                   help="comma-separated config yamls")
+    p.add_argument("-r", "--resume", type=str, default="",
+                   help="Lightning .ckpt of the reference, or a .pt of the "
+                        "port's Trainer")
+    p.add_argument("--vocoder-ckpt", type=str, default="",
+                   help="vocoder directory: config.json and generator.pt")
+    p.add_argument("--tokenizer_dir", type=str, default="")
+    p.add_argument("--fp32", action="store_true",
+                   help="deprecated alias for --precision fp32")
+    p.add_argument("--precision", type=str, default="bf16",
+                   choices=["bf16", "fp32", "fp32_highest"],
+                   help="bf16 (default), or fp32 without TF32 (fp32_highest "
+                        "is the same on the card)")
+    p.add_argument("--steps", type=int, default=25)
+    p.add_argument("--scale", type=float, default=5.0)
+    p.add_argument("--max_batch", type=int, default=8)
+    p.add_argument("--window_ms", type=float, default=30.0)
+    p.add_argument("--max_latent_len", type=int, default=None,
+                   help="longest latent_len a request may ask for (default: "
+                        "the config's own latent length)")
+    p.add_argument("--warmup", type=str, default="1",
+                   help="comma-separated batch buckets to run before accepting "
+                        "traffic ('' to skip); e.g. 1,8")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    opt = parse_args(argv)
+    from maa3_tpu_torch.serving import AudioServer, ServeConfig
+    from maa3_tpu_torch.system import MAA3System
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg_paths = [c for c in opt.base.split(",") if c] or [
+        os.path.join(root, "configs", "txt2audio-cfm-cfg.yaml")]
+    precision = "fp32" if opt.fp32 else opt.precision
+    system = MAA3System.from_config(
+        cfg_paths, seed=opt.seed, device=opt.device,
+        compute_dtype=torch.bfloat16 if precision == "bf16" else torch.float32,
+        tokenizer_dir=opt.tokenizer_dir or None, ckpt_path=opt.resume or None,
+        vocoder_dir=opt.vocoder_ckpt or None)
+    if not opt.resume:
+        print("WARNING: no checkpoint given (-r); serving random weights")
+    server = AudioServer(
+        system,
+        ServeConfig(max_batch=opt.max_batch, batch_window_ms=opt.window_ms,
+                    default_steps=opt.steps, default_scale=opt.scale,
+                    sample_rate=system.vocoder.cfg.sampling_rate, seed=opt.seed,
+                    max_latent_len=opt.max_latent_len),
+        host=opt.host, port=opt.port)
+    if opt.warmup:
+        buckets = [int(b) for b in opt.warmup.split(",") if b]
+        print(f"warming up buckets {buckets}...", flush=True)
+        server.batcher.warmup(buckets, steps=opt.steps)
+    print(f"serving on http://{opt.host}:{server.port}  "
+          "(POST /generate, GET /healthz, GET /stats)", flush=True)
+    server.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

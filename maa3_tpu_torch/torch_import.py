@@ -1,0 +1,144 @@
+"""Checkpoint import: the reference's PyTorch-Lightning `.ckpt` files and
+BigVGAN generator files into the port's modules (counterpart of
+maa3_tpu/torch_import.py).
+
+A Lightning state dict holds `model.diffusion_model.*` (the DiT),
+`first_stage_model.*` (the VAE), `cond_stage_model.*` (the conditioner),
+optionally `model_ema.*` (LitEma's shadows of the DiT, dots removed from
+their names) and the `scale_factor` buffer. The port's modules carry the
+reference's own keys, so a component loads by stripping its prefix,
+folding weight norm (vocoder) and `load_module_state`: the keys no JAX
+importer reads (HF's tied `encoder.embed_tokens.weight`, `*.position_ids`,
+`*.pooler.*`, the vocoder's resampling filters, LitEma's counters, a
+first stage's loss) are left out and counted, every key the module needs
+must be there (KeyError otherwise, as in JAX), and the rest loads with
+strict=True, shapes checked. Tensors stay on the CPU (memory-mapped where
+the file allows it) until they are copied into the modules.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+State = Dict[str, torch.Tensor]
+
+
+def read_checkpoint(path: str):
+    """torch.load of a .ckpt / .pt file onto the CPU, memory-mapped where the
+    file's format allows it. Lightning files pickle more than tensors
+    (hyper-parameters), so this unpickles with weights_only=False, as the
+    reference's loaders do: load only files you trust."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=False, mmap=True)
+    except RuntimeError:  # a file in the legacy (non-zip) format cannot be mapped
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def unwrap_state_dict(ckpt) -> State:
+    """The tensors of a checkpoint's `state_dict`, `generator` or `model`
+    entry, or of the file itself when it has none of them."""
+    if isinstance(ckpt, dict):
+        for key in ("state_dict", "generator", "model"):
+            if key in ckpt:
+                ckpt = ckpt[key]
+                break
+    return {k: v for k, v in ckpt.items() if isinstance(v, torch.Tensor)}
+
+
+def load_torch_checkpoint(path: str) -> State:
+    """read_checkpoint + unwrap_state_dict (maa3_tpu/torch_import.py:501)."""
+    return unwrap_state_dict(read_checkpoint(path))
+
+
+def strip_prefix(sd: State, prefix: str) -> State:
+    n = len(prefix)
+    return {k[n:]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def split_lightning_ckpt(sd: State) -> dict:
+    """{dit, vae, cond, ema} sub-dicts by prefix, and the scale_factor
+    (a float, or None when the file has none) (torch_import.py:41)."""
+    sf = sd.get("scale_factor")
+    return {"dit": strip_prefix(sd, "model.diffusion_model."),
+            "vae": strip_prefix(sd, "first_stage_model."),
+            "cond": strip_prefix(sd, "cond_stage_model."),
+            "ema": strip_prefix(sd, "model_ema."),
+            "scale_factor": None if sf is None else float(sf)}
+
+
+def remap_ema_state(ema_sd: State, model_sd: State,
+                    prefix: str = "diffusion_model.") -> State:
+    """LitEma keeps each shadow under its parameter's name with the dots
+    removed (ldm/modules/ema.py:16-21): the shadows of model_sd's keys under
+    their own names, for those the EMA has (torch_import.py:486)."""
+    out = {}
+    for k in model_sd:
+        s_name = (prefix + k).replace(".", "")
+        if s_name in ema_sd:
+            out[k] = ema_sd[s_name]
+    return out
+
+
+def fold_weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """w = g v / ||v||, the norm over every dim but 0 (torch weight_norm
+    dim=0), computed in fp64 and returned in fp32 (torch_import.py:267)."""
+    v64 = v.double()
+    norm = v64.square().sum(dim=tuple(range(1, v.dim())), keepdim=True).sqrt()
+    return (g.double() * v64 / norm).float()
+
+
+WN_NAMES = ((".weight_g", ".weight_v"),
+            (".parametrizations.weight.original0", ".parametrizations.weight.original1"))
+
+
+def fold_weight_norms(sd: State) -> State:
+    """Every weight-normed `<name>` of either naming (`weight_g` /
+    `weight_v`, or torch.nn.utils.parametrize's `original0` / `original1`)
+    replaced by its folded `<name>.weight` (torch_import.py:274)."""
+    out = dict(sd)
+    for g_suffix, v_suffix in WN_NAMES:
+        for k in [k for k in sd if k.endswith(g_suffix)]:
+            name = k[:-len(g_suffix)]
+            out[name + ".weight"] = fold_weight_norm(out.pop(k),
+                                                     out.pop(name + v_suffix))
+    return out
+
+
+def load_module_state(module: nn.Module, sd: State, what: str) -> None:
+    """Load sd into module: keys the module lacks are left out and logged,
+    a key it needs that sd lacks raises KeyError, and the rest loads with
+    strict=True (shapes checked), so no parameter keeps its init."""
+    own = module.state_dict()
+    extra = sorted(k for k in sd if k not in own)
+    missing = sorted(k for k in own if k not in sd)
+    if missing:
+        raise KeyError(f"{what}: the checkpoint lacks {len(missing)} of the "
+                       f"model's {len(own)} keys, e.g. {missing[:5]}")
+    if extra:
+        print(f"{what}: skipped {len(extra)} checkpoint keys the model does not "
+              f"read, e.g. {extra[:5]}")
+    module.load_state_dict({k: sd[k] for k in own}, strict=True)
+
+
+def lightning_parts(sd: State) -> dict:
+    """split_lightning_ckpt of a Lightning state dict, with the DiT part
+    replaced by the EMA shadows when they cover every DiT key of the file
+    (maa3_tpu/system.py:127-131; a partial EMA is ignored, not half
+    applied). parts["used_ema"] says which was taken."""
+    parts = split_lightning_ckpt(sd)
+    parts["used_ema"] = False
+    if parts["ema"]:
+        ema = remap_ema_state(parts["ema"], parts["dit"])
+        if len(ema) == len(parts["dit"]):
+            rest = sorted(set(parts["ema"]) - {("diffusion_model." + k).replace(".", "")
+                                               for k in ema})
+            print(f"using EMA weights from checkpoint; skipped {len(rest)} EMA "
+                  f"keys that shadow no DiT key, e.g. {rest[:5]}")
+            parts["dit"], parts["used_ema"] = ema, True
+        else:
+            print(f"EMA covers {len(ema)} of {len(parts['dit'])} DiT keys; "
+                  "using the live weights")
+    return parts

@@ -3,17 +3,19 @@ text-to-audio DiT on one device uses):
 
     python -m maa3_tpu_torch.train -b configs/txt2audio-cfm-cfg-XL.yaml \\
         --max_steps 100 [--batch_size 6] [--device cuda] [--remat] \\
-        [-r CKPT] [--ckpt_every N] \\
+        [-r CKPT] [--torch_ckpt model.ckpt] [--ckpt_every N] \\
         data.params.train.params.dataset_cfg.dataset_name=data/synth/manifest_mel.tsv
 
-Builds MAA3System.from_config (random weights from --seed), reads the
+Builds MAA3System.from_config (random weights from --seed, or a warm start
+from the reference's Lightning .ckpt with --torch_ckpt), reads the
 manifest named by the config's data section (TextSpecDataset: mels cropped
 or tiled to spec_crop_len), restores a checkpoint of the port's Trainer with
 -r, and runs Trainer.fit for --max_steps steps in bf16 (fp32 with --fp32),
 logging to <ckpt_dir>/metrics.jsonl. The conditioner trains when the config
 says so (cond_stage_trainable, true in every YAML of configs/). Checkpoints:
 every --ckpt_every steps, `last` at the end, `crash` when a step raises, and
-`usr1` on SIGUSR1.
+`usr1` on SIGUSR1. The JAX CLI's --vae_ckpt reads an Orbax directory and
+is not in the port.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ def parse_args(argv=None):
     p.add_argument("-b", "--base", nargs="+", required=True, help="config yamls")
     p.add_argument("-r", "--resume", type=str, default="",
                    help="a checkpoint (.pt) of the port's Trainer to continue from")
+    p.add_argument("--torch_ckpt", type=str, default="",
+                   help="warm-start from a reference .ckpt (Lightning)")
     p.add_argument("--max_steps", type=int, default=100000)
     p.add_argument("--batch_size", type=int, default=None,
                    help="default: the config's data.params.batch_size")
@@ -69,7 +73,8 @@ def main(argv=None):
     data = config_mod.parse_data_config(config_mod.load_config(opt.base, opt.overrides))
     system = MAA3System.from_config(
         opt.base, opt.overrides, seed=opt.seed, device=opt.device,
-        compute_dtype=torch.float32 if opt.fp32 else torch.bfloat16)
+        compute_dtype=torch.float32 if opt.fp32 else torch.bfloat16,
+        ckpt_path=opt.torch_ckpt or None)
     if opt.remat:
         system.dit.cfg = dataclasses.replace(system.dit.cfg, remat=True)
     batch_size = opt.batch_size or data.batch_size

@@ -139,10 +139,9 @@ def bigvgan_from_jax(p: dict) -> State:
     for i, up in enumerate(p["ups"]):
         _conv(sd, f"ups.{i}.0", up)
     for n, rb in enumerate(p["resblocks"]):
-        for j, c in enumerate(rb["convs1"]):
-            _conv(sd, f"resblocks.{n}.convs1.{j}", c)
-        for j, c in enumerate(rb["convs2"]):
-            _conv(sd, f"resblocks.{n}.convs2.{j}", c)
+        for key in ("convs1", "convs2", "convs"):  # AMPBlock1; AMPBlock2
+            for j, c in enumerate(rb.get(key, ())):
+                _conv(sd, f"resblocks.{n}.{key}.{j}", c)
         for j, a in enumerate(rb["acts"]):
             _snake(sd, f"resblocks.{n}.activations.{j}", a)
     _snake(sd, "activation_post", p["activation_post"])
@@ -150,8 +149,8 @@ def bigvgan_from_jax(p: dict) -> State:
     return sd
 
 
-def clap_flan_from_jax(p: dict) -> State:
-    sd: State = {}
+def _bert_proj(sd: State, p: dict) -> None:
+    """The CLAP caption tower: caption_encoder.{base (BERT), projection}."""
     bert, pre = p["bert"], "caption_encoder.base."
     e = bert["embeddings"]
     sd[pre + "embeddings.word_embeddings.weight"] = _t(e["word"])
@@ -172,7 +171,9 @@ def clap_flan_from_jax(p: dict) -> State:
     _lin(sd, pre + "linear1", pj["linear1"])
     _lin(sd, pre + "linear2", pj["linear2"])
     _vec(sd, pre + "layer_norm", pj["ln"])
-    t5, pre = p["t5"], "t5_transformer."
+
+
+def _t5(sd: State, t5: dict, pre: str) -> None:
     sd[pre + "shared.weight"] = _t(t5["shared"])
     sd[pre + "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = (
         _t(t5["rel_bias"]))
@@ -185,12 +186,39 @@ def clap_flan_from_jax(p: dict) -> State:
         _vec(sd, lpre + "1.layer_norm", lp["ff_ln"])
         for nm in ("wi_0", "wi_1", "wo"):
             _lin(sd, f"{lpre}1.DenseReluDense.{nm}", lp[nm])
+
+
+def clap_flan_from_jax(p: dict) -> State:
+    """FrozenCLAPFLANEmbedder: caption_encoder.* and t5_transformer.*."""
+    sd: State = {}
+    _bert_proj(sd, p)
+    _t5(sd, p["t5"], "t5_transformer.")
     return sd
 
 
-def params_from_jax(params: dict) -> Dict[str, State]:
+def flan_from_jax(p: dict) -> State:
+    """FrozenFLANEmbedder: its T5 under transformer.* (the tree's t5)."""
+    sd: State = {}
+    _t5(sd, p["t5"], "transformer.")
+    return sd
+
+
+def clap_from_jax(p: dict) -> State:
+    """FrozenCLAPEmbedder: caption_encoder.* (the tree's bert, projection)."""
+    sd: State = {}
+    _bert_proj(sd, p)
+    return sd
+
+
+COND_FROM_JAX = {"clap_flan": clap_flan_from_jax, "flan": flan_from_jax,
+                 "clap": clap_from_jax}
+
+
+def params_from_jax(params: dict, cond_kind: str = "clap_flan") -> Dict[str, State]:
     """{dit, vae, vocoder, cond} JAX trees -> state dicts for the port's
-    DiT, AutoencoderKL, BigVGAN and CLAPFLAN modules (whichever are present)."""
+    DiT, AutoencoderKL, BigVGAN (AMPBlock1 or 2; snake, snake-beta or
+    lrelu) and conditioner of `cond_kind` (CLAPFLAN, FLAN or CLAP; the JAX
+    tree may hold more towers than the kind reads), whichever are present."""
     conv = {"dit": dit_from_jax, "vae": vae_from_jax,
-            "vocoder": bigvgan_from_jax, "cond": clap_flan_from_jax}
+            "vocoder": bigvgan_from_jax, "cond": COND_FROM_JAX[cond_kind]}
     return {k: conv[k](v) for k, v in params.items() if k in conv}

@@ -606,3 +606,110 @@ def test_train_latent_and_loss_match_cpu_without_outer_fp32(cuda_dev, tmp_path):
             losses.append(m["loss"].item())
     assert (zs[0] - zs[1]).abs().max().item() <= 1e-4 * max(1.0, zs[0].abs().max().item())
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resblock,activation,want", [
+    ("2", "snakebeta", (4, 5)), ("2", "snake", (4, 5)), ("1", "lrelu", (0, 0))])
+def test_amp2_and_lrelu_vocoders_match_cpu(cuda_dev, resblock, activation, want):
+    """AMPBlock2 and lrelu vocoders on the card against the CPU (plain
+    versions), fp32, 1e-3 as for the pipeline; AMPBlock2 reaches K1 (the
+    64-channel stage, one site per dilation) and K2 (the 32-channel stage
+    and conv_post), lrelu neither kernel."""
+    import copy
+    from maa3_tpu_torch.models.bigvgan import (BigVGAN, BigVGANConfig, Snake,
+                                               bigvgan_apply, bigvgan_init_)
+    cfg = BigVGANConfig(num_mels=16, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
+                        upsample_initial_channel=128, resblock=resblock,
+                        activation=activation, snake_logscale=activation != "snake",
+                        resblock_kernel_sizes=(3, 7),
+                        resblock_dilation_sizes=((1, 3), (1, 3)) if resblock == "2"
+                        else ((1, 3, 5), (1, 3, 5)))
+    gen = torch.Generator().manual_seed(4)
+    cpu = bigvgan_init_(BigVGAN(cfg), gen)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, Snake):
+                for p in m.parameters():
+                    p.add_(torch.empty_like(p).uniform_(-0.3, 0.3, generator=gen))
+    gpu = copy.deepcopy(cpu).to(cuda_dev)
+    mel = torch.randn(2, 16, 40, generator=gen)
+    n1, n2 = k1.launches, k2.launches
+    with full_fp32():
+        wav_g = bigvgan_apply(gpu, mel.to(cuda_dev))
+        torch.cuda.synchronize()
+        assert (k1.launches - n1, k2.launches - n2) == want
+        wav_c = bigvgan_apply(cpu, mel)
+    assert wav_g.shape == (2, 160) and torch.isfinite(wav_g).all()
+    np.testing.assert_allclose(wav_g.cpu().numpy(), wav_c.numpy(), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_lightning_checkpoint_on_the_card_matches_cpu(cuda_dev, tmp_path):
+    """A small Lightning checkpoint (EMA section, weight-normed vocoder in
+    both namings) loaded with device="cuda" serves what the same files give
+    on the CPU: conditioning, CFG ODE, decode and vocoder, fp32 at 1e-3."""
+    import json
+    import os
+    from maa3_tpu_torch.models.bert import BertConfig
+    from maa3_tpu_torch.models.bigvgan import BigVGANConfig
+    from maa3_tpu_torch.models.clap import CLAPFLANConfig
+    from maa3_tpu_torch.models.t5 import T5Config
+    from maa3_tpu_torch.system import MAA3System
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    xl = os.path.join(root, "configs", "txt2audio-cfm-cfg-XL.yaml")
+    up = "model.params.unet_config.params."
+    dd = "model.params.first_stage_config.params.ddconfig."
+    over = [up + "hidden_size=64", up + "depth=2", up + "num_heads=4",
+            up + "context_dim=32", up + "multiple_of=32", dd + "ch=32",
+            dd + "ch_mult=[1, 2]", dd + "num_res_blocks=1"]
+    clap = CLAPFLANConfig(bert=BertConfig(hidden_size=32, num_layers=2, num_heads=4,
+                                          intermediate_size=64),
+                          t5=T5Config(d_model=32, d_kv=8, d_ff=48, num_layers=2,
+                                      num_heads=4), d_proj=32)
+    voc = dict(upsample_rates=[2, 2], upsample_kernel_sizes=[4, 4],
+               upsample_initial_channel=128, resblock_kernel_sizes=[3, 7],
+               resblock_dilation_sizes=[[1, 3, 5]] * 2)
+    src = MAA3System.from_config([xl], over, seed=5, device="cpu", clap_cfg=clap,
+                                 voc_cfg=BigVGANConfig.from_dict(voc), unfreeze=True)
+    g = torch.Generator().manual_seed(6)
+    sd = {"scale_factor": torch.tensor(0.8)}
+    for prefix, m in (("model.diffusion_model.", src.dit), ("first_stage_model.", src.vae),
+                      ("cond_stage_model.", src.cond)):
+        sd.update({prefix + k: v for k, v in m.state_dict().items()})
+    for k, v in src.dit.state_dict().items():
+        sd["model_ema." + ("diffusion_model." + k).replace(".", "")] = (
+            v + 0.01 * torch.randn(v.shape, generator=g))
+    torch.save({"state_dict": sd}, tmp_path / "m.ckpt")
+    gen_sd, i = {}, 0
+    for k, w in src.vocoder.state_dict().items():
+        if w.dim() == 3:  # conv weights as weight norm's (g, v), namings alternating
+            base, norm = k[:-len(".weight")], w.square().sum((1, 2), keepdim=True).sqrt()
+            names = ("weight_g", "weight_v") if i % 2 else (
+                "parametrizations.weight.original0", "parametrizations.weight.original1")
+            gen_sd[f"{base}.{names[0]}"], gen_sd[f"{base}.{names[1]}"] = norm, 2.0 * w
+            i += 1
+        else:
+            gen_sd[k] = w
+    os.makedirs(tmp_path / "voc")
+    (tmp_path / "voc" / "config.json").write_text(json.dumps(voc))
+    torch.save({"generator": gen_sd}, tmp_path / "voc" / "generator.pt")
+    prompts = {"ori_caption": ["a dog barks", "rain"], "struct_caption": ["<a& b>", "<r& c>"]}
+    x0 = torch.randn(2, 20, 16, generator=g)
+    outs = []
+    n1, n2 = k1.launches, k2.launches
+    for dev in ("cpu", cuda_dev):
+        s = MAA3System.from_config([xl], over, device=dev, compute_dtype=torch.float32,
+                                   clap_cfg=clap, ckpt_path=str(tmp_path / "m.ckpt"),
+                                   vocoder_dir=str(tmp_path / "voc"))
+        assert s.scale_factor == pytest.approx(0.8)
+        c = s.get_learned_conditioning(prompts)
+        uc = s.get_learned_conditioning({k: ["", ""] for k in prompts})
+        z = s.sample_cfg(c, 5.0, uc, timesteps=4, x0=x0.to(dev))
+        mel = s.decode_first_stage(z)
+        outs.append([t.cpu() for t in (c, z, mel)] + [torch.from_numpy(s.vocode(mel))])
+    torch.cuda.synchronize()
+    assert k1.launches > n1 and k2.launches > n2
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-3, rtol=1e-3)

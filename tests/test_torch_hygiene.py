@@ -86,6 +86,73 @@ def test_imports_and_cpu_path_with_blocked_modules(tmp_path):
     assert out.stdout.strip().splitlines()[-1].startswith("OK")
 
 
+@pytest.mark.parametrize("module", ["torch_import", "serving", "serve"])
+def test_serving_modules_are_among_the_checked_sources(module):
+    """The checkpoint import, the server and its CLI are among the sources
+    the two tests above read and import with JAX blocked."""
+    assert ROOT / "maa3_tpu_torch" / f"{module}.py" in _port_sources()
+
+
+def test_server_runs_with_blocked_modules(tmp_path):
+    """A tiny text-to-music system served over HTTP from checkpoint files
+    (a Lightning-layout file and a vocoder directory), with JAX, the JAX
+    package and PyYAML blocked; shutdown leaves no thread."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import json, os, threading, urllib.request
+        import torch
+        from maa3_tpu_torch.models.bigvgan import BigVGANConfig
+        from maa3_tpu_torch.models.bert import BertConfig
+        from maa3_tpu_torch.models.clap import CLAPFLANConfig
+        from maa3_tpu_torch.models.t5 import T5Config
+        from maa3_tpu_torch.serving import AudioServer, ServeConfig
+        from maa3_tpu_torch.system import MAA3System
+        up = "model.params.unet_config.params."
+        dd = "model.params.first_stage_config.params.ddconfig."
+        over = [up + "hidden_size=32", up + "depth=1", up + "num_heads=2",
+                up + "context_dim=16", up + "multiple_of=16", dd + "ch=32",
+                dd + "ch_mult=[1, 2]", dd + "num_res_blocks=1", "model.params.mel_length=4"]
+        kw = dict(device="cpu", clap_cfg=CLAPFLANConfig(
+            bert=BertConfig(hidden_size=16, num_layers=1, num_heads=2, intermediate_size=32),
+            t5=T5Config(d_model=16, d_kv=8, d_ff=32, num_layers=1, num_heads=2), d_proj=16))
+        music = {str(ROOT / "configs" / "txt2music-cfm-cfg.yaml")!r}
+        voc = dict(upsample_rates=[2, 2], upsample_kernel_sizes=[4, 4],
+                   upsample_initial_channel=16, resblock_kernel_sizes=[3],
+                   resblock_dilation_sizes=[[1, 3]], resblock="2")
+        src = MAA3System.from_config([music], over, voc_cfg=BigVGANConfig.from_dict(voc),
+                                     unfreeze=True, **kw)
+        sd = {{"model.diffusion_model." + k: v for k, v in src.dit.state_dict().items()}}
+        sd.update({{"first_stage_model." + k: v for k, v in src.vae.state_dict().items()}})
+        sd.update({{"cond_stage_model." + k: v for k, v in src.cond.state_dict().items()}})
+        torch.save({{"state_dict": sd}}, "m.ckpt")
+        os.makedirs("voc")
+        json.dump(voc, open("voc/config.json", "w"))
+        torch.save({{"generator": src.vocoder.state_dict()}}, "voc/generator.pt")
+        s = MAA3System.from_config([music], over, ckpt_path="m.ckpt", vocoder_dir="voc", **kw)
+        before = set(threading.enumerate())
+        srv = AudioServer(s, ServeConfig(default_steps=2))
+        srv.start()
+        req = urllib.request.Request(f"http://127.0.0.1:{{srv.port}}/generate",
+                                     data=json.dumps({{"prompt": "a cello"}}).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            assert r.status == 200 and len(r.read()) == 44 + 2 * 4 * 2 * 4
+        srv.shutdown()
+        assert set(threading.enumerate()) == before
+        leaked = [n for n in sys.modules if n.split(".")[0] in {BLOCKED!r}
+                  and sys.modules[n] is not None]
+        assert not leaked, leaked
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH="")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=tmp_path, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "OK"
+
+
 @pytest.mark.parametrize("name", sorted(p.name for p in (ROOT / "configs").glob("*.yaml")))
 def test_yaml_reader_matches_pyyaml(name):
     text = (ROOT / "configs" / name).read_text()
