@@ -74,6 +74,27 @@ Phases, each timed on a line of its own:
      16 with MAA3_ODE_CHUNK 0 and 8; then an AMPBlock2 and an lrelu vocoder
      at BigVGAN 1536 width on the card against the CPU (fp32, 1e-3; AMP2
      reaches K1 and K2, lrelu neither). --profile leaves it unprofiled.
+ 12. the remaining trainer options at XL width (random weights from the
+     seed), fed by 64 log-mels of 80 x 2496 written from the seed under
+     build/: (a) the remat sweep, frozen conditioner, batch 6 x latent 1248,
+     without remat and under each of the five policies from the same
+     weights: the first step's loss the same bits, its grad norm within
+     1e-2, K3a / K4a 28 / 28 per step without remat and 56 / 28 under each
+     policy, peaks ordered nothing <= save_gemms_lite <= save_gemms_h1 <=
+     save_gemms <= no remat, step ms and peak per setting; (b) the recipe as
+     the YAML writes it through the training CLI's pieces: the trainable
+     conditioner, global batch 16 as 2 micro-batches of 8 (accum_steps 2),
+     save_gemms_lite, a bf16 first moment, the fused GEMMs, the lazy native
+     loader behind 2 PrefetchLoader threads, validation every 2 micro-steps
+     over 2 batches, the audio logger at update 2 on 4 captions (25 steps):
+     parameters unchanged by the first micro-step of each update and moved
+     by the second, K3a 56 / K4a 28 per micro-step, finite validation
+     losses, 4 16 kHz wavs, K1 72 / K2 37 in the logger's vocode, no thread
+     left once the loader is closed; ms per update, tokens per second, peak,
+     the host's wait on the loader; (c) cached latents: encode_latents over
+     the manifest with the XL VAE, then the frozen-conditioner 6 x 1248 step
+     from the moments and from the mels, the same weights and draws: first
+     losses within 1e-4, each path's step ms.
 Kernel, plain and library times are per call over 10 calls queued back to
 back (time_ms). Then the `kernels` JSON line, the card line, and the result
 line. Any failure exits non-zero without the result line; without a CUDA
@@ -94,6 +115,7 @@ import sys
 import time
 
 T0 = time.perf_counter()
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet): DRAM bytes/s, fp32 FLOP/s
 # outside the tensor cores, dense bf16 tensor-core FLOP/s.
@@ -1335,6 +1357,344 @@ def amp2_lrelu_vocoders(torch, k1, k2, full_fp32):
     return out["AMP2"]
 
 
+# phase 12: the remaining trainer options at XL width
+REMAT_SETTINGS = (None, "nothing", "dots_no_batch", "save_gemms", "save_gemms_lite",
+                  "save_gemms_h1")                  # None: no remat
+PHASE12_MELS = (64, 80, 2496)       # mels written from the seed: clips x bins x frames
+RECIPE = dict(accum_steps=2, micro_batch=8, micro_steps=6, val_every=2, val_batches=2,
+              audio_log_every=4, policy="save_gemms_lite", workers=2)
+LOGGER_CAPTIONS = [{"ori_caption": c, "struct_caption": f"<{c}& all>"} for c in
+                   ("a dog barks in the distance", "rain falls on a tin roof",
+                    "a crowd cheers at a stadium", "an engine idles then revs up")]
+
+
+def write_mels():
+    """Phase 12: PHASE12_MELS log-mels from the seed as .npy files and their
+    manifest under build/ (never the repository's data/)."""
+    import numpy as np
+    n, bins, frames = PHASE12_MELS
+    d = os.path.join(ROOT, "build", "chip_smoke_mels")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.RandomState(12)
+    lines = ["name\tmel_path\tori_cap\tcaption"]
+    for i in range(n):
+        path = os.path.join(d, f"clip{i:02d}.npy")
+        np.save(path, rng.randn(bins, frames).astype(np.float32) - 4.0)
+        cap = LOGGER_CAPTIONS[i % 4]
+        lines.append(f"clip{i:02d}\t{path}\t{cap['ori_caption']} {i}\t{cap['struct_caption']}")
+    tsv = os.path.join(d, "manifest.tsv")
+    with open(tsv, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return tsv
+
+
+def _phase12_system(torch, system_mod, config_path, over, unfreeze=True):
+    return system_mod.MAA3System.from_config(
+        [config_path], over, seed=0, compute_dtype=torch.bfloat16, device="cuda",
+        unfreeze=unfreeze)
+
+
+def _timed_steps(torch, fa, trainer, loader, steps):
+    """steps Trainer.fit steps of one micro-step each, synchronised: per step
+    (ms, flash launches, metrics)."""
+    out = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        reset_launches(fa)
+        s = time.perf_counter()
+        m = trainer.fit(loader, max_steps=1)
+        torch.cuda.synchronize()
+        out.append(((time.perf_counter() - s) * 1e3, dict(fa.launches), m))
+    return out
+
+
+def activation_memory(torch, trainer, raw):
+    """(GiB held from the forward for the backward, GiB of the forward and
+    backward's peak), each above what is allocated before the forward, for
+    one CFM loss of the batch through the trainer's DiT (the training
+    step's loss and routes; draws from a fixed generator): what a remat
+    policy trades, apart from the weights, moments and the optimizer pass
+    that set the step's own peak."""
+    from maa3_tpu_torch.diffusion import cfm
+    from maa3_tpu_torch.models.dit import dit_apply
+    from maa3_tpu_torch.train.step import sample_latent
+    st = trainer.state
+    batch = trainer.prepare_batch(raw)
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+    z = sample_latent(st.vae, batch, gen) * st.scale_factor
+    st.optimizer.zero_grad()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cdt = trainer.system.compute_dtype
+    loss, _ = cfm.cfm_loss(lambda x, t, c: dit_apply(st.dit, x, t, c, compute_dtype=cdt,
+                                                     training=True),
+                           z, batch["context"], gen)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    st.optimizer.zero_grad()
+    return held / 2 ** 30, peak / 2 ** 30
+
+
+def remat_sweep(torch, system_mod, config_path, fa):
+    """Phase 12a: XL, frozen conditioner, batch 6 x latent 1248, with no remat
+    and each remat policy: from the same weights and batch, the first step's
+    loss must be the same bits, its grad norm within 1e-2 relative (K4a's dq
+    atomics), K3a / K4a 28 / 28 per step without remat and 56 / 28 under
+    each policy (the flash forward reruns in the backward), and the memory
+    the forward holds for the backward and the forward and backward's peak
+    (activation_memory) each ordered nothing <= save_gemms_lite <=
+    save_gemms_h1 <= save_gemms <= no remat. Logs each setting's median
+    step ms of 3 after a warm-up step and the step's peak (set by the
+    optimizer pass, whatever the policy)."""
+    import dataclasses
+    import numpy as np
+    from maa3_tpu_torch.train.loop import Trainer
+    batch, latent = XL_TRAIN
+    system = _phase12_system(torch, system_mod, config_path, [NO_COND])
+    start = {k: v.clone() for k, v in system.dit.state_dict().items()}
+    caps = [LOGGER_CAPTIONS[i % 4] for i in range(batch)]
+    raw = {"image": np.random.RandomState(0).randn(batch, 80, 2 * latent).astype(
+        np.float32) - 4.0, "caption": {k: [c[k] for c in caps] for k in caps[0]}}
+    loader = itertools.repeat(raw)
+    rows = {}
+    for policy in REMAT_SETTINGS:
+        system.dit.load_state_dict(start)
+        system.dit.cfg = dataclasses.replace(system.dit.cfg, remat=policy is not None,
+                                             remat_policy=policy or "nothing")
+        trainer = Trainer(system, batch_size=batch, log_every=1, ckpt_every=0,
+                          ckpt_dir=os.path.join(ROOT, "build", "chip_smoke_remat"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = _timed_steps(torch, fa, trainer, loader, 4)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        held, fb_peak = activation_memory(torch, trainer, raw)
+        first = steps[0][2]
+        med = statistics.median(ms for ms, _, _ in steps[1:])
+        counts = {k: steps[-1][1][k] for k in ("K3a", "K4a")}
+        rows[policy] = dict(ms=med, peak=peak, held=held, fb_peak=fb_peak, loss=first["loss"],
+                            grad_norm=first["grad_norm"], counts=counts,
+                            all_ms=[round(ms, 1) for ms, _, _ in steps])
+        log(f"remat {policy or 'off'}: first loss {first['loss']!r} grad norm "
+            f"{first['grad_norm']!r}; step ms {rows[policy]['all_ms']} (median of the "
+            f"last 3 {med:.1f}, {batch * latent / med * 1e3:.0f} tokens/s); step peak "
+            f"{peak:.2f} GiB; forward holds {held:.3f} GiB, forward + backward peak "
+            f"{fb_peak:.3f} GiB above the weights and moments; per step {counts}")
+        want = {"K3a": 28, "K4a": 28} if policy is None else {"K3a": 56, "K4a": 28}
+        require(all(c[1]["K3a"] == want["K3a"] and c[1]["K4a"] == want["K4a"]
+                    for c in steps), f"remat {policy}: launches per step {want}")
+        require(all(np.isfinite(m["loss"]) for _, _, m in steps), f"remat {policy}: finite")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = rows[None]
+    for policy, r in rows.items():
+        require(r["loss"] == ref["loss"],
+                f"remat {policy}: first loss {r['loss']!r} == no remat's {ref['loss']!r}")
+        require(abs(r["grad_norm"] - ref["grad_norm"]) <= 1e-2 * ref["grad_norm"],
+                f"remat {policy}: grad norm within 1e-2 of no remat's")
+    order = ["nothing", "save_gemms_lite", "save_gemms_h1", "save_gemms", None]
+    for key in ("held", "fb_peak"):
+        got = [rows[p][key] for p in order]
+        require(got == sorted(got), f"{key} ordered {order}: {got}")
+    del system, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _timed_loader(loader, waits):
+    """Yield loader's batches, appending the host's wait for each to waits."""
+    while True:
+        s = time.perf_counter()
+        try:
+            raw = next(loader)
+        except StopIteration:
+            return
+        waits.append(time.perf_counter() - s)
+        yield raw
+
+
+def recipe_run(torch, system_mod, config_path, fa, k1, k2, tsv):
+    """Phase 12b: the XL recipe as the YAML writes it, through the training
+    CLI's pieces (train/__main__.py build_loader, Trainer, AudioLogger, the
+    fit / evaluate interleave): the trainable conditioner, global batch 16 as
+    2 micro-batches of 8 at latent 1248, save_gemms_lite, a bf16 first
+    moment, the fused GEMMs, the lazy native loader behind 2 PrefetchLoader
+    threads; validation every 2 micro-steps over 2 batches, the audio logger
+    at micro-step 4 (update 2) on 4 captions, 25 steps."""
+    import threading
+    import numpy as np
+    from maa3_tpu_torch import config as config_mod
+    from maa3_tpu_torch.train import __main__ as cli
+    from maa3_tpu_torch.train.audio_logger import AudioLogger
+    from maa3_tpu_torch.train.loop import Trainer
+    r = RECIPE
+    up = "model.params.unet_config.params."
+    dp = "data.params.train.params.dataset_cfg."
+    over = [up + "remat=true", up + f"remat_policy={r['policy']}",
+            dp + f"dataset_name={tsv}", dp + f"spec_crop_len={2 * XL_TRAIN[1]}"]
+    t = time.perf_counter()
+    system = _phase12_system(torch, system_mod, config_path, over)
+    cfg = config_mod.load_config([config_path], over)
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_recipe")
+    trainer = Trainer(system, batch_size=r["micro_batch"], log_every=1, ckpt_every=0,
+                      ckpt_dir=ckpt_dir, accum_steps=r["accum_steps"],
+                      mu_dtype=torch.bfloat16, fuse_gemms=True)
+    require(trainer.state.cond is not None and trainer.state.dit is not system.dit,
+            "recipe: the conditioner trains, the DiT trains in the fused layout")
+    logger = AudioLogger(ckpt_dir, every_n_steps=r["audio_log_every"])
+    log(f"recipe: system and trainer built, {time.perf_counter() - t:.2f} s")
+    threads0 = set(threading.enumerate())
+    data = config_mod.parse_data_config(cfg)
+    moments_dim = 2 * system.spec.vae.embed_dim
+    loader = cli.build_loader(data, r["micro_batch"], 0, moments_dim, r["workers"])
+    waits, steps, vals, logged = [], [], [], []
+    real_log = logger.log_samples
+
+    def log_samples(*a, **kw):  # time the logger and count its vocode's launches
+        k1.launches = k2.launches = 0
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out = real_log(*a, **kw)
+        torch.cuda.synchronize()
+        logged.append((out, (time.perf_counter() - s) * 1e3, (k1.launches, k2.launches)))
+        return out
+
+    logger.log_samples = log_samples
+
+    def params():  # the warm-up LR moves few weights by a representable amount
+        return [p.detach().clone() for p in trainer.state.dit.parameters()]
+
+    try:
+        feed = _timed_loader(loader, waits)
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(r["micro_steps"]):
+            before = params()
+            torch.cuda.synchronize()
+            reset_launches(fa)
+            n_logged = len(logged)
+            s = time.perf_counter()
+            m = trainer.fit(feed, max_steps=1, audio_logger=logger,
+                            sample_captions=LOGGER_CAPTIONS)
+            torch.cuda.synchronize()
+            # the step's time without the audio logger's, timed on its own
+            ms = (time.perf_counter() - s) * 1e3 - sum(x[1] for x in logged[n_logged:])
+            moved = max((a - b).abs().max().item() for a, b in zip(params(), before))
+            steps.append((ms, dict(fa.launches), m, moved))
+            require(np.isfinite(m["loss"]), f"recipe micro-step {i + 1}: finite loss")
+            require((moved > 0) == ((i + 1) % r["accum_steps"] == 0),
+                    f"recipe micro-step {i + 1}: parameters moved {moved:.3e} only on "
+                    f"the update's micro-step")
+            if (i + 1) % r["val_every"] == 0:
+                val = cli.build_loader(config_mod.parse_data_config(cfg, "validation"),
+                                       r["micro_batch"], 0, moments_dim, r["workers"])
+                try:
+                    s = time.perf_counter()
+                    vals.append(trainer.evaluate(val, max_batches=r["val_batches"]))
+                    vals[-1]["ms"] = (time.perf_counter() - s) * 1e3
+                finally:
+                    val.close()
+                require(np.isfinite(vals[-1]["val/loss_simple"])
+                        and vals[-1]["val/batches"] == r["val_batches"],
+                        f"recipe: validation {vals[-1]}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        loader.close()
+        trainer.close()
+    left = set(threading.enumerate()) - threads0
+    require(not left, f"recipe: no thread left once the loader is closed: {left}")
+    return steps, vals, logged, waits, peak
+
+
+def check_recipe(steps, vals, logged, waits, peak):
+    """Phase 12b's checks and log lines."""
+    import numpy as np
+    from scipy.io import wavfile
+    r = RECIPE
+    for i, (ms, counts, m, moved) in enumerate(steps):
+        log(f"recipe micro-step {i + 1}: {ms:.1f} ms, loss {m['loss']:.4f}, grad norm "
+            f"{m['grad_norm']:.4f}, largest parameter change {moved:.3e}, launches {counts}")
+        require(counts["K3a"] == 56 and counts["K4a"] == 28,
+                f"recipe micro-step {i + 1}: K3a 56, K4a 28 ({counts})")
+    # an update: its micro-steps (the audio logger's time taken out)
+    k = r["accum_steps"]
+    per_update = [sum(x[0] for x in steps[i:i + k]) for i in range(0, len(steps), k)]
+    tokens = k * r["micro_batch"] * XL_TRAIN[1]
+    med = statistics.median(per_update[1:])
+    log(f"recipe: ms per update {[round(u, 1) for u in per_update]}; median after the "
+        f"first {med:.1f} ms, {tokens / med * 1e3:.0f} tokens/s; peak {peak:.2f} GiB")
+    log(f"recipe: host wait on the loader per micro-step ms "
+        f"{[round(w * 1e3, 2) for w in waits]}")
+    for v in vals:
+        log(f"recipe: validation loss {v['val/loss_simple']:.4f} over {v['val/batches']:.0f} "
+            f"batches, {v['ms']:.1f} ms")
+    require(len(vals) == r["micro_steps"] // r["val_every"], "recipe: every validation ran")
+    require(len(logged) == 1, f"recipe: the audio logger ran once ({len(logged)})")
+    out, ms, counts = logged[0]
+    wavs = sorted(f for f in os.listdir(out) if f.endswith(".wav"))
+    log(f"recipe: audio logger at micro-step {r['audio_log_every']}: {len(wavs)} wavs in "
+        f"{ms:.1f} ms, K1 {counts[0]}, K2 {counts[1]}")
+    require(wavs == [f"{i:02d}.wav" for i in range(4)], f"recipe: 4 wavs ({wavs})")
+    for w in wavs:
+        rate, pcm = wavfile.read(os.path.join(out, w))
+        require(rate == 16000 and pcm.dtype == np.int16 and pcm.size > 0
+                and np.abs(pcm).max() > 0, f"recipe: {w} a 16 kHz int16 wav, not silent")
+    require(counts == K1_K2_PER_VOCODE, f"recipe: K1 / K2 per vocode {counts}")
+    return {"per_update": per_update, "logger_counts": counts,
+            "micro_step_counts": steps[-1][1]}
+
+
+def cached_latents(torch, system_mod, config_path, fa, tsv):
+    """Phase 12c: encode_latents over the manifest with the XL VAE (the
+    training system's: the same seed, unfreeze), then the frozen-conditioner
+    6 x 1248 step from those moments and from the mels, the same weights and
+    draws: first losses within 1e-4 relative; each path's step ms."""
+    import numpy as np
+    from maa3_tpu_torch import encode_latents
+    from maa3_tpu_torch.data.datasets import TextSpecDataset
+    from maa3_tpu_torch.train.loop import Trainer
+    batch, latent = XL_TRAIN
+    t = time.perf_counter()
+    out_tsv = encode_latents.main(
+        ["--tsv_path", tsv, "--save_path", os.path.join(os.path.dirname(tsv), "latents"),
+         "-b", config_path, "--batch", "16", "--crop_len", str(2 * latent),
+         "--device", "cuda"], unfreeze=True)
+    torch.cuda.synchronize()
+    log(f"cached latents: encode_latents over {PHASE12_MELS[0]} mels, "
+        f"{time.perf_counter() - t:.2f} s (system build included)")
+    system = _phase12_system(torch, system_mod, config_path, [NO_COND])
+    start = {k: v.clone() for k, v in system.dit.state_dict().items()}
+    rows = {}
+    for name, path in (("mel", tsv), ("moments", out_tsv)):
+        ds = TextSpecDataset("train", path, 2 * latent, moments_dim=40)
+        raw = ds.collater([ds[i] for i in range(batch)])
+        require(("moments" in raw) == (name == "moments"), f"cached latents: {name} batch")
+        system.dit.load_state_dict(start)
+        trainer = Trainer(system, batch_size=batch, log_every=1, ckpt_every=0,
+                          ckpt_dir=os.path.join(os.path.dirname(tsv), "train_" + name))
+        steps = _timed_steps(torch, fa, trainer, itertools.repeat(raw), 4)
+        rows[name] = dict(loss=steps[0][2]["loss"], ms=[ms for ms, _, _ in steps])
+        log(f"cached latents, from {name}: first loss {rows[name]['loss']!r}, step ms "
+            f"{[round(x, 1) for x in rows[name]['ms']]}, median of the last 3 "
+            f"{statistics.median(rows[name]['ms'][1:]):.1f}")
+        require(all(np.isfinite(m["loss"]) for _, _, m in steps), f"{name}: finite")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = rows["mel"]["loss"], rows["moments"]["loss"]
+    require(abs(a - b) <= 1e-4 * abs(a), f"cached latents: losses {a!r} / {b!r} within 1e-4")
+    saved = statistics.median(rows["mel"]["ms"][1:]) - statistics.median(rows["moments"]["ms"][1:])
+    log(f"cached latents: step saved {saved:.1f} ms; |loss diff| / loss {abs(a - b) / abs(a):.2e}")
+    del system, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1453,6 +1813,19 @@ def main() -> int:
     amp2 = amp2_lrelu_vocoders(torch, k1, k2, full_fp32)
     log(f"serving from checkpoint files: done, {time.perf_counter() - t:.2f} s")
 
+    t = time.perf_counter()
+    tsv = write_mels()
+    remat_sweep(torch, system_mod, config_path, fa)
+    log(f"remat sweep: done, {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    recipe = check_recipe(*recipe_run(torch, system_mod, config_path, fa, k1, k2, tsv))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"recipe: done, {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    cached_latents(torch, system_mod, config_path, fa, tsv)
+    log(f"cached latents: done, {time.perf_counter() - t:.2f} s")
+
     kernels = []
     # launches, ms and the bound: phase 5's batch-4 XL vocode (bf16), as in
     # earlier runs; the other counted paths (phase 11's served requests, one
@@ -1465,7 +1838,7 @@ def main() -> int:
             ("K2 conv_snake_fused", "maa3_tpu_torch/csrc/conv_snake.cu",
              "maa3_tpu/ops/pallas_amp.py:165"))):
         by_path = {"xl_serving": counts[i], "music_server": serve["launches"][i],
-                   "amp2_vocoder": amp2[i]}
+                   "amp2_vocoder": amp2[i], "audio_logger": recipe["logger_counts"][i]}
         err = {path: max(r["err"] for r in rows if r["kernel"] == name[:2]
                          and r["path"] == path and r["dtype"] == "bfloat16")
                for path in ("xl", "music")}
@@ -1501,13 +1874,15 @@ def main() -> int:
              cond_steps["split"][-1][1]["K4c"])):
         mine = [r for r in frows if r["kernel"] == name[:3] and r["dtype"] == "bfloat16"]
         r = next(r for r in mine if r["shape"] == shape)
+        phase12 = recipe["micro_step_counts"].get(name[:3], 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": cnt, "max_abs_err": max(x["err"] for x in mine),
             "ms": r["ms"] * cnt, "plain_ms": r["plain_ms"] * cnt,
             "bound_ms": r["bound_ms"] * cnt,
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
-            "library_ms": r["library_ms"] * cnt})
+            "library_ms": r["library_ms"] * cnt,
+            "launches_by_path": {"main": cnt, "recipe_micro_step": phase12}})
     log(f"ODE chunk (XL, 25 steps, ms): " + "; ".join(
         f"batch {b} chunk {c}: {[round(x, 1) for x in v]}" for (b, c), v in chunk_ms.items()))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,7 +15,7 @@ import dataclasses
 import re
 from typing import Any, Sequence
 
-from maa3_tpu_torch.models.dit import DiTConfig
+from maa3_tpu_torch.models.dit import REMAT_SAVES, DiTConfig
 from maa3_tpu_torch.models.vae1d import VAEConfig
 
 _FLOAT = re.compile(r"""^[-+]?(?:[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?
@@ -151,15 +151,19 @@ class ModelSpec:
 
 @dataclasses.dataclass
 class DataSpec:
-    """The text-to-spectrogram training set of a config's data section."""
+    """One split of a config's data section, as scripts/train.py build_loader
+    reads it: a manifest (TextSpecDataset, `dataset_name`) or a directory of
+    manifests (AnyLenSpecDataset, `main_spec_dir_path`)."""
     dataset_name: str
     spec_crop_len: int = 624
     drop: float = 0.0
     batch_size: int = 16
+    split: str = "train"                # the dataset's split: train | valid
+    any_len: bool = False               # AnyLenSpecDataset over main_spec_dir_path
 
 
-# the only remat policy the port has: recompute the whole block
-REMAT_POLICIES = ("nothing",)
+# JAX's remat policies (maa3_tpu/models/dit.py:254-293)
+REMAT_POLICIES = tuple(REMAT_SAVES)
 
 
 def parse_model_config(cfg: dict) -> ModelSpec:
@@ -184,11 +188,8 @@ def parse_model_config(cfg: dict) -> ModelSpec:
         rope_scaling_factor=up.get("rope_scaling_factor", 1.0),
         ntk_factor=up.get("ntk_factor", 1.0),
         use_flash=up.get("use_flash"),
-        remat=bool(up.get("remat") or False))
-    policy = up.get("remat_policy", "nothing")
-    if policy not in REMAT_POLICIES:
-        raise ValueError(f"remat_policy {policy!r} is not supported by the port "
-                         f"(supported: {', '.join(REMAT_POLICIES)})")
+        remat=bool(up.get("remat") or False),
+        remat_policy=up.get("remat_policy", "nothing"))
     first = params["first_stage_config"]
     fp = first.get("params", {})
     dd = fp.get("ddconfig", {})
@@ -218,16 +219,26 @@ def parse_model_config(cfg: dict) -> ModelSpec:
         cond_kind=COND_KINDS[cond["target"]])
 
 
-def parse_data_config(cfg: dict) -> DataSpec:
-    """data.params: batch_size and the train set's dataset_cfg (dataset_name,
-    spec_crop_len, drop) of a manifest (TSV) dataset."""
+def parse_data_config(cfg: dict, split: str = "train") -> DataSpec:
+    """data.params: batch_size and the dataset of `split` (train or
+    validation), as scripts/train.py build_loader chooses it: a missing
+    `validation` entry falls back to the train entry's valid split (its
+    first 100 rows); TextSpecDataset when the target names txt_spec_dataset
+    or the dataset_cfg has dataset_name (spec_crop_len, drop), else
+    AnyLenSpecDataset over main_spec_dir_path. Validation drops no caption."""
     data = cfg.get("data", {}).get("params", {})
-    train = data.get("train", {}).get("params", {})
-    dcfg = train.get("dataset_cfg", train.get("specs_dataset_cfg", train))
-    if "dataset_name" not in dcfg:
-        raise KeyError("the port trains from a manifest: data.params.train."
-                       "params.dataset_cfg.dataset_name is not set")
-    return DataSpec(dataset_name=dcfg["dataset_name"],
-                    spec_crop_len=dcfg.get("spec_crop_len", 624),
-                    drop=dcfg.get("drop", 0.0),
-                    batch_size=data.get("batch_size", 16))
+    entry = data.get(split if split in data else "train", {})
+    params = entry.get("params", {})
+    dcfg = params.get("dataset_cfg", params.get("specs_dataset_cfg", params))
+    train = split == "train"
+    common = dict(drop=dcfg.get("drop", 0.0) if train else 0.0,
+                  batch_size=data.get("batch_size", 16),
+                  split="train" if train else "valid")
+    if "txt_spec_dataset" in entry.get("target", "") or "dataset_name" in dcfg:
+        return DataSpec(dataset_name=dcfg["dataset_name"],
+                        spec_crop_len=dcfg.get("spec_crop_len", 624), **common)
+    if "main_spec_dir_path" not in dcfg:
+        raise KeyError(f"data.params.{split}: neither dataset_name nor "
+                       "main_spec_dir_path is set")
+    return DataSpec(dataset_name=dcfg["main_spec_dir_path"],
+                    spec_crop_len=dcfg.get("spec_crop_len", 1248), any_len=True, **common)

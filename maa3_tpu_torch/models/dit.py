@@ -8,7 +8,10 @@ Blocks are an nn.ModuleList with the reference's state-dict keys
 (blocks.{i}.attention.wq.weight, ...). `dit_apply(training=True)` is the
 training forward: self-attention goes through the flash kernels from 1248
 tokens (`DiTConfig.flash_for_len`), and `remat` recomputes each block in the
-backward (torch.utils.checkpoint; JAX's "nothing" policy). `dit_sample_plan` /
+backward (torch.utils.checkpoint) under one of JAX's five `remat_policy`s
+(selective activation checkpointing, `remat_policy_fn`). `fuse_dit_gemms` /
+`unfuse_dit_gemms` move a DiT to and from the fused training layout (wqkv
+and w13 as parameters). `dit_sample_plan` /
 `dit_apply_planned` hoist the per-step adaLN modulations and the static
 cross-attention K/V out of the ODE loop, with the same ops as `dit_apply`.
 `serving_copy` makes the bf16 serving weights: every matmul weight rounded
@@ -20,17 +23,33 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+import functools
+from typing import Dict, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from maa3_tpu_torch.ops.attention import Attention, attention_apply, context_kv
-from maa3_tpu_torch.ops.basic import (RMSNorm, TimestepEmbedder, layer_norm,
-                                      linear, modulate, rms_norm, silu)
+from maa3_tpu_torch.ops.basic import (RMSNorm, TimestepEmbedder, checkpoint_names,
+                                      layer_norm, linear, modulate, rms_norm, silu)
 from maa3_tpu_torch.ops.ffn import FeedForward, feed_forward_apply
 from maa3_tpu_torch.ops.rope import precompute_rope
+
+# JAX's remat policies (maa3_tpu/models/dit.py:254-293): what the backward
+# keeps of a block's forward. The names are the projections' checkpoint
+# names (ops/attention.py, ops/ffn.py); None: every 2-D matmul
+# (dots_with_no_batch_dims_saveable), no batched one.
+_ATTN = ("attn_q", "attn_k", "attn_v", "attn_out")
+REMAT_SAVES: Dict[str, Optional[frozenset]] = {
+    "nothing": frozenset(),
+    "dots_no_batch": None,
+    "save_gemms": frozenset(_ATTN + ("ffn_h1", "ffn_h3", "ffn_out")),
+    "save_gemms_lite": frozenset(_ATTN + ("ffn_out",)),
+    "save_gemms_h1": frozenset(_ATTN + ("ffn_h1", "ffn_out")),
+}
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +75,17 @@ class DiTConfig:
     # flash attention for self-attention: None = by sequence length and mode
     # (flash_for_len), True/False = always / never
     use_flash: Optional[bool] = None
-    # recompute each block in the backward instead of keeping its activations
+    # recompute each block in the backward instead of keeping its activations,
+    # keeping what remat_policy names (REMAT_SAVES)
     remat: bool = False
+    remat_policy: str = "nothing"
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_SAVES:
+            raise ValueError(f"unknown remat_policy: {self.remat_policy!r} "
+                             "(expected 'nothing', 'dots_no_batch', "
+                             "'save_gemms', 'save_gemms_lite' or "
+                             "'save_gemms_h1')")
 
     @property
     def head_dim(self) -> int:
@@ -171,6 +199,73 @@ def serving_copy(dit: DiT, dtype: torch.dtype) -> DiT:
     return s
 
 
+@torch.no_grad()
+def fuse_dit_gemms(dit: DiT) -> DiT:
+    """A copy of `dit` in the fused training layout (maa3_tpu/utils/nprand.py:46):
+    each block's wq/wk/wv become one `attention.wqkv` parameter and w1/w3 one
+    `feed_forward.w13`, in the weights' dtype. The same math, wider GEMMs."""
+    f = copy.deepcopy(dit)
+    for blk in f.blocks:
+        att, ff = blk.attention, blk.feed_forward
+        att.wqkv = nn.Parameter(torch.cat([att.wq.weight, att.wk.weight, att.wv.weight]))
+        ff.w13 = nn.Parameter(torch.cat([ff.w1.weight, ff.w3.weight]))
+        del att.wq, att.wk, att.wv, ff.w1, ff.w3
+    return f
+
+
+def fuse_dit_state(state: Dict[str, torch.Tensor], depth: int) -> Dict[str, torch.Tensor]:
+    """The inverse of unfuse_dit_gemms: a canonical {name: tensor} of a DiT's
+    parameters in the fused training layout's names."""
+    out = dict(state)
+    for i in range(depth):
+        a, f = f"blocks.{i}.attention.", f"blocks.{i}.feed_forward."
+        out[a + "wqkv"] = torch.cat([out.pop(a + n + ".weight") for n in ("wq", "wk", "wv")])
+        out[f + "w13"] = torch.cat([out.pop(f + n + ".weight") for n in ("w1", "w3")])
+    return out
+
+
+def unfuse_dit_gemms(state: Dict[str, torch.Tensor], n_heads: int,
+                     n_kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """A fused DiT's state dict (or any {name: tensor} of its parameters) in
+    the canonical names (maa3_tpu/utils/nprand.py:73): wqkv split into
+    wq/wk/wv.weight, w13 into w1/w3.weight; other entries as they are."""
+    out = {}
+    for name, t in state.items():
+        if name.endswith("attention.wqkv"):
+            stem = name[:-len("wqkv")]
+            hd = t.shape[1] // n_heads
+            n_kv = n_heads if n_kv_heads is None else n_kv_heads
+            for part, w in zip(("wq", "wk", "wv"),
+                               t.split([n_heads * hd, n_kv * hd, n_kv * hd])):
+                out[f"{stem}{part}.weight"] = w
+        elif name.endswith("feed_forward.w13"):
+            stem = name[:-len("w13")]
+            w1, w3 = t.chunk(2)
+            out[f"{stem}w1.weight"], out[f"{stem}w3.weight"] = w1, w3
+        else:
+            out[name] = t
+    return out
+
+
+def _policy(saves: Optional[frozenset], ctx, op, *args, **kwargs):
+    if op in _MATMULS:
+        names = checkpoint_names()
+        # a fused projection is kept only when every one of its parts is
+        if saves is None or (names and saves.issuperset(names)):
+            return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy_fn(policy: str):
+    """The selective-checkpoint policy of a remat policy: aten.mm / addmm
+    outputs it keeps are saved, every other op is recomputed ("nothing"
+    runs as a plain checkpoint, without the policy's dispatch mode). The flash
+    kernels launch through ctypes, out of the policy's sight, so their
+    forward reruns in the backward under every policy, as JAX recomputes the
+    unnamed pallas_call."""
+    return functools.partial(_policy, REMAT_SAVES[policy])
+
+
 def _block_apply(blk: TransformerBlock, cfg: DiTConfig, x, cos, sin, mod,
                  y=None, y_kv=None, x_mask=None, y_mask=None,
                  compute_dtype=None):
@@ -247,11 +342,14 @@ def dit_apply(dit: DiT, x: torch.Tensor, t: torch.Tensor,
     h, cos, sin = _embed(dit, x, compute_dtype)
     adaln = dit.t_embedder(t) + _cap_emb(dit, context, context_mask)
     remat = cfg.remat and torch.is_grad_enabled()
+    ckpt = {"use_reentrant": False}
+    if remat and cfg.remat_policy != "nothing":  # "nothing": a plain checkpoint
+        ckpt["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                               remat_policy_fn(cfg.remat_policy))
     for blk in dit.blocks:
         args = (blk, cfg, h, cos, sin, adaln, context, x_mask, context_mask,
                 compute_dtype)
-        h = (checkpoint(_dit_block, *args, use_reentrant=False) if remat
-             else _dit_block(*args))
+        h = checkpoint(_dit_block, *args, **ckpt) if remat else _dit_block(*args)
     fl = dit.final_layer
     shift, scale = linear(fl.adaLN_modulation[1], silu(adaln.float())).chunk(2, -1)
     return _final(dit, h, shift, scale)

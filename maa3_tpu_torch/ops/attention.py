@@ -6,7 +6,9 @@ in bf16 in bf16 mode with fp32 softmax statistics, as in JAX; kept in fp32
 with `fp32_scores`) unless the
 caller asks for flash attention (ops/flash_attention.py: K3a/K3b forward,
 K4a backward), as the DiT does in training from 1248 tokens
-(models/dit.py `flash_for_len`). Cross-attention is always dense.
+(models/dit.py `flash_for_len`). Cross-attention is always dense. The
+projections run under JAX's checkpoint names attn_q, attn_k, attn_v (one
+fused wqkv matmul carries all three) and attn_out.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ class Attention(nn.Module):
             self.k_norm = nn.LayerNorm(n_kv * hd, eps=1e-5)
             if y_dim > 0:
                 self.ky_norm = nn.LayerNorm(n_kv * hd, eps=1e-5)
-        self.wqkv = None  # fused serving weight (models.dit.serving_copy)
+        self.wqkv = None  # fused weight (models.dit serving_copy, fuse_dit_gemms)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -95,12 +97,13 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
     hd = d // n_heads
     scale = 1.0 / math.sqrt(hd)
     if att.wqkv is not None:
-        xq, xk, xv = dense(x, att.wqkv, None, compute_dtype).split(
+        xq, xk, xv = dense(x, att.wqkv, None, compute_dtype,
+                           names=("attn_q", "attn_k", "attn_v")).split(
             [n_heads * hd, n_kv * hd, n_kv * hd], dim=-1)
     else:
-        xq = dense(x, att.wq.weight, None, compute_dtype)
-        xk = dense(x, att.wk.weight, None, compute_dtype)
-        xv = dense(x, att.wv.weight, None, compute_dtype)
+        xq = dense(x, att.wq.weight, None, compute_dtype, names=("attn_q",))
+        xk = dense(x, att.wk.weight, None, compute_dtype, names=("attn_k",))
+        xv = dense(x, att.wv.weight, None, compute_dtype, names=("attn_v",))
     if hasattr(att, "q_norm"):
         xq = layer_norm(xq, att.q_norm.weight, att.q_norm.bias, eps=1e-5)
         xk = layer_norm(xk, att.k_norm.weight, att.k_norm.bias, eps=1e-5)
@@ -131,4 +134,4 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
         gate = torch.tanh(att.gate.float()).to(out_y.dtype)
         out = out + out_y * gate[None, None, :, None]
     return dense(out.reshape(b, l, n_heads * hd), att.wo.weight, None,
-                 compute_dtype)
+                 compute_dtype, names=("attn_out",))

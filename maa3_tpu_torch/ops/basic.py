@@ -3,24 +3,46 @@
 Weights keep torch's nn.Linear layout (out, in). `dense` follows the JAX
 dtype rules: with a compute dtype both operands are cast to it; without one
 the product runs in the promoted type of input and weight (a bf16-rounded
-weight times an fp32 input computes in fp32).
+weight times an fp32 input computes in fp32). `dense(names=...)` runs its
+matmul under checkpoint names (JAX's `checkpoint_name`), which the DiT's
+remat policies read (models/dit.py `remat_policy_fn`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+import threading
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 
+_NAMES = threading.local()
+
+
+def checkpoint_names() -> Tuple[str, ...]:
+    """The names of the matmul running now on this thread (() outside a
+    named dense)."""
+    return getattr(_NAMES, "names", ())
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-          compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """y = x @ w.T + b, w in (out, in) layout."""
+          compute_dtype: Optional[torch.dtype] = None,
+          names: Tuple[str, ...] = ()) -> torch.Tensor:
+    """y = x @ w.T + b, w in (out, in) layout; the matmul runs under `names`
+    (a fused projection carries the names of each of its parts)."""
     dt = compute_dtype or torch.promote_types(x.dtype, w.dtype)
-    y = F.linear(x.to(dt), w.to(dt))
+    x, w = x.to(dt), w.to(dt)
+    if names:
+        _NAMES.names = names
+        try:
+            y = F.linear(x, w)
+        finally:
+            _NAMES.names = ()
+    else:
+        y = F.linear(x, w)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

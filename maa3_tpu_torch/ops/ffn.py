@@ -1,6 +1,8 @@
 """SwiGLU feed-forward network (counterpart of maa3_tpu/ops/ffn.py).
 Keys feed_forward.{w1,w2,w3}; a serving copy may carry the fused `w13`
-(gate and up projections stacked along the output axis)."""
+(gate and up projections stacked along the output axis), as does a DiT in
+the fused training layout (models/dit.py `fuse_dit_gemms`). The projections
+run under JAX's checkpoint names ffn_h1, ffn_h3 and ffn_out."""
 
 from __future__ import annotations
 
@@ -32,14 +34,15 @@ class FeedForward(nn.Module):
         self.w1 = nn.Linear(dim, h, bias=False)
         self.w2 = nn.Linear(h, dim, bias=False)
         self.w3 = nn.Linear(dim, h, bias=False)
-        self.w13 = None  # fused serving weight (models.dit.serving_copy)
+        self.w13 = None  # fused weight (models.dit serving_copy, fuse_dit_gemms)
 
 
 def feed_forward_apply(ff: FeedForward, x: torch.Tensor,
                        compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     if ff.w13 is not None:
-        x1, x3 = dense(x, ff.w13, None, compute_dtype).chunk(2, dim=-1)
+        x1, x3 = dense(x, ff.w13, None, compute_dtype,
+                       names=("ffn_h1", "ffn_h3")).chunk(2, dim=-1)
     else:
-        x1 = dense(x, ff.w1.weight, None, compute_dtype)
-        x3 = dense(x, ff.w3.weight, None, compute_dtype)
-    return dense(silu(x1) * x3, ff.w2.weight, None, compute_dtype)
+        x1 = dense(x, ff.w1.weight, None, compute_dtype, names=("ffn_h1",))
+        x3 = dense(x, ff.w3.weight, None, compute_dtype, names=("ffn_h3",))
+    return dense(silu(x1) * x3, ff.w2.weight, None, compute_dtype, names=("ffn_out",))

@@ -32,9 +32,10 @@ from maa3_tpu_torch.models.clap import (COND_MODULES, CLAPFLANConfig,
                                         clap_flan_encode_batch, clap_flan_init_)
 from maa3_tpu_torch.models.dit import (DiT, dit_apply, dit_init_, serving_copy,
                                        unfreeze_zero_init)
-from maa3_tpu_torch.models.vae1d import AutoencoderKL, vae_init_
+from maa3_tpu_torch.models.vae1d import (AutoencoderKL, gaussian_sample,
+                                         vae_encode_moments, vae_init_)
 from maa3_tpu_torch.ops.flash_attention import MAX_HEAD_DIM
-from maa3_tpu_torch.pipeline import T2APipeline, sample_planned
+from maa3_tpu_torch.pipeline import T2APipeline, full_fp32, sample_planned
 
 # a vocoder directory's generator file: the first of these names it holds
 # (maa3_tpu/system.py:189-190)
@@ -308,6 +309,19 @@ class MAA3System:
     def _pipeline(self) -> T2APipeline:
         return T2APipeline(self.dit, self.vae, self.vocoder, self.scale_factor,
                            self.compute_dtype)
+
+    @torch.no_grad()
+    def encode_first_stage(self, mel: torch.Tensor,
+                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """mel (B, 80, T) -> the scaled latent (B, embed_dim, T/2)
+        (maa3_tpu/system.py:560): the posterior mean, or a sample drawn from
+        `generator` when one is given. The encode runs in fp32 without TF32,
+        as the training step runs it."""
+        with full_fp32():
+            moments = vae_encode_moments(self.vae, mel.float())
+            z = (gaussian_sample(moments, generator) if generator is not None
+                 else moments.chunk(2, dim=1)[0])
+        return z * self.scale_factor
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         """fp32 decode even when serving in bf16."""

@@ -3,19 +3,31 @@ text-to-audio DiT on one device uses):
 
     python -m maa3_tpu_torch.train -b configs/txt2audio-cfm-cfg-XL.yaml \\
         --max_steps 100 [--batch_size 6] [--device cuda] [--remat] \\
+        [--accum_steps 2] [--mu_dtype bfloat16] [--fuse_gemms] \\
+        [--val_every N --val_batches M] [--audio_log_every N] \\
         [-r CKPT] [--torch_ckpt model.ckpt] [--ckpt_every N] \\
         data.params.train.params.dataset_cfg.dataset_name=data/synth/manifest_mel.tsv
 
 Builds MAA3System.from_config (random weights from --seed, or a warm start
-from the reference's Lightning .ckpt with --torch_ckpt), reads the
-manifest named by the config's data section (TextSpecDataset: mels cropped
-or tiled to spec_crop_len), restores a checkpoint of the port's Trainer with
--r, and runs Trainer.fit for --max_steps steps in bf16 (fp32 with --fp32),
-logging to <ckpt_dir>/metrics.jsonl. The conditioner trains when the config
-says so (cond_stage_trainable, true in every YAML of configs/). Checkpoints:
-every --ckpt_every steps, `last` at the end, `crash` when a step raises, and
-`usr1` on SIGUSR1. The JAX CLI's --vae_ckpt reads an Orbax directory and
-is not in the port.
+from the reference's Lightning .ckpt with --torch_ckpt), reads the data
+section as scripts/train.py build_loader does (a manifest through the lazy
+TextSpecDataset, whose batches the native loader reads, or a directory of
+manifests through AnyLenSpecDataset), with the batches loaded ahead by
+PrefetchLoader threads, restores a checkpoint of the port's Trainer with -r,
+and runs Trainer.fit for --max_steps (micro-)steps in bf16 (fp32 with
+--fp32), logging to <ckpt_dir>/metrics.jsonl (and TensorBoard when it
+imports). The conditioner trains when the config says so
+(cond_stage_trainable, true in every YAML of configs/); the remat policy is
+the config's `remat_policy` (model.params.unet_config.params.remat_policy=
+save_gemms_lite). With --val_every, fit and the validation loss over
+--val_batches batches of the validation split alternate every --val_every
+steps (scripts/train.py:198-208); --audio_log_every writes generated
+samples under <ckpt_dir>/audio. Checkpoints: every --ckpt_every steps,
+`last` at the end, `crash` when a step raises, and `usr1` on SIGUSR1.
+
+Not in the port: --vae_ckpt (an Orbax directory), and the JAX CLI's
+parallelism (--n_model, --fsdp, --n_pipe, --n_micro, --seq_parallel,
+--multihost) and expert parallelism (--n_expert); see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -43,8 +55,19 @@ def parse_args(argv=None):
                    help="steps between periodic checkpoints (0: none)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--use_ema", action="store_true")
+    p.add_argument("--accum_steps", type=int, default=1,
+                   help="gradient accumulation (accumulate_grad_batches)")
+    p.add_argument("--mu_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"], help="AdamW first-moment dtype")
+    p.add_argument("--fuse_gemms", action="store_true",
+                   help="train on the fused wqkv / w13 layout (wider GEMMs)")
     p.add_argument("--remat", action="store_true",
                    help="recompute each DiT block in the backward")
+    p.add_argument("--val_every", type=int, default=0,
+                   help="validation interval in steps (0: off)")
+    p.add_argument("--val_batches", type=int, default=20)
+    p.add_argument("--audio_log_every", type=int, default=0,
+                   help="AudioLogger sample interval in steps (0: off)")
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--fp32", action="store_true", help="train in fp32")
     p.add_argument("--device", type=str, default="cuda")
@@ -52,25 +75,37 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_loader(data, batch_size: int, seed: int, moments_dim: int):
-    """Endless batches of the manifest, reshuffled every epoch."""
-    from maa3_tpu_torch.data.datasets import BucketBatchSampler, TextSpecDataset
-    ds = TextSpecDataset("train", data.dataset_name, data.spec_crop_len, data.drop,
-                         seed=seed, moments_dim=moments_dim)
-    sampler = BucketBatchSampler(range(len(ds)), batch_size, seed=seed)
-    for epoch in itertools.count():
-        sampler.set_epoch(epoch)
-        for idx in sampler:
-            yield ds.collater([ds[i] for i in idx])
+def build_loader(data, batch_size: int, seed: int, moments_dim: int,
+                 num_workers: int = 2):
+    """Endless batches of the split `data` (config.DataSpec), reshuffled every
+    epoch and loaded ahead by PrefetchLoader; close() the generator to stop
+    and join the loader's threads."""
+    from maa3_tpu_torch.data.datasets import (AnyLenSpecDataset, BucketBatchSampler,
+                                              PrefetchLoader, TextSpecDataset)
+    if data.any_len:
+        ds = AnyLenSpecDataset(data.split, data.dataset_name,
+                               spec_crop_len=data.spec_crop_len, drop=data.drop, seed=seed)
+        indices = ds.ordered_indices()
+    else:
+        ds = TextSpecDataset(data.split, data.dataset_name, data.spec_crop_len,
+                             data.drop, seed=seed, moments_dim=moments_dim, lazy=True)
+        indices = range(len(ds))
+    sampler = BucketBatchSampler(indices, batch_size, seed=seed)
+    with PrefetchLoader(ds, sampler, num_workers=num_workers) as loader:
+        for epoch in itertools.count():
+            sampler.set_epoch(epoch)
+            yield from loader
 
 
 def main(argv=None):
     opt = parse_args(argv)
     from maa3_tpu_torch import config as config_mod
     from maa3_tpu_torch.system import MAA3System
+    from maa3_tpu_torch.train.audio_logger import AudioLogger
     from maa3_tpu_torch.train.loop import Trainer
 
-    data = config_mod.parse_data_config(config_mod.load_config(opt.base, opt.overrides))
+    cfg = config_mod.load_config(opt.base, opt.overrides)
+    data = config_mod.parse_data_config(cfg)
     system = MAA3System.from_config(
         opt.base, opt.overrides, seed=opt.seed, device=opt.device,
         compute_dtype=torch.float32 if opt.fp32 else torch.bfloat16,
@@ -80,22 +115,42 @@ def main(argv=None):
     batch_size = opt.batch_size or data.batch_size
     trainer = Trainer(system, batch_size=batch_size, use_ema=opt.use_ema,
                       log_every=opt.log_every, ckpt_every=opt.ckpt_every,
-                      ckpt_dir=opt.ckpt_dir)
+                      ckpt_dir=opt.ckpt_dir, accum_steps=opt.accum_steps,
+                      mu_dtype=getattr(torch, opt.mu_dtype), fuse_gemms=opt.fuse_gemms)
     if opt.resume:
         trainer.restore_checkpoint(opt.resume)
         print(f"resumed from {opt.resume} at step {trainer.state.step}")
+    audio_logger = (AudioLogger(opt.ckpt_dir, every_n_steps=opt.audio_log_every)
+                    if opt.audio_log_every else None)
+    moments_dim = 2 * system.spec.vae.embed_dim
 
     def melk(*_):  # SIGUSR1 -> checkpoint now (main.py:798-815)
         print("SIGUSR1: checkpointing...", flush=True)
         trainer.save_checkpoint(tag="usr1")
 
     previous = signal.signal(signal.SIGUSR1, melk)
+    loader = build_loader(data, batch_size, opt.seed, moments_dim)
     try:
-        loader = build_loader(data, batch_size, opt.seed, 2 * system.spec.vae.embed_dim)
-        metrics = trainer.fit(loader, max_steps=opt.max_steps, seed=opt.seed)
+        # fit and evaluate alternate every val_every steps (scripts/train.py:198-208)
+        chunk = opt.val_every or opt.max_steps
+        done, metrics = 0, {}
+        while done < opt.max_steps:
+            n = min(chunk, opt.max_steps - done)
+            metrics = trainer.fit(loader, max_steps=n, seed=opt.seed,
+                                  audio_logger=audio_logger)
+            done += n
+            if opt.val_every:
+                val = build_loader(config_mod.parse_data_config(cfg, "validation"),
+                                   batch_size, opt.seed, moments_dim)
+                try:
+                    trainer.evaluate(val, max_batches=opt.val_batches)
+                finally:
+                    val.close()
     finally:
+        loader.close()
         signal.signal(signal.SIGUSR1, previous)
     trainer.save_checkpoint(tag="last")
+    trainer.close()
     print("final:", metrics)
     return metrics
 

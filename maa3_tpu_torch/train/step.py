@@ -1,7 +1,11 @@
 """The CFM training step (counterpart of maa3_tpu/train/step.py): frozen fp32
 VAE encode -> posterior sample -> x scale_factor -> conditioning -> CFM loss
 through dit_apply(training=True) -> backward -> global-norm clip -> AdamW ->
-EMA.
+EMA. With gradient accumulation (train/optim.py `accum_steps`) a step is a
+micro-step, as the JAX step under optax.MultiSteps: the optimizer updates
+the parameters every k-th, while `state.step` and the EMA advance on every
+one (the EMA decay at the micro-step count, as LitEma under
+accumulate_grad_batches), and `grad_norm` is the micro-batch's.
 
 The trainable modules are the DiT and, when the config trains the cond stage
 (cond_stage_trainable), the CLAP+FLAN conditioner; their parameters are the
@@ -107,7 +111,7 @@ def make_train_step(num_timesteps: int = 1000, ema_decay: float = 0.9999,
         loss, aux = _loss(state, batch, generator, draws, compute_dtype,
                           num_timesteps, conditioner)
         loss.backward()
-        grad_norm = state.optimizer.step(state.step)
+        grad_norm = state.optimizer.step()
         if state.ema is not None:
             ema_update(state.ema, state.trainable_parameters(), ema_decay, state.step)
         state.step += 1

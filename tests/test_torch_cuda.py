@@ -508,9 +508,10 @@ def test_split_backward_kernels_match_plain(cuda_dev, b, h, l, d, masked, block_
         assert not dq[-1].any() and not dk[-1].any() and not dv[-1].any()
 
 
-def _small_trainer_pair(tmp_path):
+def _small_trainer_pair(tmp_path, **trainer_kw):
     """The same small system (DiT with flash forced on, VAE, CLAP+FLAN) on the
-    CPU and on the card, each in a Trainer that trains the conditioner."""
+    CPU and on the card, each in a Trainer that trains the conditioner
+    (trainer_kw: more Trainer arguments)."""
     import copy
     import os
     from maa3_tpu_torch.models.bert import BertConfig
@@ -543,7 +544,8 @@ def _small_trainer_pair(tmp_path):
     out = []
     for i, s in enumerate((cpu, gpu)):
         out.append(Trainer(s, batch_size=2, lr_multiplier=1.0, warm_up_steps=0,
-                           log_every=1, ckpt_every=0, ckpt_dir=str(tmp_path / str(i))))
+                           log_every=1, ckpt_every=0, ckpt_dir=str(tmp_path / str(i)),
+                           **trainer_kw))
         # full LR from the first update, so parameters move past the tolerance
         out[-1].state.optimizer.schedule = lambda n: 1e-3
     return out
@@ -713,3 +715,97 @@ def test_lightning_checkpoint_on_the_card_matches_cpu(cuda_dev, tmp_path):
     assert k1.launches > n1 and k2.launches > n2
     for a, b in zip(*outs):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-3, rtol=1e-3)
+
+
+POLICIES = ("nothing", "dots_no_batch", "save_gemms", "save_gemms_lite", "save_gemms_h1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", POLICIES)
+def test_remat_policy_on_the_card_matches_cpu(cuda_dev, policy):
+    """Each remat policy, fp32, flash forced on (K3a and K4a on the card, the
+    forward rerun inside the selective recompute): loss and every gradient
+    on the card against the CPU at 1e-4, and the launches: each block's
+    forward twice, its backward once."""
+    import copy
+    from maa3_tpu_torch.models.dit import (DiT, DiTConfig, dit_apply, dit_init_,
+                                           unfreeze_zero_init)
+
+    gen = torch.Generator().manual_seed(0)
+    dit = DiT(DiTConfig(in_channels=4, context_dim=32, hidden_size=64, depth=2,
+                        num_heads=4, multiple_of=32, use_flash=True, remat=True,
+                        remat_policy=policy))
+    unfreeze_zero_init(dit_init_(dit, gen), gen)
+    x, ctx, tgt = (torch.randn(2, 4, 40, generator=gen), torch.randn(2, 6, 32, generator=gen),
+                   torch.randn(2, 4, 40, generator=gen))
+    t = torch.tensor([5, 700])
+    out = []
+    n = dict(fa.launches)
+    for dev in ("cpu", cuda_dev):
+        d = copy.deepcopy(dit).to(dev)
+        with full_fp32():
+            v = dit_apply(d, x.to(dev), t.to(dev), ctx.to(dev), compute_dtype=torch.float32,
+                          training=True)
+            loss = (v - tgt.to(dev)).pow(2).mean()
+            loss.backward()
+        out.append((loss.item(), [p.grad.cpu() for p in d.parameters()]))
+    assert {k: fa.launches[k] - n[k] for k in ("K3a", "K4a")} == {"K3a": 4, "K4a": 2}
+    assert abs(out[0][0] - out[1][0]) <= 1e-4 * abs(out[0][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, a.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_accumulation_bf16_mu_matches_cpu(cuda_dev, tmp_path):
+    """accum_steps=2 with a bf16 first moment, 4 micro-steps (2 updates), fp32
+    compute, on the card and on the CPU from the same weights and draws:
+    every loss, and every parameter after each micro-step (unchanged by the
+    first of each pair); the stored moment bf16 on both."""
+    trainers = _small_trainer_pair(tmp_path, accum_steps=2, mu_dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(5)
+    draws = [{"noise": torch.randn(2, 20, 48, generator=g),
+              "t_int": torch.randint(0, 1000, (2,), generator=g),
+              "x0": torch.randn(2, 20, 48, generator=g)} for _ in range(4)]
+    start = [p.detach().clone() for p in trainers[0].state.trainable_parameters()]
+    results = []
+    for tr in trainers:
+        steps = []
+        for i, d in enumerate(draws):
+            m = tr.train_step(_raw_batch(i), draws={k: t.to(tr.device) for k, t in d.items()})
+            steps.append((m["loss"].item(),  # copies, also of the CPU trainer's tensors
+                          [p.detach().cpu().clone() for p in tr.state.trainable_parameters()]))
+        assert all(m.dtype == torch.bfloat16 for m in tr.state.optimizer.mu)
+        assert tr.state.optimizer.count == 2
+        results.append(steps)
+    for (lc, pc), (lg, pg) in zip(*results):
+        assert abs(lc - lg) <= 1e-4 * abs(lc)
+        for a, b in zip(pc, pg):
+            assert (a - b).abs().max().item() <= 1e-4 * max(1.0, a.abs().max().item())
+    for steps in results:
+        assert all(torch.equal(a, b) for a, b in zip(steps[0][1], start))
+        assert max((a - b).abs().max().item() for a, b in zip(steps[1][1], start)) > 5e-4
+
+
+@pytest.mark.cuda
+def test_cuda_fused_trainer_matches_unfused(cuda_dev, tmp_path):
+    """A fuse_gemms Trainer on the card takes two fp32 steps as the unfused
+    one does, from the same weights and draws: losses and every parameter
+    in the canonical names at 1e-4."""
+    from maa3_tpu_torch.models.dit import unfuse_dit_gemms
+
+    unfused = _small_trainer_pair(tmp_path / "u")[1]
+    fused = _small_trainer_pair(tmp_path / "f", fuse_gemms=True)[1]
+    g = torch.Generator().manual_seed(6)
+    draws = [{"noise": torch.randn(2, 20, 48, generator=g),
+              "t_int": torch.randint(0, 1000, (2,), generator=g),
+              "x0": torch.randn(2, 20, 48, generator=g)} for _ in range(2)]
+    for i, d in enumerate(draws):
+        dd = {k: t.to(cuda_dev) for k, t in d.items()}
+        mu = unfused.train_step(_raw_batch(i), draws=dd)
+        mf = fused.train_step(_raw_batch(i), draws=dd)
+        assert abs(mu["loss"].item() - mf["loss"].item()) <= 1e-4 * abs(mu["loss"].item())
+    canon = unfuse_dit_gemms(dict(fused.state.dit.named_parameters()),
+                             fused.spec.dit.num_heads)
+    for n, p in unfused.state.dit.named_parameters():
+        a, b = p.detach().cpu(), canon[n].detach().cpu()
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, a.abs().max().item()), n

@@ -142,7 +142,7 @@ def test_optimizer_and_ema_match_optax():
         jema = joptim.ema_update(jema, jp, 0.999, n)
         for t, a in zip(tp, g):
             t.grad = torch.tensor(a)
-        norm = topt.step(n)
+        norm = topt.step()
         toptim.ema_update(tema, tp, 0.999, n)
         _cmp(norm, optax.global_norm([jnp.asarray(a) for a in g]))
         for a, b in zip(tp, jp):
@@ -349,7 +349,7 @@ def test_trainer_fit_and_cli_on_synth_clips(tmp_path, monkeypatch):
                   "--ckpt_dir", str(ckpt), *over])
     assert m["step"] == 2 and np.isfinite(m["loss"])
     assert sorted(os.listdir(ckpt)) == ["last.pt", "metrics.jsonl", "step_00000001.pt",
-                                        "step_00000002.pt"]
+                                        "step_00000002.pt", "tb"]
     saved = torch.load(ckpt / "last.pt", weights_only=True)
     assert sorted(saved["params"]) == ["cond", "dit"] and saved["step"] == 2
     m = cli.main(["-b", XL, "-r", str(ckpt / "last.pt"), "--max_steps", "1",
@@ -436,10 +436,16 @@ def test_config_reads_training_settings():
     spec = tconfig.parse_model_config(tconfig.load_config(
         [XL], [up + "use_flash=false", up + "remat=true"]))
     assert spec.dit.use_flash is False and spec.dit.remat
-    with pytest.raises(ValueError, match="remat_policy"):
-        tconfig.parse_model_config(tconfig.load_config([XL], [up + "remat_policy=save_gemms"]))
+    with pytest.raises(ValueError, match="unknown remat_policy: 'save_all'"):
+        tconfig.parse_model_config(tconfig.load_config([XL], [up + "remat_policy=save_all"]))
+    for policy in ("nothing", "dots_no_batch", "save_gemms", "save_gemms_lite",
+                   "save_gemms_h1"):
+        spec = tconfig.parse_model_config(tconfig.load_config(
+            [XL], [up + "remat=true", up + f"remat_policy={policy}"]))
+        assert spec.dit.remat and spec.dit.remat_policy == policy
     data = tconfig.parse_data_config(tconfig.load_config([XL]))
-    assert dataclasses.astuple(data) == ("audiocaps_train_16000_struct2.tsv", 624, 0.2, 16)
+    assert dataclasses.astuple(data) == ("audiocaps_train_16000_struct2.tsv", 624, 0.2, 16,
+                                         "train", False)
 
 
 def test_data_helpers_match_jax(tmp_path):
