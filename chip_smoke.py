@@ -15,8 +15,10 @@ Phases, each timed on a line of its own:
      instruction mix is logged from the same SASS;
   3. kernels: K1 (AA-snake) and K2 (AA-snake -> conv) against their plain
      PyTorch versions at every shape the XL batch-4 vocode gives them, in
-     fp32 and bf16, and at every shape phase 11's served batch-8 music
-     vocode gives them, in bf16, with error, kernel time, plain time, bound and share of
+     fp32 and bf16, at every shape phase 11's served batch-8 music vocode
+     gives them, in bf16, and at every shape phase 13's vocoder-GAN disc
+     step gives them (batch 8 x 8192 samples), in fp32, with error, kernel
+     time, plain time, bound and share of
      the bound (the bound's operations counted both as the kernels execute
      the snake and with sin as one operation, the older count; K2 also with
      its conv's TFLOP/s and the time of one call alone between two events,
@@ -95,6 +97,25 @@ Phases, each timed on a line of its own:
      the manifest with the XL VAE, then the frozen-conditioner 6 x 1248 step
      from the moments and from the mels, the same weights and draws: first
      losses within 1e-4, each path's step ms.
+ 13. GAN training of the first stage and the vocoder, and the mel frontend,
+     at the JAX CLIs' defaults: (a) two VAE-GAN iterations (disc_start 0,
+     r1_weight 0.1) and two vocoder-GAN iterations of small configs on the
+     card against the CPU, fp32 under full_fp32(), each step from the same
+     state: every loss, and every parameter after it within phase 7's rule
+     (elements whose update direction is rounding noise allowed 2 lr); (b)
+     VAE-GAN at train_vae's defaults (VAE ch 384, batch 8 x 624, PatchGAN
+     ndf 64 x 3, disc_start 0) over phase 12's mels for 20
+     iterations: ms per ae and disc step, peak, finite losses, the
+     checkpoint written, then the CLI for 2 iterations; (c) vocoder GAN at
+     train_vocoder's defaults (BigVGAN 1536, batch 8 x 32 frames, MPD + MRD)
+     over int16 wavs written from the seed under build/ for 20 iterations:
+     ms per gen and disc step, peak, K1 / K2 72 / 37 per disc step and 0 / 0
+     per gen step, the disc step's fake wav through the kernels against the
+     plain route (1e-3), then the CLI for 2 iterations; (d) mel_spec over 16
+     clips of 10 s (some at 22.05 kHz, some stereo): clips per second and one
+     clip against the CPU; (e) the hand-off: one step of the training CLI
+     with --vae_ckpt of (b)'s file, whose frozen VAE must equal the file's.
+     Every time is logged beside the card's name and power limit.
 Kernel, plain and library times are per call over 10 calls queued back to
 back (time_ms). Then the `kernels` JSON line, the card line, and the result
 line. Any failure exits non-zero without the result line; without a CUDA
@@ -109,6 +130,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -322,15 +344,17 @@ def time_once_ms(fn, reps: int = 7) -> float:
 
 def check_kernels(torch, k1, k2, full_fp32):
     """Phase 3: returns per-shape rows, each with its path: "xl" (phase 5's
-    batch-4 XL vocode, fp32 and bf16) or "music" (phase 11's batch-8 served
-    vocode, bf16 as it is served)."""
+    batch-4 XL vocode, fp32 and bf16), "music" (phase 11's batch-8 served
+    vocode, bf16 as it is served) or "gan" (phase 13's vocoder-GAN disc
+    step, batch 8 x 8192 samples, fp32)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
     for path, nb, k1_stages, k2_stages, dtype in (
             ("xl", B, K1_STAGES, K2_STAGES, torch.float32),
             ("xl", B, K1_STAGES, K2_STAGES, torch.bfloat16),
-            ("music", MUSIC_B, MUSIC_K1_STAGES, MUSIC_K2_STAGES, torch.bfloat16)):
+            ("music", MUSIC_B, MUSIC_K1_STAGES, MUSIC_K2_STAGES, torch.bfloat16),
+            ("gan", GAN_B, GAN_K1_STAGES, GAN_K2_STAGES, torch.float32)):
         item = torch.finfo(dtype).bits // 8
         tol = TOL_FP32 if dtype == torch.float32 else TOL_BF16
         fast = dtype == torch.bfloat16
@@ -1695,6 +1719,352 @@ def cached_latents(torch, system_mod, config_path, fa, tsv):
     return rows
 
 
+# phase 13: GAN training of the first stage and the vocoder, and the mel
+# frontend, at the JAX CLIs' defaults (scripts/train_vae.py,
+# scripts/train_vocoder.py, scripts/mel_spec.py)
+GAN_ITERS = 20
+GAN_B = 8                            # train_vocoder's batch: 8 x 32 frames
+GAN_K1_STAGES = [(768, 128), (384, 512), (192, 1024), (96, 2048)]
+GAN_K2_STAGES = [(48, 4096), (24, 8192)]
+GAN_WAVS = [(16000, 3.0, 1), (16000, 2.5, 2), (22050, 3.0, 1), (16000, 4.0, 1)] * 2
+MEL_SPEC_CLIPS = [(22050 if i % 4 == 0 else 16000, 10.0, 2 if i % 3 == 0 else 1)
+                  for i in range(16)]
+
+
+def write_wavs(name: str, specs) -> str:
+    """int16 wavs (sample rate, seconds, channels) from the seed and their
+    manifest under build/chip_smoke_<name>/ (never the repository's data/)."""
+    import numpy as np
+    from scipy.io import wavfile
+    d = os.path.join(ROOT, "build", f"chip_smoke_{name}")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.RandomState(13)
+    lines = ["name\taudio_path"]
+    for i, (sr, secs, ch) in enumerate(specs):
+        t = np.arange(int(sr * secs)) / sr
+        w = 0.4 * np.sin(2 * np.pi * (110 + 40 * i) * t * (1 + 0.1 * t))[:, None]
+        w = (np.clip(w + 0.05 * rng.randn(len(t), ch), -1, 1) * 32767).astype(np.int16)
+        path = os.path.join(d, f"w{i:02d}.wav")
+        wavfile.write(path, sr, w[:, 0] if ch == 1 else w)
+        lines.append(f"w{i:02d}\t{path}")
+    tsv = os.path.join(d, "manifest.tsv")
+    with open(tsv, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return tsv
+
+
+def _adam_agree(pairs, opts, lr: float, what: str):
+    """Parameters of the card against the CPU after one step from the same
+    state, phase 7's rule: |cuda - cpu| <= 1e-4 * max(1, max|cpu|) per
+    tensor. Adam moves an element by about lr times the sign of its first
+    moment, so where the two devices' moments differ by more than a quarter
+    of their size (a gradient at rounding noise: exactly zero for an
+    attention block's key bias, whose shift softmax ignores) the update's
+    direction is noise; those elements, at most 1 % of all, may differ by
+    2 lr more. The moments (the gradients) are logged, not held to the
+    rule: at initialisation the hinge's constant gradient reaches the
+    PatchGAN's third BatchNorm nearly constant per channel, and BatchNorm's
+    backward cancels it to a remainder that fp32 resolves poorly (cuDNN and
+    the CPU alike); Adam divides the gradient out, so the parameters still
+    agree. Returns
+    (largest parameter error, such elements, largest moment difference over
+    max(1, max|cpu|))."""
+    worst, n_free, n_all, m_worst = 0.0, 0, 0, 0.0
+    for pc, pg in pairs:
+        mc, mg = opts[0].state[pc]["exp_avg"], opts[1].state[pg]["exp_avg"].cpu()
+        m_worst = max(m_worst, (mg - mc).abs().max().item() / max(1.0, mc.abs().max().item()))
+        free = (mg - mc).abs() > 0.25 * mc.abs()
+        d = (pg.detach().cpu() - pc.detach()).abs() - free * (2 * lr)
+        worst = max(worst, d.max().item() / max(1.0, pc.detach().abs().max().item()))
+        n_free += int(free.sum())
+        n_all += pc.numel()
+    require(worst <= 1e-4 and n_free <= 0.01 * n_all,
+            f"{what}: parameters on the card vs the CPU (error {worst:.3e}, {n_free} "
+            f"elements whose update direction is noise)")
+    return worst, n_free, m_worst
+
+
+def _copy_state(dst, src) -> None:
+    """A GAN trainer state (vae_gan / vocoder_gan) copied from src into dst
+    on dst's device: modules, parameters, optimizers and the step."""
+    import copy
+    import torch
+    for f in dataclasses.fields(src):
+        a, b = getattr(dst, f.name), getattr(src, f.name)
+        if isinstance(b, torch.nn.Module):
+            a.load_state_dict(b.state_dict())
+        elif isinstance(b, torch.nn.Parameter):
+            with torch.no_grad():
+                a.copy_(b)
+        elif isinstance(b, torch.optim.Optimizer):  # copies: a CPU state loaded
+            a.load_state_dict(copy.deepcopy(b.state_dict()))  # as is would alias
+        else:
+            setattr(dst, f.name, b)
+
+
+def _two_devices(torch, full_fp32, name, states, steps, batches, lr):
+    """Each step from the same state on the CPU (states[0]) and on the card
+    (states[1], copied from the CPU's before every step, so that no
+    difference carries over) for every batch (a function of the device
+    giving the step's arguments after the state): every metric, and the
+    stepped optimizer's parameters (_adam_agree)."""
+    devs = (torch.device("cpu"), torch.device("cuda"))
+    worst, n_free = 0.0, 0
+    for it, batch in enumerate(batches):
+        for label, fn, opt_of, params_of in steps:
+            _copy_state(states[1], states[0])
+            with full_fp32():
+                ms = [{k: v.item() for k, v in fn(st, *batch(dev)).items()}
+                      for st, dev in zip(states, devs)]
+            for k, c in ms[0].items():
+                require(abs(ms[1][k] - c) <= 1e-4 * max(1.0, abs(c)),
+                        f"{name} iteration {it + 1} {k}: cuda {ms[1][k]} cpu {c}")
+            w, n, m = _adam_agree(list(zip(params_of(states[0]), params_of(states[1]))),
+                                  (opt_of(states[0]), opt_of(states[1])), lr,
+                                  f"{name} iteration {it + 1} {label}")
+            worst, n_free = max(worst, w), n_free + n
+            log(f"GAN reference: {name} iteration {it + 1} {label}: " + ", ".join(
+                f"{k} cpu {c:.6f} cuda {ms[1][k]:.6f}" for k, c in ms[0].items())
+                + f"; parameters within {w:.2e}, first moments within {m:.2e} of max(1, |cpu|)")
+    log(f"GAN reference: {name}: after every step from the same state, every parameter "
+        f"of the card within {worst:.2e} x max(1, |cpu|) of the CPU's ({n_free} element "
+        f"updates whose direction is rounding noise held to 2 lr more)")
+
+
+def gan_small_reference(torch, full_fp32):
+    """Phase 13 (a): two VAE-GAN iterations (disc_start 0, r1_weight 0.1) and
+    two vocoder-GAN iterations of small configs on the card against the CPU,
+    fp32 under full_fp32(), each step from the same state, noise and batch
+    (_two_devices). The
+    card's vocoder disc step runs K1 and K2 (its stages are 64 and 32 wide),
+    the CPU's their plain versions."""
+    from maa3_tpu_torch.models.bigvgan import BigVGANConfig
+    from maa3_tpu_torch.models.vae1d import VAEConfig
+    from maa3_tpu_torch.ops.stft import MelConfig, mel_spectrogram
+    from maa3_tpu_torch.train import vae_gan, vocoder_gan
+    from maa3_tpu_torch.train_vae import init_state as vae_state
+    from maa3_tpu_torch.train_vocoder import init_state as voc_state
+    vcfg = VAEConfig(ch=64, ch_mult=(1, 2), num_res_blocks=1)
+    g = torch.Generator().manual_seed(13)
+    mels = [torch.randn(2, 80, 64, generator=g) for _ in range(2)]
+    ae, disc = vae_gan.make_vae_gan_steps(vcfg, disc_start=0, r1_weight=0.1)
+    _two_devices(torch, full_fp32, "VAE-GAN",
+                 [vae_state(vcfg, torch.device(d), 1e-4, 1.0) for d in ("cpu", "cuda")],
+                 [("ae step", ae, lambda s: s.vae_opt, lambda s: s.ae_parameters()),
+                  ("disc step", disc, lambda s: s.disc_opt, lambda s: list(s.disc.parameters()))],
+                 [lambda dev, it=it: (mels[it].to(dev), vae_gan.posterior_noise(vcfg, 2, 64, it))
+                  for it in range(2)], 1e-4)
+    gcfg = BigVGANConfig(upsample_rates=(16, 16), upsample_kernel_sizes=(32, 32),
+                         upsample_initial_channel=128, resblock_kernel_sizes=(3,),
+                         resblock_dilation_sizes=((1, 3, 5),))
+    wavs = [(torch.randn(2, 1024, generator=g) * 0.3).clamp(-1, 1) for _ in range(2)]
+
+    def batch(dev, it):
+        w = wavs[it].to(dev)
+        return ({"wav": w, "mel": mel_spectrogram(w, MelConfig())},)
+
+    gen, disc = vocoder_gan.make_vocoder_gan_steps(MelConfig())
+    _two_devices(torch, full_fp32, "vocoder-GAN",
+                 [voc_state(gcfg, torch.device(d), 2e-4) for d in ("cpu", "cuda")],
+                 [("gen step", gen, lambda s: s.gen_opt, lambda s: list(s.gen.parameters())),
+                  ("disc step", disc, lambda s: s.disc_opt, lambda s: s.disc_parameters())],
+                 [lambda dev, it=it: batch(dev, it) for it in range(2)], 2e-4)
+
+
+def _sync_ms(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def vae_gan_run(torch, full_fp32, mel_tsv, card):
+    """Phase 13 (b): VAE-GAN at train_vae's defaults (VAE ch 384, batch 8,
+    mel_len 624, PatchGAN ndf 64 x 3 layers) with disc_start 0, the CLI's
+    loop over phase 12's mels for GAN_ITERS iterations: ms per ae and disc
+    step, peak memory, finite losses, and the checkpoint the CLI writes;
+    then the CLI itself for 2 iterations. Returns the loop's checkpoint."""
+    import numpy as np
+    from maa3_tpu_torch import train_vae
+    from maa3_tpu_torch.data.datasets import read_tsv
+    from maa3_tpu_torch.models.vae1d import VAEConfig
+    from maa3_tpu_torch.native.io import NativeLoader
+    from maa3_tpu_torch.train.vae_gan import (make_vae_gan_steps, posterior_noise,
+                                              vae_gan_checkpoint)
+    opt = train_vae.parse_args(["--tsv", mel_tsv])
+    dev, cfg = torch.device("cuda"), VAEConfig(ch=opt.ch)
+    paths = [r["mel_path"] for r in read_tsv(mel_tsv)]
+    loader = NativeLoader(rows=80)
+    state = train_vae.init_state(cfg, dev, opt.lr, opt.lr_multiplier)
+    ae_step, disc_step = make_vae_gan_steps(cfg, kl_weight=opt.kl_weight,
+                                            disc_weight=opt.disc_weight, disc_start=0)
+    rng = np.random.RandomState(0)
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for it in range(GAN_ITERS):
+        idx = rng.randint(0, len(paths), opt.batch_size)
+        mel = torch.from_numpy(loader.load_batch([paths[i] for i in idx], opt.mel_len,
+                                                 mode="tile")).to(dev)
+        noise = posterior_noise(cfg, opt.batch_size, opt.mel_len, it)
+        with full_fp32():
+            m_ae, t_ae = _sync_ms(torch, lambda: ae_step(state, mel, noise))
+            m_d, t_d = _sync_ms(torch, lambda: disc_step(state, mel, noise))
+        times.append((t_ae, t_d))
+        metrics.append({k: v.item() for k, v in {**m_ae, **m_d}.items()})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_vae")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = train_vae.save(ckpt_dir, vae_gan_checkpoint(state), GAN_ITERS)
+    require(all(np.isfinite(v) for m in metrics for v in m.values()),
+            "VAE-GAN losses are finite")
+    require(sorted(torch.load(path, weights_only=True)) == ["disc", "logvar", "vae"],
+            "the VAE-GAN checkpoint holds vae, disc and logvar")
+    tail = times[1:]
+    log(f"VAE-GAN (VAE ch {opt.ch}, batch {opt.batch_size} x {opt.mel_len} frames, PatchGAN "
+        f"ndf 64 x 3, disc_start 0, fp32): median ae step "
+        f"{statistics.median(t for t, _ in tail):.1f} ms, disc step "
+        f"{statistics.median(t for _, t in tail):.1f} ms (first iteration {times[0][0]:.1f} + "
+        f"{times[0][1]:.1f} ms), peak {peak:.2f} GiB, on {card}; losses finite; "
+        f"first {metrics[0]}, last {metrics[-1]}")
+    cli = train_vae.main(["--tsv", mel_tsv, "--steps", "2", "--disc_start", "0",
+                          "--ckpt_dir", os.path.join(ckpt_dir, "cli"), "--device", "cuda"])
+    require(os.path.isfile(cli), "python -m maa3_tpu_torch.train_vae wrote its checkpoint")
+    return path
+
+
+def vocoder_gan_run(torch, full_fp32, k1, k2, card):
+    """Phase 13 (c): vocoder GAN at train_vocoder's defaults (BigVGAN 1536,
+    batch 8 x 32 frames, MPD (2, 3, 5, 7, 11), MRD of three resolutions),
+    the CLI's loop over int16 wavs written from the seed for GAN_ITERS
+    iterations: ms per gen and disc step, peak memory, K1 / K2 launches per
+    step (72 / 37 per disc step, 0 / 0 per gen step), the disc step's fake
+    wav from the kernels against the plain route at 1e-3; then the CLI
+    itself for 2 iterations (K1 / K2 twice 72 / 37 in all)."""
+    import numpy as np
+    from maa3_tpu_torch import train_vocoder
+    from maa3_tpu_torch.data.datasets import read_tsv
+    from maa3_tpu_torch.models.bigvgan import BigVGANConfig, bigvgan_apply
+    from maa3_tpu_torch.ops.stft import MelConfig, mel_spectrogram
+    from maa3_tpu_torch.train.vocoder_gan import make_vocoder_gan_steps
+    tsv = write_wavs("wavs", GAN_WAVS)
+    opt = train_vocoder.parse_args(["--tsv", tsv])
+    dev = torch.device("cuda")
+    cfg, mel_cfg = BigVGANConfig(upsample_initial_channel=opt.upsample_initial_channel), MelConfig()
+    hop = mel_cfg.hop_size
+    seg = opt.segment_frames * hop
+    wavs = train_vocoder.read_wavs([r["audio_path"] for r in read_tsv(tsv)], seg + hop)
+    require(len(wavs) == len(GAN_WAVS), "every written wav is read")
+    state = train_vocoder.init_state(cfg, dev, opt.lr)
+    gen_step, disc_step = make_vocoder_gan_steps(mel_cfg)
+    rng = np.random.RandomState(0)
+    torch.cuda.reset_peak_memory_stats()
+    times, counts, metrics = [], [], []
+    for it in range(GAN_ITERS):
+        wav = torch.from_numpy(train_vocoder.draw_batch(rng, wavs, opt.batch_size, seg,
+                                                        hop)).to(dev)
+        with full_fp32():
+            batch = {"mel": mel_spectrogram(wav, mel_cfg)[:, :, :opt.segment_frames],
+                     "wav": wav}
+            k1.launches = k2.launches = 0
+            mg, t_g = _sync_ms(torch, lambda: gen_step(state, batch))
+            n_g = (k1.launches, k2.launches)
+            md, t_d = _sync_ms(torch, lambda: disc_step(state, batch))
+        counts.append((n_g, (k1.launches - n_g[0], k2.launches - n_g[1])))
+        times.append((t_g, t_d))
+        metrics.append({k: v.item() for k, v in {**mg, **md}.items()})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for n_g, n_d in counts:
+        require(n_g == (0, 0) and n_d == K1_K2_PER_VOCODE,
+                f"vocoder GAN launches per step: gen {n_g} == (0, 0), disc {n_d} == "
+                f"{K1_K2_PER_VOCODE}")
+    require(all(np.isfinite(v) for m in metrics for v in m.values()),
+            "vocoder GAN losses are finite")
+    with torch.no_grad(), full_fp32():  # the disc step's fake wav: kernels vs plain
+        fake = bigvgan_apply(state.gen, batch["mel"])
+        plain = bigvgan_apply(state.gen, batch["mel"], kernels=False)
+    err = (fake - plain).abs().max().item()
+    require(err <= 1e-3 and tuple(fake.shape) == (opt.batch_size, seg),
+            f"the disc step's fake wav through K1 / K2 vs the plain route: {err:.3e}")
+    tail = times[1:]
+    out = {"gen_ms": statistics.median(t for t, _ in tail),
+           "disc_ms": statistics.median(t for _, t in tail), "peak_gib": peak,
+           "disc_counts": counts[-1][1]}
+    log(f"vocoder GAN (BigVGAN {opt.upsample_initial_channel}, batch {opt.batch_size} x "
+        f"{opt.segment_frames} frames = {seg} samples, MPD + MRD, fp32): median gen step "
+        f"{out['gen_ms']:.1f} ms, disc step {out['disc_ms']:.1f} ms (first iteration "
+        f"{times[0][0]:.1f} + {times[0][1]:.1f} ms), peak {peak:.2f} GiB, on {card}; "
+        f"K1 / K2 per gen step {counts[-1][0]}, per disc step {counts[-1][1]}; the disc "
+        f"step's fake wav {tuple(fake.shape)} through the kernels vs the plain route max "
+        f"|d| {err:.3e} (1e-3); first {metrics[0]}, last {metrics[-1]}")
+    del state
+    k1.launches = k2.launches = 0
+    cli = train_vocoder.main(["--tsv", tsv, "--steps", "2", "--device", "cuda",
+                              "--ckpt_dir", os.path.join(ROOT, "build", "chip_smoke_vocoder")])
+    n = (k1.launches, k2.launches)
+    require(os.path.isfile(cli) and n == tuple(2 * c for c in K1_K2_PER_VOCODE),
+            f"python -m maa3_tpu_torch.train_vocoder: checkpoint and K1 / K2 {n}")
+    return out
+
+
+def mel_spec_run(torch, card):
+    """Phase 13 (d): python -m maa3_tpu_torch.mel_spec over MEL_SPEC_CLIPS
+    (16 clips of 10 s, a quarter at 22.05 kHz, a third stereo) in its
+    default batch of 16, twice (cold, then warm): clips per second, and one
+    clip's mel against the CPU's frontend at 1e-4 x max(1, max|cpu|)."""
+    import numpy as np
+    from maa3_tpu_torch import mel_spec
+    from maa3_tpu_torch.ops.stft import MelConfig, mel_spectrogram
+    tsv = write_wavs("clips", MEL_SPEC_CLIPS)
+    out = os.path.join(ROOT, "build", "chip_smoke_clips", "mels")
+    secs = []
+    for _ in range(2):  # the first run imports scipy.signal and builds the bases
+        t = time.perf_counter()
+        done = mel_spec.main(["--tsv_path", tsv, "--save_path", out, "--device", "cuda",
+                              "--out_tsv", os.path.join(out, "manifest.tsv")])
+        secs.append(time.perf_counter() - t)
+        require(done == len(MEL_SPEC_CLIPS), f"mel_spec wrote {done} mels")
+    opt = mel_spec.parse_args(["--tsv_path", tsv, "--save_path", out])
+    seg = (int(opt.duration * opt.audio_sample_rate / opt.hop_size) + 1) * opt.hop_size
+    wav = mel_spec.fit_length(mel_spec.load_audio(
+        os.path.join(ROOT, "build", "chip_smoke_clips", "w00.wav"), 16000), seg, 256, "pad")
+    want = mel_spectrogram(torch.from_numpy(wav)[None], MelConfig())[0].numpy()
+    got = np.load(os.path.join(out, "w00_mel.npy"))
+    err = float(np.abs(got - want).max())
+    require(got.shape == (80, seg // 256) and err <= 1e-4 * max(1.0, float(np.abs(want).max())),
+            f"a mel_spec clip (22.05 kHz, stereo) against the CPU: {err:.3e}")
+    log(f"mel_spec: {done} clips of 10 s (22.05 kHz resampled for "
+        f"{sum(sr != 16000 for sr, _, _ in MEL_SPEC_CLIPS)}) in {secs[0]:.2f} s cold, "
+        f"{secs[1]:.2f} s warm: {done / secs[1]:.1f} clips/s end to end (the host's wav "
+        f"reading and resampling included), on {card}; clip w00 (22.05 kHz stereo) "
+        f"{got.shape} vs the CPU max |d| {err:.3e}")
+
+
+def vae_handoff(torch, config_path, vae_ckpt, mel_tsv):
+    """Phase 13 (e): one step of the training CLI (XL config, DiT cut to
+    depth 2, frozen conditioner, batch 2) with --vae_ckpt of (b)'s file:
+    the trainer's frozen VAE (its last.pt's frozen section) equals the
+    file's, tensor for tensor."""
+    from maa3_tpu_torch.train import __main__ as train_cli
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_handoff")
+    m = train_cli.main(["-b", config_path, "--vae_ckpt", vae_ckpt, "--max_steps", "1",
+                        "--batch_size", "2", "--device", "cuda", "--ckpt_every", "0",
+                        "--log_every", "1",
+                        "--ckpt_dir", ckpt_dir, "model.params.unet_config.params.depth=2",
+                        NO_COND,
+                        f"data.params.train.params.dataset_cfg.dataset_name={mel_tsv}"])
+    want = torch.load(vae_ckpt, weights_only=True)["vae"]
+    frozen = torch.load(os.path.join(ckpt_dir, "last.pt"), weights_only=True,
+                        mmap=True)["frozen"]["vae"]
+    same = sorted(frozen) == sorted(want) and all(torch.equal(frozen[k], v)
+                                                  for k, v in want.items())
+    require(same and m["step"] == 1, "the trainer's frozen VAE equals the train_vae file's")
+    log(f"hand-off: python -m maa3_tpu_torch.train --vae_ckpt (XL, depth 2, frozen "
+        f"conditioner) took one step (loss {m['loss']:.4f}); its frozen VAE equals the "
+        f"file's ({len(want)} tensors)")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1825,23 +2195,45 @@ def main() -> int:
     t = time.perf_counter()
     cached_latents(torch, system_mod, config_path, fa, tsv)
     log(f"cached latents: done, {time.perf_counter() - t:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    gan_small_reference(torch, full_fp32)
+    log(f"GAN reference: small VAE-GAN and vocoder-GAN steps agree, "
+        f"{time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    vae_ckpt = vae_gan_run(torch, full_fp32, tsv, card)
+    log(f"VAE-GAN: done, {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    voc_gan = vocoder_gan_run(torch, full_fp32, k1, k2, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"vocoder GAN: done, {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    mel_spec_run(torch, card)
+    vae_handoff(torch, config_path, vae_ckpt, tsv)
+    log(f"mel_spec and the --vae_ckpt hand-off: done, {time.perf_counter() - t:.2f} s")
 
     kernels = []
     # launches, ms and the bound: phase 5's batch-4 XL vocode (bf16), as in
     # earlier runs; the other counted paths (phase 11's served requests, one
-    # AMPBlock1 vocode per batch, and its AMPBlock2 vocoder), each counted
-    # from 0, only under launches_by_path, and the music shapes' phase 3
-    # error under max_abs_err_by_path
+    # AMPBlock1 vocode per batch, and its AMPBlock2 vocoder; phase 12's audio
+    # logger; phase 13's vocoder-GAN disc step), each counted from 0, only
+    # under launches_by_path, and the music and GAN shapes' phase 3 errors
+    # under max_abs_err_by_path
     for i, (name, src, rep) in enumerate((
             ("K1 aa_snake_fused", "maa3_tpu_torch/csrc/aa_snake.cu",
              "maa3_tpu/ops/pallas_aa_snake.py:381"),
             ("K2 conv_snake_fused", "maa3_tpu_torch/csrc/conv_snake.cu",
              "maa3_tpu/ops/pallas_amp.py:165"))):
         by_path = {"xl_serving": counts[i], "music_server": serve["launches"][i],
-                   "amp2_vocoder": amp2[i], "audio_logger": recipe["logger_counts"][i]}
+                   "amp2_vocoder": amp2[i], "audio_logger": recipe["logger_counts"][i],
+                   "vocoder_gan_disc_step": voc_gan["disc_counts"][i]}
         err = {path: max(r["err"] for r in rows if r["kernel"] == name[:2]
-                         and r["path"] == path and r["dtype"] == "bfloat16")
-               for path in ("xl", "music")}
+                         and r["path"] == path and r["dtype"] == dtype)
+               for path, dtype in (("xl", "bfloat16"), ("music", "bfloat16"),
+                                   ("gan", "float32"))}
         mine = [r for r in rows if r["kernel"] == name[:2] and r["path"] == "xl"
                 and r["dtype"] == "bfloat16"]
         per_vocode = {key: sum(r[key] * r["launches"] for r in mine)

@@ -14,7 +14,9 @@ anti-aliased activation runs K1 (ops/pallas_aa_snake.py::aa_snake_fused)
 followed by a plain conv. AMPBlock1 has two sites per dilation
 (convs1, convs2), AMPBlock2 one (convs). lrelu takes neither kernel. On CPU
 tensors both wrappers run their plain versions, which compute the same
-functions.
+functions. The kernels have no backward: `bigvgan_apply(kernels=False)` is
+the differentiable route (JAX's `pallas_aa=False`, which training takes),
+the plain activation and an unfused conv at every site, under autograd.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from torch import nn
 
 from maa3_tpu_torch.ops.conv import (conv1d, conv_transpose1d,
                                      conv_transpose1d_polyphase)
-from maa3_tpu_torch.ops.pallas_aa_snake import aa_snake_fused
+from maa3_tpu_torch.ops.pallas_aa_snake import aa_snake_fused, aa_snake_plain
 from maa3_tpu_torch.ops.pallas_amp import conv_snake_fused
 from maa3_tpu_torch.ops.resample import use_fast_sin2
 
@@ -164,11 +166,13 @@ def _snake_args(act: Activation1d, cfg: BigVGANConfig, fast: bool) -> dict:
                 has_beta=cfg.activation == "snakebeta", fast_sin2=fast)
 
 
-def _act(act: Activation1d, x, cfg, fast):
-    """The activation of an unfused site: K1, or the leaky ReLU."""
+def _act(act: Activation1d, x, cfg, fast, kernels: bool):
+    """The activation of an unfused site: K1 (its plain version without
+    kernels), or the leaky ReLU."""
     if cfg.activation == "lrelu":
         return F.leaky_relu(x, LRELU_SLOPE)
-    return aa_snake_fused(x, act.act.alpha, **_snake_args(act, cfg, fast))
+    snake = aa_snake_fused if kernels else aa_snake_plain
+    return snake(x, act.act.alpha, **_snake_args(act, cfg, fast))
 
 
 def _fused_site(act: Activation1d, conv: nn.Conv1d, x, k, d, cfg, fast):
@@ -183,11 +187,11 @@ def _conv_site(conv: nn.Conv1d, x, k, d, compute_dtype):
 
 
 def _act_conv(act: Activation1d, conv: nn.Conv1d, x, k, d, cfg, compute_dtype,
-              fused: bool, fast: bool):
+              fused: bool, fast: bool, kernels: bool):
     """One act -> conv site: K2 when fused, else the activation and a conv."""
-    if fused:
+    if fused and kernels:
         return _fused_site(act, conv, x.to(compute_dtype), k, d, cfg, fast)
-    return _conv_site(conv, _act(act, x, cfg, fast), k, d, compute_dtype)
+    return _conv_site(conv, _act(act, x, cfg, fast, kernels), k, d, compute_dtype)
 
 
 def _residual_steps(rb):
@@ -200,20 +204,33 @@ def _residual_steps(rb):
     return [((rb.activations[i], rb.convs[i], d),) for i, d in enumerate(rb.dilations)]
 
 
-def _amp_apply(rb, x, cfg, compute_dtype, fused: bool, fast: bool):
+def _amp_apply(rb, x, cfg, compute_dtype, fused: bool, fast: bool, kernels: bool):
     """AMPBlock1 / AMPBlock2 (maa3_tpu/models/bigvgan.py:355-419)."""
     for sites in _residual_steps(rb):
         xt = x
         for act, conv, d in sites:
-            xt = _act_conv(act, conv, xt, rb.k, d, cfg, compute_dtype, fused, fast)
+            xt = _act_conv(act, conv, xt, rb.k, d, cfg, compute_dtype, fused, fast,
+                           kernels)
         x = xt + x
     return x
 
 
-@torch.no_grad()
 def bigvgan_apply(voc: BigVGAN, mel: torch.Tensor,
-                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """mel (B, num_mels, T) -> wav (B, T * prod(upsample_rates))."""
+                  compute_dtype: torch.dtype = torch.float32,
+                  kernels: bool = True) -> torch.Tensor:
+    """mel (B, num_mels, T) -> wav (B, T * prod(upsample_rates)).
+
+    kernels=True (serving, and the vocoder GAN's discriminator step) routes
+    the activations through K1 / K2 and runs without autograd; kernels=False
+    is the differentiable route: the plain activation and a conv at every
+    site, with the graph kept for a backward."""
+    if kernels:
+        with torch.no_grad():
+            return _forward(voc, mel, compute_dtype, True)
+    return _forward(voc, mel, compute_dtype, False)
+
+
+def _forward(voc: BigVGAN, mel, compute_dtype, kernels: bool):
     cfg = voc.cfg
     fast = use_fast_sin2(compute_dtype)
     nk = len(cfg.resblock_kernel_sizes)
@@ -231,9 +248,10 @@ def bigvgan_apply(voc: BigVGAN, mel: torch.Tensor,
         xs = None
         for j in range(nk):
             y = _amp_apply(voc.resblocks[i * nk + j], x, cfg, compute_dtype,
-                           fused, fast)
+                           fused, fast, kernels)
             xs = y if xs is None else xs + y
         x = xs / nk
     x = _act_conv(voc.activation_post, voc.conv_post, x, 7, 1, cfg, compute_dtype,
-                  cfg.activation != "lrelu" and x.shape[1] <= FUSED_MAX_CH, fast)
+                  cfg.activation != "lrelu" and x.shape[1] <= FUSED_MAX_CH, fast,
+                  kernels)
     return torch.tanh(x)[:, 0, :]

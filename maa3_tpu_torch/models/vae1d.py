@@ -256,3 +256,11 @@ def gaussian_sample(moments: torch.Tensor,
         noise = torch.randn(mean.shape, generator=generator, device=mean.device,
                             dtype=mean.dtype)
     return mean + std * noise
+
+
+def gaussian_kl(moments: torch.Tensor) -> torch.Tensor:
+    """KL(q || N(0, 1)) of the posterior (logvar clamped to [-30, 20]),
+    summed over (C, T): one value per sample."""
+    mean, logvar = moments.chunk(2, dim=1)
+    logvar = logvar.clamp(-30.0, 20.0)
+    return 0.5 * (mean * mean + torch.exp(logvar) - 1.0 - logvar).sum(dim=(1, 2))

@@ -6,7 +6,10 @@ C++, csrc/aa_snake.cu).
 2x kaiser-sinc upsample -> snake in fp32 -> 2x kaiser-sinc decimation, with
 the replicate-pad edge rules of FusedActivation1d, returning x's dtype. On a
 CUDA tensor it launches the kernel (or raises); on a CPU tensor it runs
-`aa_snake_plain`, the same function in plain PyTorch.
+`aa_snake_plain`, the same function in plain PyTorch. The kernel has no
+backward (nor has JAX's): on a CUDA tensor under grad mode, with x or a
+parameter that requires grad, the wrapper raises instead of returning a
+result cut off from the graph; training takes the plain version.
 """
 
 from __future__ import annotations
@@ -49,9 +52,20 @@ def aa_snake_plain(x: torch.Tensor, alpha: torch.Tensor,
     return FusedActivation1d(act)(x).to(x.dtype)
 
 
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise where a kernel without a backward would drop gradients: grad
+    mode on and any of `tensors` (None allowed) requiring grad."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward; take the differentiable "
+            f"route (bigvgan_apply(..., kernels=False), aa_snake_plain / "
+            f"conv_snake_plain) or call it under torch.no_grad()")
+
+
 def _params(alpha, beta, has_beta, device):
-    a = alpha.detach().to(device, torch.float32).contiguous()
-    b = beta.detach().to(device, torch.float32).contiguous() if has_beta else a
+    a = alpha.to(device, torch.float32).contiguous()
+    b = beta.to(device, torch.float32).contiguous() if has_beta else a
     return a, b
 
 
@@ -68,6 +82,7 @@ def aa_snake_fused(x: torch.Tensor, alpha: torch.Tensor,
                               has_beta=has_beta, fast_sin2=fast_sin2)
     if x.device.type != "cuda":
         raise ValueError(f"aa_snake_fused: unsupported device {x.device}")
+    refuse_autograd("aa_snake_fused", x, alpha, beta if has_beta else None)
     if x.dim() != 3 or x.dtype not in cuda.DTYPE_CODES:
         raise ValueError(f"aa_snake_fused: need (B, C, T) fp32/bf16, got "
                          f"{tuple(x.shape)} {x.dtype}")

@@ -7,8 +7,10 @@ loop (the tensor cores would take fp32 only as TF32).
 `conv_snake_fused(x, ...)` equals
 conv1d(aa_snake(x), w, b, padding=(k*d - d)//2, dilation=d) with the
 activation output stored in x's dtype and the conv in x's dtype (fp32
-accumulation). On a CUDA tensor it launches the kernel (or raises); on a CPU
-tensor it runs `conv_snake_plain`, the same function in plain PyTorch.
+accumulation). On a CUDA tensor it launches the kernel (or raises; also
+under grad mode when x or a parameter requires grad, as the kernel has no
+backward); on a CPU tensor it runs `conv_snake_plain`, the same function in
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from maa3_tpu_torch import cuda
 from maa3_tpu_torch.ops.conv import conv1d
-from maa3_tpu_torch.ops.pallas_aa_snake import _params, aa_snake_plain
+from maa3_tpu_torch.ops.pallas_aa_snake import _params, aa_snake_plain, refuse_autograd
 from maa3_tpu_torch.ops.resample import use_fast_sin2
 
 launches = 0  # kernel launches by conv_snake_fused (chip_smoke resets and reads)
@@ -54,6 +56,7 @@ def conv_snake_fused(x: torch.Tensor, alpha: torch.Tensor,
                                 fast_sin2=fast_sin2)
     if x.device.type != "cuda":
         raise ValueError(f"conv_snake_fused: unsupported device {x.device}")
+    refuse_autograd("conv_snake_fused", x, alpha, beta if has_beta else None, w, b)
     if x.dim() != 3 or x.dtype not in cuda.DTYPE_CODES:
         raise ValueError(f"conv_snake_fused: need (B, C, T) fp32/bf16, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -76,8 +79,8 @@ def conv_snake_fused(x: torch.Tensor, alpha: torch.Tensor,
                          f"needs {smem} bytes of shared memory")
     x = x.contiguous()
     a, bt = _params(alpha, beta, has_beta, x.device)
-    wf = w.detach().to(x.device, torch.float32).contiguous()
-    bf = b.detach().to(x.device, torch.float32).contiguous()
+    wf = w.to(x.device, torch.float32).contiguous()
+    bf = b.to(x.device, torch.float32).contiguous()
     y = torch.empty((B, c_out, T), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):  # see aa_snake_fused
         err = lib.maa3_conv_snake(x.data_ptr(), y.data_ptr(), a.data_ptr(),

@@ -142,3 +142,30 @@ def lightning_parts(sd: State) -> dict:
             print(f"EMA covers {len(ema)} of {len(parts['dit'])} DiT keys; "
                   "using the live weights")
     return parts
+
+
+def mpd_from_torch(sd: State, mpd: nn.Module) -> nn.Module:
+    """A BigVGAN MultiPeriodDiscriminator file's weights (models.py:255-277;
+    weight norm folded, in either naming) loaded strictly into `mpd`
+    (maa3_tpu/torch_import.py:328)."""
+    load_module_state(mpd, fold_weight_norms(sd), "mpd")
+    return mpd
+
+
+def mrd_from_torch(sd: State, mrd: nn.Module) -> nn.Module:
+    """A MultiResolutionDiscriminator's weights (models.py:281-357; the STFT
+    frontend has none) loaded as mpd_from_torch loads an MPD
+    (maa3_tpu/torch_import.py:341)."""
+    load_module_state(mrd, fold_weight_norms(sd), "mrd")
+    return mrd
+
+
+def nlayer_disc_from_torch(sd: State, disc: nn.Module) -> nn.Module:
+    """The PatchGAN NLayerDiscriminator's `main.{i}.*` weights, after any
+    `discriminator.` prefix is stripped, loaded strictly into `disc`
+    (maa3_tpu/torch_import.py:384). BatchNorm is train-mode only, so the
+    file's running statistics are among the skipped keys."""
+    if any(k.startswith("discriminator.") for k in sd):
+        sd = strip_prefix(sd, "discriminator.")
+    load_module_state(disc, sd, "nlayer_disc")
+    return disc

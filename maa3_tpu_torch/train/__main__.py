@@ -5,11 +5,14 @@ text-to-audio DiT on one device uses):
         --max_steps 100 [--batch_size 6] [--device cuda] [--remat] \\
         [--accum_steps 2] [--mu_dtype bfloat16] [--fuse_gemms] \\
         [--val_every N --val_batches M] [--audio_log_every N] \\
-        [-r CKPT] [--torch_ckpt model.ckpt] [--ckpt_every N] \\
+        [-r CKPT] [--torch_ckpt model.ckpt] [--vae_ckpt step_N.pt] [--ckpt_every N] \\
         data.params.train.params.dataset_cfg.dataset_name=data/synth/manifest_mel.tsv
 
 Builds MAA3System.from_config (random weights from --seed, or a warm start
-from the reference's Lightning .ckpt with --torch_ckpt), reads the data
+from the reference's Lightning .ckpt with --torch_ckpt; --vae_ckpt then
+loads the "vae" entry of a `python -m maa3_tpu_torch.train_vae` checkpoint
+strictly into the frozen first stage, as scripts/train.py:157-162 does with
+the JAX CLI's), reads the data
 section as scripts/train.py build_loader does (a manifest through the lazy
 TextSpecDataset, whose batches the native loader reads, or a directory of
 manifests through AnyLenSpecDataset), with the batches loaded ahead by
@@ -25,8 +28,8 @@ steps (scripts/train.py:198-208); --audio_log_every writes generated
 samples under <ckpt_dir>/audio. Checkpoints: every --ckpt_every steps,
 `last` at the end, `crash` when a step raises, and `usr1` on SIGUSR1.
 
-Not in the port: --vae_ckpt (an Orbax directory), and the JAX CLI's
-parallelism (--n_model, --fsdp, --n_pipe, --n_micro, --seq_parallel,
+Not in the port: Orbax checkpoints (--vae_ckpt reads the port's own
+files), and the JAX CLI's parallelism (--n_model, --fsdp, --n_pipe, --n_micro, --seq_parallel,
 --multihost) and expert parallelism (--n_expert); see ROADMAP.md.
 """
 
@@ -47,6 +50,8 @@ def parse_args(argv=None):
                    help="a checkpoint (.pt) of the port's Trainer to continue from")
     p.add_argument("--torch_ckpt", type=str, default="",
                    help="warm-start from a reference .ckpt (Lightning)")
+    p.add_argument("--vae_ckpt", type=str, default="",
+                   help="a train_vae checkpoint (.pt) whose 'vae' is the frozen VAE")
     p.add_argument("--max_steps", type=int, default=100000)
     p.add_argument("--batch_size", type=int, default=None,
                    help="default: the config's data.params.batch_size")
@@ -97,6 +102,14 @@ def build_loader(data, batch_size: int, seed: int, moments_dim: int,
             yield from loader
 
 
+def load_vae_ckpt(vae: torch.nn.Module, path: str) -> None:
+    """The "vae" entry of a train_vae checkpoint into `vae`, strictly: a
+    missing, extra or misshapen key raises."""
+    from maa3_tpu_torch.torch_import import read_checkpoint
+    vae.load_state_dict(read_checkpoint(path)["vae"], strict=True)
+    print(f"frozen VAE <- {path}", flush=True)
+
+
 def main(argv=None):
     opt = parse_args(argv)
     from maa3_tpu_torch import config as config_mod
@@ -110,6 +123,8 @@ def main(argv=None):
         opt.base, opt.overrides, seed=opt.seed, device=opt.device,
         compute_dtype=torch.float32 if opt.fp32 else torch.bfloat16,
         ckpt_path=opt.torch_ckpt or None)
+    if opt.vae_ckpt:
+        load_vae_ckpt(system.vae, opt.vae_ckpt)
     if opt.remat:
         system.dit.cfg = dataclasses.replace(system.dit.cfg, remat=True)
     batch_size = opt.batch_size or data.batch_size

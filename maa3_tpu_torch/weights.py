@@ -149,6 +149,48 @@ def bigvgan_from_jax(p: dict) -> State:
     return sd
 
 
+def nlayer_disc_from_jax(p: dict) -> State:
+    """PatchGAN {layers: [{conv, bn}]} -> main.{i}: the first conv at 0, each
+    conv + BN group at i, i + 1 (3 apart, LeakyReLUs between), the last conv."""
+    sd: State = {}
+    layers = p["layers"]
+    _conv(sd, "main.0", layers[0]["conv"])
+    idx = 2
+    for lp in layers[1:-1]:
+        _conv(sd, f"main.{idx}", lp["conv"])
+        _vec(sd, f"main.{idx + 1}", lp["bn"])
+        idx += 3
+    _conv(sd, f"main.{idx}", layers[-1]["conv"])
+    return sd
+
+
+def mpd_from_jax(p: dict) -> State:
+    """MultiPeriodDiscriminator {discs: [{convs, post}]}; the
+    MultiResolutionDiscriminator has the same layout (mrd_from_jax)."""
+    sd: State = {}
+    for i, d in enumerate(p["discs"]):
+        for j, c in enumerate(d["convs"]):
+            _conv(sd, f"discriminators.{i}.convs.{j}", c)
+        _conv(sd, f"discriminators.{i}.conv_post", d["post"])
+    return sd
+
+
+mrd_from_jax = mpd_from_jax
+
+
+def multi_window_disc_from_jax(p: dict) -> State:
+    """MultiWindowDiscriminator {discs: [{blocks: [{conv, bn}], adv}]}."""
+    sd: State = {}
+    for i, d in enumerate(p["discs"]):
+        pre = f"discriminators.{i}."
+        for j, bp in enumerate(d["blocks"]):
+            _conv(sd, f"{pre}blocks.{j}.conv", bp["conv"])
+            if bp["bn"] is not None:
+                _vec(sd, f"{pre}blocks.{j}.bn", bp["bn"])
+        _lin(sd, pre + "adv", d["adv"])
+    return sd
+
+
 def _bert_proj(sd: State, p: dict) -> None:
     """The CLAP caption tower: caption_encoder.{base (BERT), projection}."""
     bert, pre = p["bert"], "caption_encoder.base."

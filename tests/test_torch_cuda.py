@@ -144,6 +144,37 @@ def test_conv_snake_bf16_refuses_wide_channels(cuda_dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel,grad", [("K1", "x"), ("K1", "alpha"), ("K1", "beta"),
+                                         ("K2", "x"), ("K2", "alpha"), ("K2", "beta"),
+                                         ("K2", "w"), ("K2", "b")])
+def test_kernels_refuse_autograd(cuda_dev, kernel, grad):
+    """K1 and K2 have no backward: under grad mode, with x or a parameter
+    that requires grad, they raise and name the differentiable route
+    (launching nothing) instead of returning a result cut off from the
+    graph; under torch.no_grad() they launch."""
+    x, a, b = _inputs((2, 8, 64), torch.float32, cuda_dev)
+    w = torch.randn(8, 8, 3, device=cuda_dev) * 0.1
+    bias = torch.zeros(8, device=cuda_dev)
+    args = dict(x=x, alpha=a, beta=b, w=w, b=bias)
+    args[grad] = args[grad].clone().requires_grad_(True)
+    mod = k1 if kernel == "K1" else k2
+
+    def run():
+        if kernel == "K1":
+            return k1.aa_snake_fused(args["x"], args["alpha"], args["beta"])
+        return k2.conv_snake_fused(args["x"], args["alpha"], args["beta"], args["w"],
+                                   args["b"], k=3)
+
+    n = mod.launches
+    with pytest.raises(RuntimeError, match="kernels=False"):
+        run()
+    assert mod.launches == n
+    with torch.no_grad():
+        run()
+    assert mod.launches == n + 1
+
+
+@pytest.mark.cuda
 def test_cuda_pipeline_matches_cpu_path(cuda_dev):
     """A small system (K1 and K2 stages) through T2APipeline.generate on the
     card against the same weights on the CPU (plain versions), fp32."""
