@@ -116,6 +116,29 @@ Phases, each timed on a line of its own:
      clip against the CPU; (e) the hand-off: one step of the training CLI
      with --vae_ckpt of (b)'s file, whose frozen VAE must equal the file's.
      Every time is logged beside the card's name and power limit.
+ 14. int8 serving and video-to-audio with the MoE DiT: (a) fp32, the card
+     against the CPU: dense_w8a8 (torch._int_mm; 4 rows padded, the grouped
+     loop) and both w8a8 convs with the same int8 codes and outputs within
+     1e-3 x max(1, |cpu|); small text systems in int8 and int8:g32,voc and a
+     small video MoE system in fp32 and in int8, card vs CPU (codes,
+     latent, wav); one MoE training step with flash forced (K3a 2, K4a 2)
+     against the same step with dense attention on the card (loss, grad
+     norm, parameters by phase 7's rule); (b) the XL system of phase 5 (4
+     prompts x 10 s, 25 steps, guidance 5.0) in bf16 and in int8, int8:g128,
+     int8:now2, int8:smooth (after calibrate_smooth) and int8:voc from the
+     same weights and noise: end-to-end and ODE ms, the latent's relative L2
+     to bf16, _int_mm launches per request, K1 / K2 72 / 37 in every mode;
+     then the ODE alone at batch 16, bf16 and int8 (--profile adds one of
+     each under torch.profiler); (c) python -m
+     maa3_tpu_torch.video2audio at the video config's full width (MoE DiT
+     768 x 16 x 32 heads, 4 + 4 experts; XL VAE; BigVGAN 1536) over 4 feature
+     files of 40 x 512 written from the seed under build/, plain and
+     --inpaint over GT mels: one 10 s 16 kHz wav per clip, K1 / K2 72 / 37
+     per vocode, ms per clip; (d) the MoE trained at full width and depth,
+     batch 16 x latent 312 from VideoSpecDataset over clips written from the
+     seed, the trainable video encoder, bf16: one warm and three timed
+     steps, ms per step, tokens per second, peak memory, finite losses,
+     parameters moved.
 Kernel, plain and library times are per call over 10 calls queued back to
 back (time_ms). Then the `kernels` JSON line, the card line, and the result
 line. Any failure exits non-zero without the result line; without a CUDA
@@ -2065,6 +2088,327 @@ def vae_handoff(torch, config_path, vae_ckpt, mel_tsv):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+# phase 14: int8 serving and video-to-audio with the MoE DiT
+QUANT_MODES = ("int8", "int8:g128", "int8:now2", "int8:smooth", "int8:voc")
+V2A_CLIPS, V2A_FRAMES = 4, 40       # feature files of 40 x 512 (4 fps x 10 s)
+V2A_SAMPLES = 159744                # latent 312 -> mel 624 -> 10 s at 16 kHz
+MOE_TRAIN = (16, 312)               # the video YAML's batch x (spec_crop_len 624 / 2)
+SMALL_OVER = ["model.params.unet_config.params." + kv for kv in (
+    "hidden_size=64", "depth=2", "num_heads=4", "context_dim=32", "multiple_of=32")] + [
+    "model.params.first_stage_config.params.ddconfig." + kv for kv in (
+        "ch=32", "ch_mult=[1, 2]", "num_res_blocks=1")]
+
+
+def _within(got, want, what: str, rel: float = 1e-3) -> float:
+    err = (got.float().cpu() - want.float().cpu()).abs().max().item()
+    require(err <= rel * max(1.0, want.abs().max().item()),
+            f"{what}: max |cuda - cpu| {err:.3e}")
+    return err
+
+
+def quant_moe_small_reference(torch, system_mod, config_path, video_path, fa, full_fp32):
+    """Phase 14 (a): fp32, the card against the CPU: the w8a8 product and
+    convs (the same int8 codes; outputs within 1e-3 x max(1, |cpu|)); a small
+    text system in int8 and int8:g32,voc and a small video MoE system, each
+    card vs CPU; one MoE training step with flash forced (K3a, K4a) against
+    the same step with dense attention on the card."""
+    import copy
+    from maa3_tpu_torch.models.bigvgan import BigVGANConfig
+    from maa3_tpu_torch.models.bert import BertConfig
+    from maa3_tpu_torch.models.clap import CLAPFLANConfig
+    from maa3_tpu_torch.models.t5 import T5Config
+    from maa3_tpu_torch.ops import conv, quant
+    g = torch.Generator().manual_seed(14)
+    for m, group in ((4, 0), (2496, 0), (8, 128), (2496, 128)):
+        w = torch.randn(1152, 1152, generator=g) * 0.03
+        x = torch.randn(m, 1152, generator=g) * (torch.rand(1152, generator=g) * 4)
+        qc, qg = quant.quantize_weight_int8(w, group), quant.quantize_weight_int8(w.cuda(), group)
+        require(torch.equal(qc.w_q, qg.w_q.cpu()), f"int8 codes (m {m}, group {group})")
+        err = _within(quant.dense_w8a8(x.cuda(), qg), quant.dense_w8a8(x, qc),
+                      f"dense_w8a8 m {m} group {group}")
+        log(f"int8 reference: dense_w8a8 ({m}, 1152) x (1152, 1152) group {group}: codes "
+            f"equal, max |cuda - cpu| {err:.2e}")
+    for c, k, d in ((768, 3, 1), (384, 11, 5), (192, 7, 3)):
+        w = torch.randn(c, c, k, generator=g) / (c * k) ** 0.5
+        b = torch.randn(c, generator=g)
+        x = torch.randn(2, c, 512, generator=g)
+        qc, qg = conv.quantize_conv_int8(w, b), conv.quantize_conv_int8(w.cuda(), b.cuda())
+        require(torch.equal(qc.w_q, qg.w_q.cpu()), f"conv int8 codes (C {c}, k {k})")
+        for fn in (conv.conv1d_unfold_w8a8, conv.conv1d_tapgemm_w8a8):
+            err = _within(fn(qg, x.cuda(), padding=(k * d - d) // 2, dilation=d),
+                          fn(qc, x, padding=(k * d - d) // 2, dilation=d),
+                          f"{fn.__name__} C {c} k {k} d {d}")
+            log(f"int8 reference: {fn.__name__} C {c} k {k} d {d}: max |cuda - cpu| {err:.2e}")
+    clap = CLAPFLANConfig(bert=BertConfig(hidden_size=32, num_layers=2, num_heads=4,
+                                          intermediate_size=64),
+                          t5=T5Config(d_model=32, d_kv=8, d_ff=48, num_layers=2,
+                                      num_heads=4), d_proj=32)
+    voc = BigVGANConfig(upsample_rates=(4, 2, 2), upsample_kernel_sizes=(8, 4, 4),
+                        upsample_initial_channel=256)
+    prompts = {"ori_caption": ["a dog barks", "rain on a tin roof"],
+               "struct_caption": ["<dog barks& all>", "<rain& all>"]}
+    empty = {"ori_caption": [""] * 2, "struct_caption": [""] * 2}
+    x0 = torch.randn(2, 20, 24, generator=g)
+    feat = torch.randn(2, 8, 512, generator=g)
+    os.environ["MAA3_VOC_QUANT_MIN_CH"] = "64"   # the small vocoder's stages quantized
+    try:
+        for cfg, mode, c_in, u_in in ((config_path, "int8", prompts, empty),
+                                      (config_path, "int8:g32,voc", prompts, empty),
+                                      (video_path, None, feat, 0 * feat),
+                                      (video_path, "int8", feat, 0 * feat)):
+            sys_g = system_mod.MAA3System.from_config(
+                [cfg], SMALL_OVER, seed=1, compute_dtype=torch.float32, device="cuda",
+                clap_cfg=clap, voc_cfg=voc, unfreeze=True)
+            sys_c = system_mod.MAA3System(
+                sys_g.spec, *(copy.deepcopy(m).cpu() for m in
+                              (sys_g.dit, sys_g.vae, sys_g.vocoder, sys_g.cond)),
+                compute_dtype=torch.float32)
+            outs = []
+            for s in (sys_c, sys_g):
+                s.set_serving_quant(mode)
+                c = s.get_learned_conditioning(c_in)
+                uc = s.get_learned_conditioning(u_in)
+                z = s.sample_cfg(c, 4.5, uc, x0=x0.to(s.device), timesteps=6)
+                outs.append((z.cpu(), s.vocode(s.decode_first_stage(z))))
+            codes = [quant.quant_weights(s.serving_dit()) for s in (sys_c, sys_g)]
+            for name, q in codes[0].items():
+                require(torch.equal(q.w_q, codes[1][name].w_q.cpu()), f"serving codes {name}")
+            err = _within(outs[1][0], outs[0][0], f"{cfg} {mode} latent")
+            import numpy as np
+            werr = float(np.abs(outs[1][1] - outs[0][1]).max())
+            require(werr <= 1e-3, f"{cfg} {mode} wav: {werr:.3e}")
+            log(f"int8 / MoE reference: {os.path.basename(cfg)} mode {mode}: "
+                f"{len(codes[0])} int8 weights equal, latent max |cuda - cpu| {err:.2e}, "
+                f"wav {werr:.2e}")
+    finally:
+        os.environ.pop("MAA3_VOC_QUANT_MIN_CH")
+    # one MoE training step, flash forced vs dense, on the card
+    from maa3_tpu_torch.train.loop import Trainer
+    base = system_mod.MAA3System.from_config(
+        [video_path], SMALL_OVER + ["model.params.scale_by_std=false"], seed=2,
+        compute_dtype=torch.float32, device="cuda", voc_cfg=voc, unfreeze=True)
+    raw = {"image": torch.randn(2, 80, 96, generator=g).numpy(),
+           "video_feat": torch.randn(2, 6, 512, generator=g).numpy()}
+    draws = {"noise": torch.randn(2, 20, 48, generator=g).cuda(),
+             "t_int": torch.tensor([120, 870]).cuda(),
+             "x0": torch.randn(2, 20, 48, generator=g).cuda()}
+    res = {}
+    for flash in (True, False):
+        s = system_mod.MAA3System(base.spec, copy.deepcopy(base.dit), base.vae,
+                                  base.vocoder, copy.deepcopy(base.cond),
+                                  compute_dtype=torch.float32)
+        s.dit.cfg = dataclasses.replace(s.dit.cfg, use_flash=flash)
+        tr = Trainer(s, batch_size=2, lr_multiplier=1.0, warm_up_steps=0, ckpt_every=0,
+                     ckpt_dir=os.path.join(ROOT, "build", "chip_smoke_moe_ref"))
+        reset_launches(fa)
+        with full_fp32():
+            m = tr.train_step(raw, draws=draws)
+        res[flash] = ({k: v.item() for k, v in m.items()}, dict(fa.launches),
+                      [(p.detach().clone(), p.grad.clone()) for p in tr.state.trainable_parameters()])
+    require(res[True][1]["K3a"] == 2 and res[True][1]["K4a"] == 2
+            and res[False][1] == {k: 0 for k in FLASH_KERNELS},
+            f"MoE step launches: forced flash {res[True][1]}, dense {res[False][1]}")
+    for k in ("loss", "grad_norm"):
+        a, b = res[True][0][k], res[False][0][k]
+        require(abs(a - b) <= 1e-4 * abs(b), f"MoE flash step {k}: {a} vs dense {b}")
+    lr = base.spec.base_learning_rate  # lr_multiplier 1, no warm-up
+    worst, n_free, n_all = 0.0, 0, 0
+    for (pf, gf), (pd, gd) in zip(res[True][2], res[False][2]):
+        free = (gf - gd).abs() > 0.25 * gd.abs()
+        d = (pf - pd).abs() - free * (2 * lr)
+        worst = max(worst, d.max().item() / max(1.0, pd.abs().max().item()))
+        n_free, n_all = n_free + int(free.sum()), n_all + pd.numel()
+    require(worst <= 1e-4 and n_free <= 0.01 * n_all,
+            f"MoE flash step parameters vs dense ({worst:.2e}, {n_free} noise elements)")
+    log(f"MoE reference: one training step with flash forced (K3a {res[True][1]['K3a']}, "
+        f"K4a {res[True][1]['K4a']}) vs dense attention on the card: loss "
+        f"{res[True][0]['loss']:.6f} / {res[False][0]['loss']:.6f}, parameters within "
+        f"{worst:.2e} ({n_free} of {n_all} updates at gradient noise)")
+    return res[True][1]
+
+
+def int8_serving(torch, system_mod, config_path, k1, k2, card, profile=False):
+    """Phase 14 (b): the XL system of phase 5 in bf16 and each int8 mode from
+    the same weights and noise; then the ODE alone at batch 16, bf16 and
+    int8 (with profile, one more of each under torch.profiler). Returns
+    {mode: (K1, K2) launches per request}."""
+    import numpy as np
+    from maa3_tpu_torch.ops import quant
+    system = system_mod.MAA3System.from_config(
+        [config_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
+    caps = ["a dog barks in the distance", "rain falls on a tin roof",
+            "a crowd cheers at a stadium", "an engine idles then revs up"]
+    prompts = {"ori_caption": caps, "struct_caption": [f"<{p}& all>" for p in caps]}
+    empty = {"ori_caption": [""] * B, "struct_caption": [""] * B}
+    x0 = torch.randn(B, 20, LATENT, generator=torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    c, uc = system.get_learned_conditioning(prompts), system.get_learned_conditioning(empty)
+
+    def request():
+        times = {}
+        s0 = time.perf_counter()
+        cc = system.get_learned_conditioning(prompts)
+        ucc = system.get_learned_conditioning(empty)
+        z, times["ode"] = _sync_ms(torch, lambda: system.sample_cfg(cc, 5.0, ucc, x0=x0,
+                                                                    timesteps=25))
+        wav = system.vocode(system.decode_first_stage(z))
+        torch.cuda.synchronize()
+        times["end_to_end"] = (time.perf_counter() - s0) * 1e3
+        return z, wav, times
+
+    out, counts = {}, {}
+    for mode in (None,) + QUANT_MODES:
+        system.set_serving_quant(mode)
+        if mode == "int8:smooth":
+            _, ms = _sync_ms(torch, lambda: system.calibrate_smooth(c, uc, x0=x0, timesteps=25))
+            log(f"int8 serving: calibrate_smooth (one 25-step ODE with stats) {ms:.1f} ms")
+        _, ms = _sync_ms(torch, system.serving_dit)
+        request()  # warm-up: the serving copies, cuBLAS handles
+        k1.launches = k2.launches = 0
+        n_mm = quant.int_mm_calls
+        z, wav, times = request()
+        counts[mode] = (k1.launches, k2.launches)
+        require(torch.isfinite(z).all() and np.isfinite(wav).all()
+                and wav.shape == (B, 159744) and 0 < np.abs(wav).max() <= 1.0,
+                f"int8 serving {mode}: outputs")
+        require(counts[mode] == K1_K2_PER_VOCODE,
+                f"int8 serving {mode}: K1/K2 {counts[mode]} == {K1_K2_PER_VOCODE}")
+        out[mode] = z.float()
+        rel = (z.float() - out[None]).norm().item() / out[None].norm().item()
+        mm = quant.int_mm_calls - n_mm
+        require((mm > 0) == (mode is not None), f"int8 serving {mode}: {mm} int8 products")
+        log(f"int8 serving ({card}) mode {mode or 'bf16'}: end to end "
+            f"{times['end_to_end']:.2f} ms, ODE {times['ode']:.2f} ms, latent rel L2 vs "
+            f"bf16 {rel:.3e}, _int_mm launches per request {mm}, K1 {counts[mode][0]} "
+            f"K2 {counts[mode][1]}, serving copy built in {ms:.0f} ms")
+    c16, uc16 = c.repeat(4, 1, 1), uc.repeat(4, 1, 1)
+    x16 = torch.randn(16, 20, LATENT, generator=torch.Generator(device="cuda").manual_seed(1),
+                      device="cuda")
+    for mode in (None, "int8"):
+        system.set_serving_quant(mode)
+        run = lambda: system.sample_cfg(c16, 5.0, uc16, x0=x16, timesteps=25)  # noqa: E731
+        run()
+        times = [_sync_ms(torch, run)[1] for _ in range(2)]
+        log(f"int8 serving ({card}) batch 16 ODE, mode {mode or 'bf16'}: "
+            f"{', '.join(f'{t:.1f}' for t in times)} ms")
+        if profile:
+            log(f"profile: batch 16 ODE, mode {mode or 'bf16'}")
+            profile_run(torch, lambda _counted: run(), min(times))
+    system.set_serving_quant(None)
+    del system
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def write_video_files(name: str, clips: int, feat_frames: int, mel_frames: int,
+                      with_split: bool = False) -> str:
+    """Features (clips x (feat_frames, 512) .npz, plus empty_vid.npz) and GT
+    mels ((80, mel_frames) .npy) from the seed under build/chip_smoke_<name>/:
+    video2audio's feats/ and mels/, or with_split VideoSpecDataset's
+    mel_maa2/npy/, cavp/ and Train.txt."""
+    import numpy as np
+    d = os.path.join(ROOT, "build", f"chip_smoke_{name}")
+    shutil.rmtree(d, ignore_errors=True)
+    feats = os.path.join(d, "cavp" if with_split else "feats")
+    mels = os.path.join(d, "mel_maa2", "npy") if with_split else os.path.join(d, "mels")
+    os.makedirs(feats)
+    os.makedirs(mels)
+    rng = np.random.RandomState(14)
+    names = [f"clip{i:02d}" for i in range(clips)]
+    for n in names:
+        np.savez(os.path.join(feats, n + ".npz"),
+                 feat=rng.randn(feat_frames, 512).astype(np.float32))
+        np.save(os.path.join(mels, n + "_mel.npy"),
+                (rng.randn(80, mel_frames) - 4.0).astype(np.float32))
+    np.savez(os.path.join(feats, "empty_vid.npz"), feat=np.zeros((feat_frames, 512), np.float32))
+    if with_split:
+        with open(os.path.join(d, "Train.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return d
+
+
+def video2audio_run(torch, video_path, k1, k2, card):
+    """Phase 14 (c): python -m maa3_tpu_torch.video2audio at the config's full
+    width (MoE DiT 768 x 16 x 32 heads, 4 + 4 experts; XL VAE; BigVGAN 1536)
+    over 4 feature files, plain and --inpaint over GT mels: one 10 s 16 kHz
+    wav per clip, K1 / K2 72 / 37 per vocode, ms per clip."""
+    import io
+    import wave
+    from maa3_tpu_torch import video2audio
+    d = write_video_files("v2a", V2A_CLIPS, V2A_FRAMES, 625)
+    per_vocode = {}
+    for mode, extra in (("plain", []), ("inpaint", ["--inpaint", "--mel_gt_dir",
+                                                     os.path.join(d, "mels")])):
+        out = os.path.join(d, f"out_{mode}")
+        k1.launches = k2.launches = 0
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            video2audio.main(["--feat_dir", os.path.join(d, "feats"), "--outdir", out,
+                              "-b", video_path, *extra])
+        wall = time.perf_counter() - t
+        per_vocode[mode] = (k1.launches // V2A_CLIPS, k2.launches // V2A_CLIPS)
+        require((k1.launches, k2.launches) == tuple(V2A_CLIPS * n for n in K1_K2_PER_VOCODE),
+                f"video2audio {mode}: K1/K2 {k1.launches}/{k2.launches} over {V2A_CLIPS} vocodes")
+        secs = [float(x) for x in re.findall(r"-> \S+\.wav \(([\d.]+) s\)", buf.getvalue())]
+        require(sorted(os.listdir(out)) == [f"clip{i:02d}.wav" for i in range(V2A_CLIPS)]
+                and len(secs) == V2A_CLIPS, f"video2audio {mode}: one wav per clip")
+        for f in os.listdir(out):
+            with wave.open(os.path.join(out, f)) as w:
+                require((w.getframerate(), w.getnframes()) == (16000, V2A_SAMPLES),
+                        f"video2audio {mode}: {f} is 10 s at 16 kHz")
+        log(f"video2audio ({card}) {mode}: {V2A_CLIPS} clips in {wall:.2f} s with the "
+            f"system's build; ms per clip {', '.join(f'{s * 1e3:.1f}' for s in secs)}; "
+            f"K1 / K2 per vocode {per_vocode[mode]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return per_vocode
+
+
+def moe_train_run(torch, system_mod, video_path, fa, card):
+    """Phase 14 (d): the video MoE at full width and depth, bf16, batch 16 x
+    latent 312 from VideoSpecDataset over files written from the seed
+    (truncate 624 x 256 samples), one warm step and three timed."""
+    from maa3_tpu_torch.data.video_dataset import VideoSpecDataset
+    from maa3_tpu_torch.train.loop import Trainer
+    bsz, lat = MOE_TRAIN
+    d = write_video_files("moe_train", 2 * bsz, V2A_FRAMES, 700, with_split=True)
+    ds = VideoSpecDataset("train", d, d, truncate=2 * lat * 256, drop=0.2, seed=0)
+    system = system_mod.MAA3System.from_config(
+        [video_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
+    n_par = sum(p.numel() for p in system.dit.parameters())
+    tr = Trainer(system, batch_size=bsz, warm_up_steps=0, ckpt_every=0, log_every=10 ** 6,
+                 ckpt_dir=os.path.join(d, "ckpt"))
+    start = [p.detach().clone() for p in tr.state.trainable_parameters()]
+    batches = [ds.collater([ds[(i * bsz + j) % len(ds)] for j in range(bsz)]) for i in range(4)]
+    require(batches[0]["image"].shape == (bsz, 80, 2 * lat), "MoE batch shape")
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i, raw in enumerate(batches):
+        reset_launches(fa)
+        m, ms = _sync_ms(torch, lambda: tr.train_step(raw, seed=0))
+        loss = m["loss"].item()
+        require(loss == loss and abs(loss) < float("inf"), f"MoE step {i} loss finite")
+        steps.append((ms, loss, dict(fa.launches)))
+    moved = max((p.detach() - s).abs().max().item()
+                for p, s in zip(tr.state.trainable_parameters(), start))
+    require(moved > 0, "MoE training moved the parameters")
+    timed = [ms for ms, _, _ in steps[1:]]
+    med = statistics.median(timed)
+    log(f"MoE training ({card}): MoE DiT {n_par / 1e6:.1f} M parameters, batch {bsz} x "
+        f"latent {lat}, bf16: warm step {steps[0][0]:.1f} ms, timed "
+        f"{', '.join(f'{t:.1f}' for t in timed)} ms (median {med:.1f}), "
+        f"{bsz * lat / med * 1e3:.0f} tokens/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, losses "
+        f"{', '.join(f'{l:.4f}' for _, l, _ in steps)}, parameters moved up to "
+        f"{moved:.2e}, flash launches {steps[-1][2]}")
+    del tr, system
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+
 def main() -> int:
     try:
         import torch
@@ -2215,6 +2559,22 @@ def main() -> int:
     vae_handoff(torch, config_path, vae_ckpt, tsv)
     log(f"mel_spec and the --vae_ckpt hand-off: done, {time.perf_counter() - t:.2f} s")
 
+    video_path = os.path.join(root, "configs", "video2audio-cfm-cfg-moe.yaml")
+    t = time.perf_counter()
+    moe_flash = quant_moe_small_reference(torch, system_mod, config_path, video_path, fa,
+                                          full_fp32)
+    log(f"int8 / MoE reference: done, {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    int8_counts = int8_serving(torch, system_mod, config_path, k1, k2, card,
+                               profile="--profile" in sys.argv[1:])
+    log(f"int8 serving: done, {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    v2a_counts = video2audio_run(torch, video_path, k1, k2, card)
+    log(f"video2audio: done, {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    moe_train_run(torch, system_mod, video_path, fa, card)
+    log(f"MoE training: done, {time.perf_counter() - t:.2f} s")
+
     kernels = []
     # launches, ms and the bound: phase 5's batch-4 XL vocode (bf16), as in
     # earlier runs; the other counted paths (phase 11's served requests, one
@@ -2229,7 +2589,9 @@ def main() -> int:
              "maa3_tpu/ops/pallas_amp.py:165"))):
         by_path = {"xl_serving": counts[i], "music_server": serve["launches"][i],
                    "amp2_vocoder": amp2[i], "audio_logger": recipe["logger_counts"][i],
-                   "vocoder_gan_disc_step": voc_gan["disc_counts"][i]}
+                   "vocoder_gan_disc_step": voc_gan["disc_counts"][i],
+                   **{f"xl_serving_{m}": c[i] for m, c in int8_counts.items() if m},
+                   **{f"video2audio_{m}_per_vocode": c[i] for m, c in v2a_counts.items()}}
         err = {path: max(r["err"] for r in rows if r["kernel"] == name[:2]
                          and r["path"] == path and r["dtype"] == dtype)
                for path, dtype in (("xl", "bfloat16"), ("music", "bfloat16"),
@@ -2274,7 +2636,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"] * cnt,
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
             "library_ms": r["library_ms"] * cnt,
-            "launches_by_path": {"main": cnt, "recipe_micro_step": phase12}})
+            "launches_by_path": {"main": cnt, "recipe_micro_step": phase12,
+                                 "moe_forced_flash_step": moe_flash[name[:3]]}})
     log(f"ODE chunk (XL, 25 steps, ms): " + "; ".join(
         f"batch {b} chunk {c}: {[round(x, 1) for x in v]}" for (b, c), v in chunk_ms.items()))
     print(json.dumps({"kernels": kernels}), flush=True)

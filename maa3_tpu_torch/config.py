@@ -16,6 +16,7 @@ import re
 from typing import Any, Sequence
 
 from maa3_tpu_torch.models.dit import REMAT_SAVES, DiTConfig
+from maa3_tpu_torch.models.dit_moe import MoEDiTConfig
 from maa3_tpu_torch.models.vae1d import VAEConfig
 
 _FLOAT = re.compile(r"""^[-+]?(?:[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?
@@ -116,28 +117,28 @@ def load_config(paths: Sequence[str], overrides: Sequence[str] = ()) -> dict:
     return cfg
 
 
-# the reference's `target:` classes the port runs
-SUPPORTED_TARGETS = {
-    "ldm.models.diffusion.cfm1_audio.CFM",
-    "ldm.modules.diffusionmodules.flag_large_dit.TxtFlagLargeDiT",
-    "ldm.modules.diffusionmodules.flag_large_dit.TxtFlagLargeImprovedDiTV2",
-    "ldm.models.autoencoder1d.AutoencoderKL",
-    "ldm.modules.encoders.modules.FrozenCLAPFLANEmbedder",
-    "ldm.modules.encoders.modules.FrozenFLANEmbedder",
-    "ldm.modules.encoders.modules.FrozenCLAPEmbedder",
-}
-
-# the conditioner kind of each cond-stage target (maa3_tpu/config.py:84-87)
-COND_KINDS = {
+# the reference's `target:` classes the port runs, with the kind each maps to
+# (maa3_tpu/config.py:67-90)
+TARGET_KINDS = {
+    "ldm.models.diffusion.cfm1_audio.CFM": "cfm",
+    "ldm.models.diffusion.cfm1_audio.CFM_inpaint": "cfm_inpaint",
+    "ldm.modules.diffusionmodules.flag_large_dit.TxtFlagLargeDiT": "text_dit",
+    "ldm.modules.diffusionmodules.flag_large_dit.TxtFlagLargeImprovedDiTV2": "text_dit",
+    "ldm.modules.diffusionmodules.flag_large_dit_moe.VideoFlagLargeDiT": "video_moe_dit",
+    "ldm.models.autoencoder1d.AutoencoderKL": "vae1d",
     "ldm.modules.encoders.modules.FrozenCLAPFLANEmbedder": "clap_flan",
     "ldm.modules.encoders.modules.FrozenFLANEmbedder": "flan",
     "ldm.modules.encoders.modules.FrozenCLAPEmbedder": "clap",
+    "ldm.modules.encoders.modules.Video_Feat_Encoder_NoPosembed": "video_feat",
+    "ldm.modules.encoders.modules.Video_Feat_Encoder_NoPosembed_inpaint":
+        "video_feat_inpaint",
 }
+SUPPORTED_TARGETS = set(TARGET_KINDS)
 
 
 @dataclasses.dataclass
 class ModelSpec:
-    dit: DiTConfig
+    dit: Any                        # DiTConfig | MoEDiTConfig
     vae: VAEConfig
     mel_dim: int = 20
     mel_length: int = 312
@@ -146,7 +147,9 @@ class ModelSpec:
     scale_by_std: bool = False
     cond_stage_trainable: bool = False
     base_learning_rate: float = 3.0e-6
-    cond_kind: str = "clap_flan"  # clap_flan | flan | clap (COND_KINDS)
+    cond_kind: str = "clap_flan"  # clap_flan | flan | clap | video_feat(_inpaint)
+    kind: str = "cfm"               # cfm | cfm_inpaint
+    backbone_kind: str = "text_dit"  # text_dit | video_moe_dit
 
 
 @dataclasses.dataclass
@@ -169,12 +172,69 @@ REMAT_POLICIES = tuple(REMAT_SAVES)
 def parse_model_config(cfg: dict) -> ModelSpec:
     """cfg: the full YAML dict (with `model:`) or the model subtree. The port
     covers text-to-audio and text-to-music CFM with the text DiT, the 1-D
-    VAE and the CLAP+FLAN, FLAN or CLAP conditioner."""
+    VAE and the CLAP+FLAN, FLAN or CLAP conditioner, and video-to-audio CFM
+    (and CFM_inpaint) with the MoE DiT and the video feature encoder."""
     model = cfg.get("model", cfg)
     params = model.get("params", {})
     unet = params["unet_config"]
     up = unet.get("params", {})
-    dit = DiTConfig(
+    first = params["first_stage_config"]
+    cond = params.get("cond_stage_config", {})
+    for sub in (model, unet, first, cond):
+        if sub.get("target") not in SUPPORTED_TARGETS:
+            raise KeyError(f"config target not supported by the port: "
+                           f"{sub.get('target')}")
+    backbone_kind = TARGET_KINDS[unet["target"]]
+    if backbone_kind == "video_moe_dit":
+        dit = _moe_cfg(up)
+    else:
+        dit = _dit_cfg(up)
+    fp = first.get("params", {})
+    dd = fp.get("ddconfig", {})
+    vae = VAEConfig(
+        in_channels=dd.get("in_channels", 80),
+        out_ch=dd.get("out_ch", 80),
+        ch=dd.get("ch", 384), ch_mult=tuple(dd.get("ch_mult", (1, 2, 4))),
+        num_res_blocks=dd.get("num_res_blocks", 2),
+        attn_layers=tuple(dd.get("attn_layers", ())),
+        down_layers=tuple(dd.get("down_layers", (0,))),
+        kernel_size=dd.get("kernel_size", 5),
+        z_channels=dd.get("z_channels", 20), double_z=dd.get("double_z", True),
+        embed_dim=fp.get("embed_dim", 20))
+    return ModelSpec(
+        dit=dit, vae=vae, mel_dim=params.get("mel_dim", 20),
+        mel_length=params.get("mel_length", 312),
+        scale_factor=params.get("scale_factor", 1.0),
+        timesteps=params.get("timesteps", 1000),
+        scale_by_std=params.get("scale_by_std", False),
+        cond_stage_trainable=params.get("cond_stage_trainable", False),
+        base_learning_rate=model.get("base_learning_rate", 3.0e-6),
+        cond_kind=TARGET_KINDS[cond["target"]], kind=TARGET_KINDS[model["target"]],
+        backbone_kind=backbone_kind)
+
+
+def _moe_cfg(up: dict) -> MoEDiTConfig:
+    """The video MoE DiT's config (maa3_tpu/config.py:148-149)."""
+    return MoEDiTConfig(
+        in_channels=up.get("in_channels", 20),
+        context_dim=up.get("context_dim", 1024),
+        hidden_size=up.get("hidden_size", 768),
+        depth=up.get("depth", 16),
+        num_heads=up.get("num_heads", 32),
+        max_len=up.get("max_len", 1000),
+        n_kv_heads=up.get("n_kv_heads"),
+        multiple_of=up.get("multiple_of", 256),
+        ffn_dim_multiplier=up.get("ffn_dim_multiplier"),
+        norm_eps=up.get("norm_eps", 1e-5),
+        qk_norm=bool(up.get("qk_norm") or False),
+        rope_scaling_factor=up.get("rope_scaling_factor", 1.0),
+        ntk_factor=up.get("ntk_factor", 1.0),
+        use_flash=up.get("use_flash"),
+        num_experts=up.get("num_experts", 4))
+
+
+def _dit_cfg(up: dict) -> DiTConfig:
+    return DiTConfig(
         in_channels=up.get("in_channels", 20),
         context_dim=up.get("context_dim", 1024),
         hidden_size=up.get("hidden_size", 768),
@@ -190,33 +250,6 @@ def parse_model_config(cfg: dict) -> ModelSpec:
         use_flash=up.get("use_flash"),
         remat=bool(up.get("remat") or False),
         remat_policy=up.get("remat_policy", "nothing"))
-    first = params["first_stage_config"]
-    fp = first.get("params", {})
-    dd = fp.get("ddconfig", {})
-    vae = VAEConfig(
-        in_channels=dd.get("in_channels", 80),
-        out_ch=dd.get("out_ch", 80),
-        ch=dd.get("ch", 384), ch_mult=tuple(dd.get("ch_mult", (1, 2, 4))),
-        num_res_blocks=dd.get("num_res_blocks", 2),
-        attn_layers=tuple(dd.get("attn_layers", ())),
-        down_layers=tuple(dd.get("down_layers", (0,))),
-        kernel_size=dd.get("kernel_size", 5),
-        z_channels=dd.get("z_channels", 20), double_z=dd.get("double_z", True),
-        embed_dim=fp.get("embed_dim", 20))
-    cond = params.get("cond_stage_config", {})
-    for sub in (model, unet, first, cond):
-        if sub.get("target") not in SUPPORTED_TARGETS:
-            raise KeyError(f"config target not supported by the port: "
-                           f"{sub.get('target')}")
-    return ModelSpec(
-        dit=dit, vae=vae, mel_dim=params.get("mel_dim", 20),
-        mel_length=params.get("mel_length", 312),
-        scale_factor=params.get("scale_factor", 1.0),
-        timesteps=params.get("timesteps", 1000),
-        scale_by_std=params.get("scale_by_std", False),
-        cond_stage_trainable=params.get("cond_stage_trainable", False),
-        base_learning_rate=model.get("base_learning_rate", 3.0e-6),
-        cond_kind=COND_KINDS[cond["target"]])
 
 
 def parse_data_config(cfg: dict, split: str = "train") -> DataSpec:

@@ -118,3 +118,27 @@ def sample_cfg_planned(step_velocity_fn: Callable, x0: torch.Tensor,
         e_uc, e_c = step_velocity_fn(torch.cat([x, x]), s).chunk(2)
         x = x + dt * (e_uc + guidance_scale * (e_c - e_uc))
     return x
+
+
+def sample_cfg_inpaint(velocity_fn: Callable, x0: torch.Tensor, context: torch.Tensor,
+                       uncond_context: torch.Tensor, guidance_scale: float,
+                       known: torch.Tensor, keep_mask: torch.Tensor, steps: int = 25,
+                       num_timesteps: int = 1000,
+                       sigma_min: float = SIGMA_MIN) -> torch.Tensor:
+    """Mask-guided CFG Euler ODE (maa3_tpu/diffusion/cfm.py:123): after every
+    step the positions with keep_mask = 1 are set to the OT path toward the
+    known latent, x_t = t known + (1 - (1 - s) t) x0, so only keep_mask = 0
+    is synthesized. known: (B, C, T); keep_mask broadcasts to it."""
+    b = x0.shape[0]
+    ctx_in = torch.cat([uncond_context, context], dim=0)
+    keep = keep_mask.to(x0.dtype)
+    grid = euler_t_grid(steps)
+    one, decay = np.float32(1.0), np.float32(1.0 - sigma_min)
+    x = x0
+    for t, t_next in zip(grid[:-1], grid[1:]):
+        t_int = _t_int(float(t), 2 * b, num_timesteps, x0.device)
+        e_uc, e_c = velocity_fn(torch.cat([x, x]), t_int, ctx_in).chunk(2)
+        x = x + float(t_next - t) * (e_uc + guidance_scale * (e_c - e_uc))
+        known_t = float(t_next) * known + float(one - decay * t_next) * x0
+        x = keep * known_t + (1.0 - keep) * x
+    return x

@@ -17,19 +17,28 @@ tensors both wrappers run their plain versions, which compute the same
 functions. The kernels have no backward: `bigvgan_apply(kernels=False)` is
 the differentiable route (JAX's `pallas_aa=False`, which training takes),
 the plain activation and an unfused conv at every site, under autograd.
+
+int8 serving (`quantize_bigvgan`, the `int8:voc` mode): the resblock convs
+of stages with at least 384 channels become int8 sites (QuantConv1d), which
+always run w8a8 on their compute-dtype input: k shifted tap-GEMMs from 256
+channels up, the unfold GEMM below (maa3_tpu/models/bigvgan.py:292-342).
+Their activations still run K1; K2 fuses only stages of width <= 48.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Sequence, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from maa3_tpu_torch.ops.conv import (conv1d, conv_transpose1d,
-                                     conv_transpose1d_polyphase)
+from maa3_tpu_torch.ops.conv import (QuantConv1d, conv1d, conv1d_tapgemm_w8a8,
+                                     conv1d_unfold_w8a8, conv_transpose1d,
+                                     conv_transpose1d_polyphase, quantize_conv_int8)
 from maa3_tpu_torch.ops.pallas_aa_snake import aa_snake_fused, aa_snake_plain
 from maa3_tpu_torch.ops.pallas_amp import conv_snake_fused
 from maa3_tpu_torch.ops.resample import use_fast_sin2
@@ -181,15 +190,47 @@ def _fused_site(act: Activation1d, conv: nn.Conv1d, x, k, d, cfg, fast):
                             conv.bias, k=k, dilation=d, **a)
 
 
-def _conv_site(conv: nn.Conv1d, x, k, d, compute_dtype):
-    return conv1d(x, conv.weight, conv.bias, padding=(k * d - d) // 2,
-                  dilation=d, compute_dtype=compute_dtype)
+@torch.no_grad()
+def quantize_bigvgan(voc: BigVGAN, min_ch: Optional[int] = None) -> BigVGAN:
+    """A copy of `voc` whose resblock convs in stages of at least min_ch
+    channels (default 384, MAA3_VOC_QUANT_MIN_CH overrides) are int8
+    (quantize_conv_int8, from the fp32 weights); conv_pre, the upsamplers,
+    conv_post and the activations stay float (maa3_tpu/models/bigvgan.py:227)."""
+    if min_ch is None:
+        min_ch = int(os.environ.get("MAA3_VOC_QUANT_MIN_CH", "384"))
+    q = copy.deepcopy(voc)
+    cfg = q.cfg
+    nk = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        if cfg.upsample_initial_channel // (2 ** (i + 1)) < min_ch:
+            continue
+        for rb in q.resblocks[i * nk:(i + 1) * nk]:
+            for convs in (getattr(rb, n) for n in ("convs1", "convs2", "convs")
+                          if hasattr(rb, n)):
+                for j, c in enumerate(convs):
+                    convs[j] = quantize_conv_int8(c.weight, c.bias)
+    return q
+
+
+def _conv_site(conv, x, k, d, compute_dtype):
+    """One stride-1 conv; an int8 site runs w8a8 on its input cast to the
+    compute dtype: tap-GEMMs from MAA3_VOC_QUANT_TAPGEMM_MIN_CH (256)
+    channels up, else the unfold GEMM."""
+    pad = (k * d - d) // 2
+    if isinstance(conv, QuantConv1d):
+        xq = x.to(compute_dtype) if compute_dtype is not None else x
+        tap_min = int(os.environ.get("MAA3_VOC_QUANT_TAPGEMM_MIN_CH", "256"))
+        fn = conv1d_tapgemm_w8a8 if x.shape[1] >= tap_min else conv1d_unfold_w8a8
+        return fn(conv, xq, padding=pad, dilation=d)
+    return conv1d(x, conv.weight, conv.bias, padding=pad, dilation=d,
+                  compute_dtype=compute_dtype)
 
 
 def _act_conv(act: Activation1d, conv: nn.Conv1d, x, k, d, cfg, compute_dtype,
               fused: bool, fast: bool, kernels: bool):
-    """One act -> conv site: K2 when fused, else the activation and a conv."""
-    if fused and kernels:
+    """One act -> conv site: K2 when fused (not an int8 site), else the
+    activation and a conv."""
+    if fused and kernels and not isinstance(conv, QuantConv1d):
         return _fused_site(act, conv, x.to(compute_dtype), k, d, cfg, fast)
     return _conv_site(conv, _act(act, x, cfg, fast, kernels), k, d, compute_dtype)
 

@@ -11,6 +11,11 @@ under the same caption_encoder.* keys -> (B, 77, 1024).
 FrozenFLANEmbedder (modules.py:54-88), `FLAN`: the T5 alone, under
 transformer.* -> (B, 77, d_model).
 All three take a CLAPFLANConfig; each reads only its towers' parts of it.
+The video model's conditioner, Video_Feat_Encoder_NoPosembed (modules.py:
+16-27), `VideoFeatEncoder`: one Linear (keys embedder.0.*) from 512-wide
+video features to the DiT's context width. `ClapFusion` (the fork's
+video2audio_flow_CLAP.py:485): video features concatenated per frame with a
+tiled CLAP text embedding, projected back to 512 (keys fuse.*).
 """
 
 from __future__ import annotations
@@ -64,8 +69,29 @@ class FLAN(nn.Module):
         self.transformer = T5Encoder(cfg.t5)
 
 
-# the conditioner module of each cond_kind (config.ModelSpec)
+class VideoFeatEncoder(nn.Module):
+    def __init__(self, origin_dim: int = 512, embed_dim: int = 768):
+        super().__init__()
+        self.embedder = nn.Sequential(nn.Linear(origin_dim, embed_dim))
+
+
+class ClapFusion(nn.Module):
+    def __init__(self, visual_dim: int = 512, text_dim: int = 1024, out_dim: int = 512):
+        super().__init__()
+        self.fuse = nn.Linear(visual_dim + text_dim, out_dim)
+
+
+# the text conditioner module of each cond_kind (config.ModelSpec)
 COND_MODULES = {"clap_flan": CLAPFLAN, "clap": CLAP, "flan": FLAN}
+
+
+def make_conditioner(kind: str, clap_cfg: CLAPFLANConfig, context_dim: int) -> nn.Module:
+    """The conditioner of a cond_kind: a text one of COND_MODULES, or the
+    video feature encoder (512 -> context_dim, as maa3_tpu/system.py:164
+    builds it) for video_feat and video_feat_inpaint."""
+    if kind.startswith("video_feat"):
+        return VideoFeatEncoder(512, context_dim)
+    return COND_MODULES[kind](clap_cfg)
 
 
 @torch.no_grad()
@@ -123,6 +149,22 @@ def flan_encode(m: FLAN, ids: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """FrozenFLANEmbedder: (B, 77) T5 ids -> (B, 77, d_model)."""
     return t5_apply(m.transformer, ids, mask)
+
+
+def video_feat_encoder_apply(m: VideoFeatEncoder, x: torch.Tensor,
+                             compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(B, Lv, 512) video features -> (B, Lv, context_dim)
+    (maa3_tpu/models/clap.py:137)."""
+    return linear(m.embedder[0], x, compute_dtype)
+
+
+def clap_fusion_apply(m: ClapFusion, video_feat: torch.Tensor, text_emb: torch.Tensor,
+                      compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """video_feat (B, Lv, Dv) and text_emb (B, Dt) -> (B, Lv, out): each frame
+    concatenated with the text embedding, then one Linear
+    (maa3_tpu/models/clap.py:117)."""
+    tiled = text_emb[:, None, :].expand(-1, video_feat.shape[1], -1).to(video_feat.dtype)
+    return linear(m.fuse, torch.cat([video_feat, tiled], dim=-1), compute_dtype)
 
 
 def clap_flan_encode_batch(m: nn.Module, tokens: dict) -> torch.Tensor:

@@ -183,19 +183,58 @@ def unfreeze_zero_init(dit: DiT, generator: torch.Generator,
     return dit
 
 
-@torch.no_grad()
-def serving_copy(dit: DiT, dtype: torch.dtype) -> DiT:
-    """Inference copy: matmul weights rounded to `dtype`, q/k/v and w1/w3
-    fused into single GEMMs (norms, biases and gates stay fp32)."""
-    s = copy.deepcopy(dit)
-    for m in s.modules():
-        if isinstance(m, nn.Linear):
-            m.weight.data = m.weight.data.to(dtype)
-    for blk in s.blocks:
+def _fuse_serving(dit: nn.Module) -> None:
+    """wq/wk/wv -> attention.wqkv and w1/w3 -> feed_forward.w13 (plain
+    tensors, in the weights' dtype) in every block; a MoE block's experts
+    stay as they are (nprand.fuse_dit_gemms)."""
+    for blk in dit.blocks:
         att, ff = blk.attention, blk.feed_forward
         att.wqkv = torch.cat([att.wq.weight, att.wk.weight, att.wv.weight])
-        ff.w13 = torch.cat([ff.w1.weight, ff.w3.weight])
-        del att.wq, att.wk, att.wv, ff.w1, ff.w3
+        del att.wq, att.wk, att.wv
+        if isinstance(ff, FeedForward):
+            ff.w13 = torch.cat([ff.w1.weight, ff.w3.weight])
+            del ff.w1, ff.w3
+
+
+def _cast_matmul_weights(dit: nn.Module, dtype: torch.dtype) -> None:
+    """Every float matmul weight to `dtype` (nn.Linear weights and fused
+    wqkv / w13 tensors; int8 weights, norms, biases and gates as they are:
+    JAX's cast_matmul_weights)."""
+    for m in dit.modules():
+        if isinstance(m, nn.Linear):
+            m.weight.data = m.weight.data.to(dtype)
+        for name in ("wqkv", "w13"):
+            w = getattr(m, name, None)
+            if isinstance(w, torch.Tensor):
+                setattr(m, name, w.to(dtype))
+
+
+@torch.no_grad()
+def serving_copy(dit: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Inference copy: matmul weights rounded to `dtype`, q/k/v and w1/w3
+    fused into single GEMMs (norms, biases and gates stay fp32). Also the
+    video MoE DiT (models/dit_moe.py), whose experts are not fused."""
+    s = copy.deepcopy(dit)
+    _cast_matmul_weights(s, dtype)
+    _fuse_serving(s)
+    return s
+
+
+@torch.no_grad()
+def quant_serving_copy(dit: nn.Module, group_size: int = 0, skip_w2: bool = False,
+                       smooth_stats: Optional[dict] = None) -> nn.Module:
+    """The int8 serving copy in JAX's order (maa3_tpu/system.py:279-300): fuse
+    in fp32, SmoothQuant migration when `smooth_stats` are given, quantize
+    the per-step GEMMs from the fp32 weights (ops/quant.py
+    quantize_dit_serving), then cast every other matmul weight to bf16
+    whatever the compute dtype."""
+    from maa3_tpu_torch.ops.quant import quantize_dit_serving, smooth_migrate_dit
+    s = copy.deepcopy(dit)
+    _fuse_serving(s)
+    if smooth_stats is not None:
+        smooth_migrate_dit(s, smooth_stats)
+    quantize_dit_serving(s, group_size=group_size, skip_w2=skip_w2)
+    _cast_matmul_weights(s, torch.bfloat16)
     return s
 
 
@@ -208,8 +247,10 @@ def fuse_dit_gemms(dit: DiT) -> DiT:
     for blk in f.blocks:
         att, ff = blk.attention, blk.feed_forward
         att.wqkv = nn.Parameter(torch.cat([att.wq.weight, att.wk.weight, att.wv.weight]))
-        ff.w13 = nn.Parameter(torch.cat([ff.w1.weight, ff.w3.weight]))
-        del att.wq, att.wk, att.wv, ff.w1, ff.w3
+        del att.wq, att.wk, att.wv
+        if isinstance(ff, FeedForward):  # a MoE block's experts stay as they are
+            ff.w13 = nn.Parameter(torch.cat([ff.w1.weight, ff.w3.weight]))
+            del ff.w1, ff.w3
     return f
 
 
@@ -220,7 +261,8 @@ def fuse_dit_state(state: Dict[str, torch.Tensor], depth: int) -> Dict[str, torc
     for i in range(depth):
         a, f = f"blocks.{i}.attention.", f"blocks.{i}.feed_forward."
         out[a + "wqkv"] = torch.cat([out.pop(a + n + ".weight") for n in ("wq", "wk", "wv")])
-        out[f + "w13"] = torch.cat([out.pop(f + n + ".weight") for n in ("w1", "w3")])
+        if f + "w1.weight" in out:  # not a MoE block
+            out[f + "w13"] = torch.cat([out.pop(f + n + ".weight") for n in ("w1", "w3")])
     return out
 
 
@@ -266,26 +308,36 @@ def remat_policy_fn(policy: str):
     return functools.partial(_policy, REMAT_SAVES[policy])
 
 
+def _amax(a: torch.Tensor) -> torch.Tensor:
+    return a.float().abs().amax(dim=(0, 1))
+
+
 def _block_apply(blk: TransformerBlock, cfg: DiTConfig, x, cos, sin, mod,
                  y=None, y_kv=None, x_mask=None, y_mask=None,
-                 compute_dtype=None):
-    """TransformerBlock.forward with the (B, 6H) modulation given."""
+                 compute_dtype=None, return_stats: bool = False):
+    """TransformerBlock.forward with the (B, 6H) modulation given.
+    return_stats: also {attn_in, ffn_in, ffn_prod}, the per-channel amax of
+    the three quantized-GEMM inputs (maa3_tpu/models/dit.py:376-419)."""
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
         mod.chunk(6, dim=-1))
+    x_attn_in = modulate(rms_norm(blk.attention_norm.weight, x, cfg.norm_eps),
+                         shift_msa, scale_msa)
     h_attn = attention_apply(
-        blk.attention,
-        modulate(rms_norm(blk.attention_norm.weight, x, cfg.norm_eps),
-                 shift_msa, scale_msa),
+        blk.attention, x_attn_in,
         cos, sin, y=y, y_kv=y_kv, x_mask=x_mask, y_mask=y_mask,
         n_heads=cfg.num_heads, n_kv_heads=cfg.n_kv_heads,
         compute_dtype=compute_dtype, use_flash=cfg.flash_for_len(x.shape[1]),
         fp32_scores=cfg.fp32_scores)
     h = x + gate_msa[:, None, :].to(x.dtype) * h_attn
-    h_ffn = feed_forward_apply(
-        blk.feed_forward,
-        modulate(rms_norm(blk.ffn_norm.weight, h, cfg.norm_eps),
-                 shift_mlp, scale_mlp),
-        compute_dtype)
+    x_ffn_in = modulate(rms_norm(blk.ffn_norm.weight, h, cfg.norm_eps),
+                        shift_mlp, scale_mlp)
+    h_ffn = feed_forward_apply(blk.feed_forward, x_ffn_in, compute_dtype,
+                               return_stats=return_stats)
+    if return_stats:
+        h_ffn, prod_amax = h_ffn
+        stats = {"attn_in": _amax(x_attn_in), "ffn_in": _amax(x_ffn_in),
+                 "ffn_prod": prod_amax}
+        return h + gate_mlp[:, None, :].to(h.dtype) * h_ffn, stats
     return h + gate_mlp[:, None, :].to(h.dtype) * h_ffn
 
 
@@ -393,14 +445,24 @@ def dit_apply_planned(dit: DiT, x: torch.Tensor, mods: torch.Tensor,
                       final_mod: torch.Tensor, yk, yv,
                       x_mask: Optional[torch.Tensor] = None,
                       y_mask: Optional[torch.Tensor] = None,
-                      compute_dtype: Optional[torch.dtype] = torch.bfloat16):
+                      compute_dtype: Optional[torch.dtype] = torch.bfloat16,
+                      return_stats: bool = False):
     """dit_apply for one step of a plan (mods: (depth, B, 6H),
-    final_mod: (B, 2H), yk/yv: per-block (B, Ly, kv))."""
+    final_mod: (B, 2H), yk/yv: per-block (B, Ly, kv)). return_stats: also
+    {"attn_in", "ffn_in": (depth, H), "ffn_prod": (depth, H')}, the
+    per-block, per-channel amax of the quantized-GEMM inputs."""
     cfg = dit.cfg
     h, cos, sin = _embed(dit, x, compute_dtype)
+    stats = []
     for i, blk in enumerate(dit.blocks):
         h = _block_apply(blk, cfg, h, cos, sin, mods[i], y_kv=(yk[i], yv[i]),
                          x_mask=x_mask, y_mask=y_mask,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, return_stats=return_stats)
+        if return_stats:
+            h, st = h
+            stats.append(st)
     shift, scale = final_mod.chunk(2, dim=-1)
-    return _final(dit, h, shift, scale)
+    out = _final(dit, h, shift, scale)
+    if return_stats:
+        return out, {k: torch.stack([st[k] for st in stats]) for k in stats[0]}
+    return out

@@ -41,6 +41,10 @@ class VAEConfig:
     def num_layers(self) -> int:
         return len(self.ch_mult)
 
+    @property
+    def downsample_rate(self) -> int:
+        return 2 ** len(self.down_layers)
+
 
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)

@@ -5,7 +5,9 @@ dtype rules: with a compute dtype both operands are cast to it; without one
 the product runs in the promoted type of input and weight (a bf16-rounded
 weight times an fp32 input computes in fp32). `dense(names=...)` runs its
 matmul under checkpoint names (JAX's `checkpoint_name`), which the DiT's
-remat policies read (models/dit.py `remat_policy_fn`).
+remat policies read (models/dit.py `remat_policy_fn`). A `QuantWeight`
+(ops/quant.py) runs the int8 w8a8 product instead, so call sites stay
+unaware of the serving mode (maa3_tpu/ops/basic.py:53-56).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from maa3_tpu_torch.ops.quant import QuantWeight, dense_w8a8
 
 _NAMES = threading.local()
 
@@ -32,7 +35,10 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
           compute_dtype: Optional[torch.dtype] = None,
           names: Tuple[str, ...] = ()) -> torch.Tensor:
     """y = x @ w.T + b, w in (out, in) layout; the matmul runs under `names`
-    (a fused projection carries the names of each of its parts)."""
+    (a fused projection carries the names of each of its parts). A
+    QuantWeight w runs dense_w8a8."""
+    if isinstance(w, QuantWeight):
+        return dense_w8a8(x, w, b, compute_dtype)
     dt = compute_dtype or torch.promote_types(x.dtype, w.dtype)
     x, w = x.to(dt), w.to(dt)
     if names:

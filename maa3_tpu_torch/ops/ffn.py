@@ -38,11 +38,18 @@ class FeedForward(nn.Module):
 
 
 def feed_forward_apply(ff: FeedForward, x: torch.Tensor,
-                       compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                       compute_dtype: Optional[torch.dtype] = None,
+                       return_stats: bool = False):
+    """return_stats: also the per-channel amax of the w2 input (the SwiGLU
+    product), fp32, for SmoothQuant calibration (ops/quant.py)."""
     if ff.w13 is not None:
         x1, x3 = dense(x, ff.w13, None, compute_dtype,
                        names=("ffn_h1", "ffn_h3")).chunk(2, dim=-1)
     else:
         x1 = dense(x, ff.w1.weight, None, compute_dtype, names=("ffn_h1",))
         x3 = dense(x, ff.w3.weight, None, compute_dtype, names=("ffn_h3",))
-    return dense(silu(x1) * x3, ff.w2.weight, None, compute_dtype, names=("ffn_out",))
+    prod = silu(x1) * x3
+    out = dense(prod, ff.w2.weight, None, compute_dtype, names=("ffn_out",))
+    if return_stats:
+        return out, prod.float().abs().amax(dim=tuple(range(prod.dim() - 1)))
+    return out

@@ -19,6 +19,8 @@ from maa3_tpu_torch.diffusion import cfm
 from maa3_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, bigvgan_apply, bigvgan_init_
 from maa3_tpu_torch.models.dit import (DiT, DiTConfig, dit_apply_planned,
                                        dit_init_, dit_sample_plan)
+from maa3_tpu_torch.models.dit_moe import (MoEDiT, moe_dit_apply_planned,
+                                           moe_dit_sample_plan)
 from maa3_tpu_torch.models.vae1d import AutoencoderKL, VAEConfig, vae_decode, vae_init_
 
 
@@ -62,7 +64,8 @@ def sample_planned(dit: DiT, x0, context, uncond, guidance_scale: float,
     timestep grid computed once, up front (dit_sample_plan). A batch of B
     rows runs as B / chunk sequential sub-batches when B > chunk and chunk
     divides B (chunk: ode_chunk() unless given; maa3_tpu/system.py:508-538):
-    the rows are independent, so the result is the same."""
+    the rows are independent, so the result is the same. A video MoE DiT
+    runs its own plan (models/dit_moe.py) and takes no masks."""
     b = x0.shape[0]
     chunk = ode_chunk() if chunk is None else chunk
     if chunk and b > chunk and b % chunk == 0:
@@ -79,6 +82,19 @@ def sample_planned(dit: DiT, x0, context, uncond, guidance_scale: float,
     mask_in = dual_mask(context_mask, uncond_mask, uncond)
     t_ints = torch.as_tensor(cfm.planned_t_ints(steps, num_timesteps=num_timesteps),
                              device=x0.device)
+    if isinstance(dit, MoEDiT):  # the video MoE (maa3_tpu/system.py:471-487)
+        if mask_in is not None:
+            raise ValueError("context masks are not supported for the video "
+                             "MoE backbone (fixed-length features)")
+        mplan = moe_dit_sample_plan(dit, t_ints, ctx_in, compute_dtype=compute_dtype)
+
+        def moe_vel(x_in, s):
+            return moe_dit_apply_planned(dit, x_in, mplan["mods"][s], mplan["final"][s],
+                                         mplan["tidx"][s], mplan["yk"], mplan["yv"],
+                                         mplan["freq_sliced"], compute_dtype)
+
+        return cfm.sample_cfg_planned(moe_vel, x0, len(t_ints), guidance_scale,
+                                      steps=steps)
     plan = dit_sample_plan(dit, t_ints, ctx_in, context_mask=mask_in,
                            compute_dtype=compute_dtype)
 

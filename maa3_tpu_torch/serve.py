@@ -14,14 +14,16 @@ default; bf16 serving copy of the DiT, fp32 residual, bf16 vocoder), fp32
 (fp32 throughout, without TF32), or fp32_highest, which names the JAX
 package's six-pass fp32 matmul setting and is fp32 here: the card's fp32
 path already runs without TF32. --fp32 is the deprecated alias of
---precision fp32. Not yet in the port: --quant (int8 serving) and
---n_model (tensor-parallel serving).
+--precision fp32. --quant selects int8 serving
+(MAA3System.set_serving_quant) and composes with --precision bf16 only. Not
+yet in the port: --n_model (tensor-parallel serving).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import torch
 
@@ -44,6 +46,9 @@ def parse_args(argv=None):
                    choices=["bf16", "fp32", "fp32_highest"],
                    help="bf16 (default), or fp32 without TF32 (fp32_highest "
                         "is the same on the card)")
+    p.add_argument("--quant", type=str, default="",
+                   help="int8 w8a8 per-step DiT GEMMs; composes with "
+                        "--precision bf16 only")
     p.add_argument("--steps", type=int, default=25)
     p.add_argument("--scale", type=float, default=5.0)
     p.add_argument("--max_batch", type=int, default=8)
@@ -67,11 +72,15 @@ def main(argv=None):
     cfg_paths = [c for c in opt.base.split(",") if c] or [
         os.path.join(root, "configs", "txt2audio-cfm-cfg.yaml")]
     precision = "fp32" if opt.fp32 else opt.precision
+    if opt.quant and precision != "bf16":
+        sys.exit("--quant int8 composes with --precision bf16 only")
     system = MAA3System.from_config(
         cfg_paths, seed=opt.seed, device=opt.device,
         compute_dtype=torch.bfloat16 if precision == "bf16" else torch.float32,
         tokenizer_dir=opt.tokenizer_dir or None, ckpt_path=opt.resume or None,
         vocoder_dir=opt.vocoder_ckpt or None)
+    if opt.quant:
+        system.set_serving_quant(opt.quant)
     if not opt.resume:
         print("WARNING: no checkpoint given (-r); serving random weights")
     server = AudioServer(

@@ -1,18 +1,26 @@
 """MAA3System: config, weights, conditioning, sampling and decoding in one
-runtime object (counterpart of maa3_tpu/system.py: text-to-audio and
-text-to-music).
+runtime object (counterpart of maa3_tpu/system.py: text-to-audio,
+text-to-music, and video-to-audio with the MoE DiT).
 
 Weights come from a seed, from the reference's Lightning `.ckpt` (with its
 vocoder directory), or from a checkpoint of the port's own Trainer
 (`from_config(ckpt_path=, vocoder_dir=)`). Serving in bf16 runs a serving
 copy of the DiT (matmul weights rounded to bf16, q/k/v and w1/w3 fused)
-with the residual stream carried in fp32 (system.py:421-433); the VAE
-decodes in fp32; the vocoder runs in the compute dtype through the K1/K2
-kernels on CUDA.
+with the residual stream carried in fp32 for the text DiT
+(system.py:421-433); the VAE decodes in fp32; the vocoder runs in the
+compute dtype through the K1/K2 kernels on CUDA.
+
+int8 serving (`set_serving_quant("int8[:g<N>][,now2][,voc|,novoc][,smooth]")`):
+the serving copy is fused, migrated (SmoothQuant, after `calibrate_smooth`),
+quantized from the fp32 weights and cast to bf16 (ops/quant.py); `:voc`
+also runs the wide vocoder stages' resblock convs w8a8
+(models/bigvgan.py quantize_bigvgan). Both serving copies are rebuilt when
+the mode or a canonical parameter changes.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -27,11 +35,14 @@ from maa3_tpu_torch import torch_import
 from maa3_tpu_torch.config import ModelSpec
 from maa3_tpu_torch.data.tokenizers import load_tokenizer
 from maa3_tpu_torch.diffusion import cfm
-from maa3_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, bigvgan_init_
-from maa3_tpu_torch.models.clap import (COND_MODULES, CLAPFLANConfig,
-                                        clap_flan_encode_batch, clap_flan_init_)
-from maa3_tpu_torch.models.dit import (DiT, dit_apply, dit_init_, serving_copy,
-                                       unfreeze_zero_init)
+from maa3_tpu_torch.models.bigvgan import (BigVGAN, BigVGANConfig, bigvgan_init_,
+                                           quantize_bigvgan)
+from maa3_tpu_torch.models.clap import (CLAPFLANConfig, clap_flan_encode_batch,
+                                        clap_flan_init_, make_conditioner,
+                                        video_feat_encoder_apply)
+from maa3_tpu_torch.models.dit import (DiT, dit_apply, dit_init_, quant_serving_copy,
+                                       serving_copy, unfreeze_zero_init)
+from maa3_tpu_torch.models.dit_moe import MoEDiT, moe_dit_apply
 from maa3_tpu_torch.models.vae1d import (AutoencoderKL, gaussian_sample,
                                          vae_encode_moments, vae_init_)
 from maa3_tpu_torch.ops.flash_attention import MAX_HEAD_DIM
@@ -41,6 +52,46 @@ from maa3_tpu_torch.pipeline import T2APipeline, full_fp32, sample_planned
 # (maa3_tpu/system.py:189-190)
 VOCODER_FILES = ("generator.pt", "generator.pth", "g_02500000", "g_02500000.pth",
                  "bigvgan_generator.pt", "best_netG.pt")
+
+
+def _parse_quant_mode(mode: str):
+    """ "int8[:g<N>][,now2][,voc|,novoc][,smooth]" -> (group_size, skip_w2,
+    quant_voc, smooth); anything else raises ValueError
+    (maa3_tpu/system.py:42)."""
+    base, _, opts = mode.partition(":")
+    if base != "int8":
+        raise ValueError(f"unknown serving quant mode: {mode!r}")
+    group, skip_w2, quant_voc, smooth = 0, False, False, False
+    for o in filter(None, opts.split(",")):
+        if o.startswith("g") and o[1:].isdigit():
+            group = int(o[1:])
+        elif o == "now2":
+            skip_w2 = True
+        elif o == "voc":
+            quant_voc = True
+        elif o == "novoc":
+            quant_voc = False
+        elif o == "smooth":
+            smooth = True
+        else:
+            raise ValueError(f"unknown int8 variant option: {o!r} in {mode!r}")
+    return group, skip_w2, quant_voc, smooth
+
+
+def with_cfg(dit: nn.Module, cfg) -> nn.Module:
+    """`dit` run under another config: a shallow copy sharing its weights."""
+    d = copy.copy(dit)
+    d.cfg = cfg
+    return d
+
+
+def dit_module(spec: ModelSpec) -> nn.Module:
+    """The config's backbone, uninitialised: the text DiT or the video MoE."""
+    return (MoEDiT if spec.backbone_kind == "video_moe_dit" else DiT)(spec.dit)
+
+
+def _versions(m: nn.Module):
+    return (id(m), tuple(t._version for t in m.parameters()))
 
 
 def check_limits(spec: ModelSpec, device, latent_len: Optional[int] = None) -> None:
@@ -104,12 +155,13 @@ def _trainer_states(payload: dict, mods: Dict[str, nn.Module]) -> Dict[str, dict
 
 
 class MAA3System:
-    def __init__(self, spec: ModelSpec, dit: DiT, vae: AutoencoderKL,
+    def __init__(self, spec: ModelSpec, dit: nn.Module, vae: AutoencoderKL,
                  vocoder: BigVGAN, cond: Optional[nn.Module],
                  scale_factor: float = 1.0,
                  tokenizer_dir: Optional[str] = None,
                  compute_dtype: torch.dtype = torch.bfloat16):
-        """cond: the conditioner of spec.cond_kind (COND_MODULES), or None."""
+        """dit: a DiT, or a MoEDiT for the video backbone; cond: the
+        conditioner of spec.cond_kind (clap.make_conditioner), or None."""
         self.spec = spec
         self.dit, self.vae, self.vocoder, self.cond = dit, vae, vocoder, cond
         for m in (dit, vae, vocoder, cond):  # inference only
@@ -125,6 +177,10 @@ class MAA3System:
             os.path.join(tk_root, "t5") if tk_root else None, "t5")
         self._serving_dit = None
         self._serving_key = None
+        self._serving_voc = None
+        self._serving_voc_key = None
+        self._smooth_stats = None   # SmoothQuant calibration (calibrate_smooth)
+        self.serve_quant: Optional[str] = None  # set_serving_quant
 
     # -- construction ------------------------------------------------------
 
@@ -147,6 +203,7 @@ class MAA3System:
           conditioner (their EMA shadows when present), the frozen VAE and
           the scale_factor;
         - vocoder_dir: config.json and the generator (vocoder_from_dir).
+        The video config builds the MoE DiT and the video feature encoder.
         Checkpoint tensors are read on the CPU and copied into the modules.
         init_cond=False leaves the system without a conditioner when the
         checkpoint has none. unfreeze=True makes a random DiT's zero-init
@@ -166,10 +223,10 @@ class MAA3System:
         has_cond = init_cond or "cond" in states or (
             trainer_file and "cond" in raw["params"])
         with torch.device(device):
-            dit = DiT(spec.dit)
+            dit = dit_module(spec)
             vae = AutoencoderKL(spec.vae)
-            cond = COND_MODULES[spec.cond_kind](clap_cfg or CLAPFLANConfig()) \
-                if has_cond else None
+            cond = make_conditioner(spec.cond_kind, clap_cfg or CLAPFLANConfig(),
+                                    spec.dit.context_dim) if has_cond else None
         dit_init_(dit, gen)
         if unfreeze:
             unfreeze_zero_init(dit, gen)
@@ -200,9 +257,10 @@ class MAA3System:
         reference keys (e.g. weights.params_from_jax); the conditioner is
         spec.cond_kind's."""
         with torch.device(device):
-            mods = {"dit": DiT(spec.dit), "vae": AutoencoderKL(spec.vae),
+            mods = {"dit": dit_module(spec), "vae": AutoencoderKL(spec.vae),
                     "vocoder": BigVGAN(voc_cfg),
-                    "cond": COND_MODULES[spec.cond_kind](clap_cfg)}
+                    "cond": make_conditioner(spec.cond_kind, clap_cfg,
+                                             spec.dit.context_dim)}
         for k, m in mods.items():
             m.load_state_dict(state[k])
         return cls(spec, mods["dit"], mods["vae"], mods["vocoder"], mods["cond"],
@@ -246,13 +304,17 @@ class MAA3System:
     def get_learned_conditioning(self, c) -> torch.Tensor:
         """In fp32, per spec.cond_kind (maa3_tpu/system.py:371-400):
         clap_flan takes {'ori_caption', 'struct_caption'} or list[str] ->
-        (B, 154, 1024); flan and clap take list[str] -> (B, 77, 1024). A dict
-        given to flan or clap raises TypeError: JAX's list(c) of it encodes
-        the dict's two keys as captions."""
+        (B, 154, 1024); flan and clap take list[str] -> (B, 77, 1024); the
+        video conditioners take (B, Lv, 512) features -> (B, Lv, context). A
+        dict given to flan or clap raises TypeError: JAX's list(c) of it
+        encodes the dict's two keys as captions."""
         kind = self.spec.cond_kind
         if self.cond is None:
             raise ValueError("this system has no conditioner (init_cond=False "
                              "and none in the checkpoint)")
+        if kind.startswith("video_feat"):
+            return video_feat_encoder_apply(
+                self.cond, torch.as_tensor(c, dtype=torch.float32, device=self.device))
         if kind != "clap_flan" and isinstance(c, dict):
             raise TypeError(f"the {kind} conditioner takes a list of captions, "
                             f"not a dict (see MAA3System.captions)")
@@ -260,24 +322,93 @@ class MAA3System:
 
     # -- sampling ----------------------------------------------------------
 
-    def serving_dit(self) -> DiT:
-        """The DiT as the sampler runs it: in bf16 a serving copy with an
-        fp32 residual, rebuilt whenever a canonical parameter changed."""
-        if self.compute_dtype == torch.float32:
+    @property
+    def moe(self) -> bool:
+        return self.spec.backbone_kind == "video_moe_dit"
+
+    def _serving_cfg(self):
+        """The DiT config the samplers run: in bf16 the text DiT carries its
+        residual stream in fp32; the MoE has no such knob
+        (maa3_tpu/system.py:421-432)."""
+        cfg = self.dit.cfg
+        if self.compute_dtype == torch.bfloat16 and not self.moe:
+            cfg = dataclasses.replace(cfg, fp32_residual=True)
+        return cfg
+
+    def set_serving_quant(self, mode: Optional[str]) -> None:
+        """None (bf16 / fp32 by compute_dtype) or an int8 mode
+        "int8[:g<N>][,now2][,voc|,novoc][,smooth]" (maa3_tpu/system.py:332):
+        w8a8 per-step DiT GEMMs; g<N> per-group scales, now2 keeps w2 float,
+        voc also quantizes the wide vocoder convs, smooth needs
+        calibrate_smooth first. Raises ValueError on any other string."""
+        if mode is not None:
+            _parse_quant_mode(mode)
+        self.serve_quant = mode
+        self._serving_dit = self._serving_voc = None
+
+    def calibrate_smooth(self, cond: torch.Tensor, uncond: torch.Tensor,
+                         generator: Optional[torch.Generator] = None,
+                         timesteps: int = 25, scale: float = 5.0, shape=None,
+                         x0: Optional[torch.Tensor] = None) -> None:
+        """SmoothQuant calibration for int8:smooth (maa3_tpu/system.py:346):
+        one CFG ODE of the canonical DiT from x0 (drawn from `generator` when
+        not given) records the per-(block, channel) amax of the quantized-GEMM
+        inputs; the next serving copy migrates its weights by them."""
+        if self.moe:
+            raise NotImplementedError(
+                "smooth migration targets the text DiT serving path")
+        from maa3_tpu_torch.ops.quant import calibrate_dit_smooth
+        if x0 is None:
+            if shape is None:
+                shape = (cond.shape[0], self.spec.mel_dim, self.spec.mel_length)
+            x0 = torch.randn(shape, generator=generator, device=self.device)
+        self._smooth_stats = calibrate_dit_smooth(
+            with_cfg(self.dit, self._serving_cfg()), x0, cond, uncond,
+            guidance_scale=scale, steps=timesteps, compute_dtype=self.compute_dtype)
+        self._serving_dit = None
+
+    def serving_dit(self) -> nn.Module:
+        """The DiT as the sampler runs it (maa3_tpu/system.py:259-317): with an
+        int8 mode the quantized copy (models/dit.py quant_serving_copy), in
+        bf16 a serving copy, in fp32 the DiT itself; rebuilt whenever the mode
+        or a canonical parameter changed."""
+        if self.serve_quant is None and self.compute_dtype == torch.float32:
             return self.dit
-        key = (id(self.dit), tuple(p._version for p in self.dit.parameters()))
+        key = (_versions(self.dit), self.serve_quant, id(self._smooth_stats))
         if self._serving_dit is None or self._serving_key != key:
-            s = serving_copy(self.dit, self.compute_dtype)
-            s.cfg = dataclasses.replace(s.cfg, fp32_residual=True)
+            if self.serve_quant:
+                group, skip_w2, _, smooth = _parse_quant_mode(self.serve_quant)
+                if smooth and self._smooth_stats is None:
+                    raise RuntimeError(
+                        "serve_quant 'int8:smooth' needs activation stats - call "
+                        "system.calibrate_smooth(cond, uncond) once before sampling")
+                s = quant_serving_copy(self.dit, group, skip_w2,
+                                       self._smooth_stats if smooth else None)
+            else:
+                s = serving_copy(self.dit, self.compute_dtype)
+            s.cfg = self._serving_cfg()
             self._serving_dit, self._serving_key = s, key
         return self._serving_dit
+
+    def velocity_fn(self, dit: nn.Module):
+        """velocity(x, t_int, context) of `dit` in the compute dtype, as the
+        system's unplanned samplers run it (maa3_tpu/system.py:404): the MoE
+        through moe_dit_apply, the text DiT under the serving config."""
+        if self.moe:
+            return lambda x, t, c: moe_dit_apply(dit, x, t, c, self.compute_dtype)
+        d = with_cfg(dit, self._serving_cfg())
+        return lambda x, t, c: dit_apply(d, x, t, c, compute_dtype=self.compute_dtype)
 
     @torch.no_grad()
     def sample_cfg(self, cond: torch.Tensor, scale: float, uncond: torch.Tensor,
                    generator: Optional[torch.Generator] = None, shape=None,
                    timesteps: int = 25, cond_mask=None, uncond_mask=None,
                    x0: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Planned CFG ODE; x0 (B, C, L) overrides generator/shape."""
+        """Planned CFG ODE; x0 (B, C, L) overrides generator/shape. The video
+        MoE takes no context masks (ValueError)."""
+        if cond_mask is not None and self.moe:
+            raise ValueError("context masks are not supported for the video "
+                             "MoE backbone (fixed-length features)")
         if x0 is None:
             if shape is None:
                 shape = (cond.shape[0], self.spec.mel_dim, self.spec.mel_length)
@@ -296,19 +427,26 @@ class MAA3System:
             if shape is None:
                 shape = (cond.shape[0], self.spec.mel_dim, self.spec.mel_length)
             x0 = torch.randn(shape, generator=generator, device=self.device)
-        dit = self.serving_dit()
-
-        def velocity(x, t, c):
-            return dit_apply(dit, x, t, c, compute_dtype=self.compute_dtype)
-
-        return cfm.sample(velocity, x0.float(), cond, steps=timesteps,
-                          num_timesteps=self.spec.timesteps)
+        return cfm.sample(self.velocity_fn(self.serving_dit()), x0.float(), cond,
+                          steps=timesteps, num_timesteps=self.spec.timesteps)
 
     # -- first stage / vocoder --------------------------------------------
 
     def _pipeline(self) -> T2APipeline:
-        return T2APipeline(self.dit, self.vae, self.vocoder, self.scale_factor,
-                           self.compute_dtype)
+        return T2APipeline(self.dit, self.vae, self.serving_vocoder(),
+                           self.scale_factor, self.compute_dtype)
+
+    def serving_vocoder(self) -> BigVGAN:
+        """The vocoder as vocode runs it: under an int8 mode with `voc`, a copy
+        whose wide-stage resblock convs are int8 (quantize_bigvgan), rebuilt
+        when the mode or a vocoder parameter changed
+        (maa3_tpu/system.py:582-595)."""
+        if not self.serve_quant or not _parse_quant_mode(self.serve_quant)[2]:
+            return self.vocoder
+        key = _versions(self.vocoder)
+        if self._serving_voc is None or self._serving_voc_key != key:
+            self._serving_voc, self._serving_voc_key = quantize_bigvgan(self.vocoder), key
+        return self._serving_voc
 
     @torch.no_grad()
     def encode_first_stage(self, mel: torch.Tensor,

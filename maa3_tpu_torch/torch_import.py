@@ -6,7 +6,9 @@ A Lightning state dict holds `model.diffusion_model.*` (the DiT),
 `first_stage_model.*` (the VAE), `cond_stage_model.*` (the conditioner),
 optionally `model_ema.*` (LitEma's shadows of the DiT, dots removed from
 their names) and the `scale_factor` buffer. The port's modules carry the
-reference's own keys, so a component loads by stripping its prefix,
+reference's own keys (the video MoE DiT's too: blocks.{i}.feed_forward.
+{time,freq}_experts.{e}.w{1,2,3} and c_embedder.mlp.{0,2,3}, the keys JAX's
+dit_from_torch(moe=True) reads), so a component loads by stripping its prefix,
 folding weight norm (vocoder) and `load_module_state`: the keys no JAX
 importer reads (HF's tied `encoder.embed_tokens.weight`, `*.position_ids`,
 `*.pooler.*`, the vocoder's resampling filters, LitEma's counters, a

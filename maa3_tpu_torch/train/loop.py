@@ -1,5 +1,8 @@
-"""Trainer for one device (counterpart of maa3_tpu/train/loop.py, the
-text-to-audio DiT with its text conditioner).
+"""Trainer for one device (counterpart of maa3_tpu/train/loop.py: the
+text-to-audio DiT with its text conditioner, and the video MoE DiT with its
+video feature encoder, trained through moe_dit_apply(training=True) on
+batches with `video_feat`, as maa3_tpu/train/loop.py:217-222 and :290-291;
+expert parallelism, n_expert > 1, is not in the port).
 
 - lr = base_learning_rate * accum_steps * batch_size (main.py:786-790, one
   process);
@@ -43,11 +46,16 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from maa3_tpu_torch.models.clap import clap_flan_encode_batch
+from maa3_tpu_torch.models.clap import clap_flan_encode_batch, video_feat_encoder_apply
 from maa3_tpu_torch.models.dit import fuse_dit_gemms, fuse_dit_state, unfuse_dit_gemms
+from maa3_tpu_torch.models.dit_moe import moe_dit_apply
 from maa3_tpu_torch.train.optim import make_optimizer
 from maa3_tpu_torch.train.step import (create_train_state, make_eval_step,
                                        make_train_step, sample_latent)
+
+
+def _encode_video(cond, batch: dict) -> torch.Tensor:
+    return video_feat_encoder_apply(cond, batch["video_feat"])
 
 
 def _caps_from_batch(raw: dict) -> List[dict]:
@@ -66,14 +74,20 @@ class Trainer:
                  ckpt_every: int = 2000, ckpt_dir: str = "logs/ckpt",
                  train_cond: Optional[bool] = None, accum_steps: int = 1,
                  mu_dtype: torch.dtype = torch.float32, fuse_gemms: bool = False,
-                 factored: bool = False):
+                 factored: bool = False, n_expert: int = 1):
         """system: MAA3System (config, DiT, VAE, conditioner, tokenizers).
         Trains system.dit (a fused copy of it with fuse_gemms) and system.cond
         with train_cond, which defaults to the config's cond_stage_trainable,
         in place, in system.compute_dtype. accum_steps: optimizer updates every
         accum_steps micro-batches (accumulate_grad_batches); mu_dtype: the
         storage dtype of the first moment; factored: adafactor instead of
-        AdamW. ckpt_every=0 writes no periodic checkpoint."""
+        AdamW. ckpt_every=0 writes no periodic checkpoint. n_expert > 1
+        (expert parallelism across devices) raises: the port trains on one
+        device."""
+        if n_expert > 1:
+            raise NotImplementedError(
+                f"n_expert={n_expert}: expert parallelism of the video MoE across "
+                "devices is not in the port yet (ROADMAP item 9); use n_expert=1")
         self.system = system
         self.spec = system.spec
         self.log_every = log_every
@@ -98,11 +112,18 @@ class Trainer:
                                    factored=factored, accum_steps=self.accum_steps)
         self.state = create_train_state(dit, system.vae, optimizer, use_ema,
                                         self.spec.scale_factor, cond=cond)
-        conditioner = clap_flan_encode_batch if self.train_cond else None
+        self.video = self.spec.cond_kind.startswith("video_feat")
+        conditioner = None
+        if self.train_cond:
+            conditioner = (_encode_video if self.video else clap_flan_encode_batch)
         cdt = system.compute_dtype
+        apply_fn = None
+        if self.spec.backbone_kind == "video_moe_dit":
+            def apply_fn(dit, x, t, c):
+                return moe_dit_apply(dit, x, t, c, compute_dtype=cdt, training=True)
         self._train_step = make_train_step(self.spec.timesteps, ema_decay, cdt,
-                                           conditioner)
-        self._eval_step = make_eval_step(self.spec.timesteps, cdt, conditioner)
+                                           conditioner, apply_fn)
+        self._eval_step = make_eval_step(self.spec.timesteps, cdt, conditioner, apply_fn)
         self._scale_by_std_done = not self.spec.scale_by_std
         self._metrics_path = os.path.join(self.ckpt_dir, "metrics.jsonl")
         self._tb = None
@@ -111,8 +132,9 @@ class Trainer:
 
     def prepare_batch(self, raw: dict) -> Dict[str, torch.Tensor]:
         """Collated host batch -> device tensors: mel or moments, and the
-        batch's `context` if it carries one, else the captions' tokens for
-        the trainable conditioner, else the frozen conditioner's context."""
+        batch's `context` if it carries one, else the captions' tokens (the
+        video features of a video system) for the trainable conditioner,
+        else the frozen conditioner's context."""
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
@@ -120,6 +142,11 @@ class Trainer:
                  else {"mel": dev(raw["image"])})
         if "context" in raw:
             batch["context"] = dev(raw["context"])
+        elif self.video:
+            if self.train_cond:
+                batch["video_feat"] = dev(raw["video_feat"])
+            else:
+                batch["context"] = self.system.get_learned_conditioning(raw["video_feat"])
         elif self.train_cond:
             batch.update(self.system.tokenize(raw["caption"]))
         else:

@@ -17,6 +17,10 @@ posterior `moments`, and either a precomputed `context` or the conditioner's
 token batch (`MAA3System.tokenize`), which `conditioner` encodes inside the
 loss so that its gradients flow.
 
+`apply_fn(dit, x, t_int, context)` replaces the backbone's training forward
+(dit_apply(training=True)); the Trainer passes moe_dit_apply for the video
+MoE DiT, whose conditioner encodes the batch's `video_feat`.
+
 Random draws (posterior noise, timesteps, flow noise) come from a
 torch.Generator, or from `draws` ({"noise", "t_int", "x0"}) so that a test
 can replay another implementation's draws.
@@ -31,7 +35,7 @@ import torch
 from torch import nn
 
 from maa3_tpu_torch.diffusion import cfm
-from maa3_tpu_torch.models.dit import DiT, dit_apply
+from maa3_tpu_torch.models.dit import dit_apply
 from maa3_tpu_torch.models.vae1d import AutoencoderKL, gaussian_sample, vae_encode_moments
 from maa3_tpu_torch.pipeline import full_fp32
 from maa3_tpu_torch.train.optim import Optimizer, ema_update
@@ -43,7 +47,7 @@ Conditioner = Callable[[nn.Module, Dict[str, torch.Tensor]], torch.Tensor]
 @dataclasses.dataclass
 class TrainState:
     step: int
-    dit: DiT                    # trainable, fp32 master weights
+    dit: nn.Module              # trainable DiT or MoEDiT, fp32 master weights
     optimizer: Optimizer
     ema: Optional[List[torch.Tensor]]  # shadows of trainable_parameters()
     vae: AutoencoderKL          # frozen first stage
@@ -58,7 +62,7 @@ class TrainState:
         return [p for m in self.trainable().values() for p in m.parameters()]
 
 
-def create_train_state(dit: DiT, vae: AutoencoderKL, optimizer: Optimizer,
+def create_train_state(dit: nn.Module, vae: AutoencoderKL, optimizer: Optimizer,
                        use_ema: bool = False, scale_factor: float = 1.0,
                        cond: Optional[nn.Module] = None) -> TrainState:
     state = TrainState(0, dit, optimizer, None, vae, float(scale_factor), cond)
@@ -78,7 +82,7 @@ def sample_latent(vae: AutoencoderKL, batch: dict, generator=None,
 
 
 def _loss(state: TrainState, batch: dict, generator, draws, compute_dtype,
-          num_timesteps, conditioner: Optional[Conditioner]):
+          num_timesteps, conditioner: Optional[Conditioner], apply_fn=None):
     draws = draws or {}
     z = sample_latent(state.vae, batch, generator, draws.get("noise")) * state.scale_factor
     if "context" in batch:
@@ -88,6 +92,8 @@ def _loss(state: TrainState, batch: dict, generator, draws, compute_dtype,
             context = conditioner(state.cond, batch)
 
     def velocity(x, t_int, c):
+        if apply_fn is not None:
+            return apply_fn(state.dit, x, t_int, c)
         return dit_apply(state.dit, x, t_int, c, compute_dtype=compute_dtype,
                          training=True)
 
@@ -98,7 +104,7 @@ def _loss(state: TrainState, batch: dict, generator, draws, compute_dtype,
 
 def make_train_step(num_timesteps: int = 1000, ema_decay: float = 0.9999,
                     compute_dtype: Optional[torch.dtype] = torch.bfloat16,
-                    conditioner: Optional[Conditioner] = None):
+                    conditioner: Optional[Conditioner] = None, apply_fn=None):
     """train_step(state, batch, generator=None, draws=None) -> metrics
     {loss, loss_simple, grad_norm} as 0-d tensors; updates `state` in place
     (parameters, optimizer moments, EMA shadows, step). `conditioner` encodes
@@ -109,7 +115,7 @@ def make_train_step(num_timesteps: int = 1000, ema_decay: float = 0.9999,
                    draws: Optional[dict] = None) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad()
         loss, aux = _loss(state, batch, generator, draws, compute_dtype,
-                          num_timesteps, conditioner)
+                          num_timesteps, conditioner, apply_fn)
         loss.backward()
         grad_norm = state.optimizer.step()
         if state.ema is not None:
@@ -123,7 +129,7 @@ def make_train_step(num_timesteps: int = 1000, ema_decay: float = 0.9999,
 
 def make_eval_step(num_timesteps: int = 1000,
                    compute_dtype: Optional[torch.dtype] = torch.bfloat16,
-                   conditioner: Optional[Conditioner] = None):
+                   conditioner: Optional[Conditioner] = None, apply_fn=None):
     """Validation loss: the same objective, no gradient or update."""
 
     @torch.no_grad()
@@ -131,6 +137,6 @@ def make_eval_step(num_timesteps: int = 1000,
                   generator: Optional[torch.Generator] = None,
                   draws: Optional[dict] = None) -> torch.Tensor:
         return _loss(state, batch, generator, draws, compute_dtype, num_timesteps,
-                     conditioner)[0]
+                     conditioner, apply_fn)[0]
 
     return eval_step

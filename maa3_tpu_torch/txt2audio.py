@@ -14,8 +14,10 @@ result.csv. --test-dataset reads a TSV's ori_cap, caption and name columns
 and runs --batch_size prompts per launch (the ragged tail repeats its last
 prompt, and the repeats are dropped); --interactive reads prompts from
 stdin until an empty line or end of input. --n_iter is accepted, as the
-JAX CLI accepts it, and unused. Not yet in the port: --quant (int8
-serving) and --n_model (tensor-parallel serving).
+JAX CLI accepts it, and unused. --quant selects int8 serving
+(MAA3System.set_serving_quant: int8, int8:g128, int8:now2, int8:voc,
+int8:smooth, calibrated on the first prompt's conditioning). Not yet in the
+port: --n_model (tensor-parallel serving).
 """
 
 from __future__ import annotations
@@ -60,6 +62,11 @@ def parse_args(argv=None):
     p.add_argument("--sample_rate", type=int, default=16000)
     p.add_argument("--fp32", action="store_true",
                    help="run the DiT and vocoder in fp32 (parity mode)")
+    p.add_argument("--quant", type=str, default="",
+                   help="serving quantization: 'int8' runs the per-step DiT "
+                        "GEMMs w8a8; variants int8:g128 / :now2 / :voc (the wide "
+                        "vocoder convs too) / :smooth (SmoothQuant migration, "
+                        "calibrated on the first prompt)")
     p.add_argument("--save_mel", action="store_true",
                    help="also write <name>_mel.npy next to each wav")
     p.add_argument("--interactive", action="store_true",
@@ -119,6 +126,8 @@ def main(argv=None):
         compute_dtype=torch.float32 if opt.fp32 else torch.bfloat16,
         tokenizer_dir=opt.tokenizer_dir or None, ckpt_path=opt.resume or None,
         vocoder_dir=opt.vocoder_ckpt or None)
+    if opt.quant:
+        system.set_serving_quant(opt.quant)
     if not opt.resume:
         print("WARNING: no checkpoint given (-r); generating with random weights")
     os.makedirs(opt.outdir, exist_ok=True)
@@ -140,6 +149,10 @@ def main(argv=None):
         raise SystemExit("--batch_size > 1 requires --n_samples 1")
     per_launch = bs if bs > 1 else opt.n_samples
     uc = _conditioning(system, [{"ori_caption": "", "struct_caption": ""}] * per_launch)
+    if opt.quant and "smooth" in opt.quant:
+        # SmoothQuant: one calibration ODE on the first prompt's conditioning
+        c0 = _conditioning(system, [prompts[0]] * per_launch)
+        system.calibrate_smooth(c0, uc, timesteps=steps, scale=opt.scale)
     rows = []
     t0 = time.perf_counter()
     for chunk in (prompts[i:i + bs] for i in range(0, len(prompts), bs)):

@@ -42,12 +42,19 @@ def _conv(sd: State, name: str, p: dict) -> None:
 
 
 def dit_from_jax(p: dict) -> State:
+    """The text DiT, or the video MoE DiT (its stacked time / freq experts
+    (depth, E, in, out) and its c_embedder)."""
     if "wqkv" in p["blocks"]["attention"]:
         raise ValueError("pass the canonical (unfused) DiT parameters")
     sd: State = {}
     _lin(sd, "proj_in", p["proj_in"])
     _lin(sd, "t_embedder.mlp.0", p["t_embedder"]["mlp0"])
     _lin(sd, "t_embedder.mlp.2", p["t_embedder"]["mlp2"])
+    if "c_embedder" in p:
+        ce = p["c_embedder"]
+        _lin(sd, "c_embedder.mlp.0", ce["mlp0"])
+        _lin(sd, "c_embedder.mlp.2", ce["mlp2"])
+        _vec(sd, "c_embedder.mlp.3", ce["ln"])
     _vec(sd, "cap_embedder.0", p["cap_embedder"]["norm"])
     _lin(sd, "cap_embedder.1", p["cap_embedder"]["linear"])
     blocks = p["blocks"]
@@ -67,8 +74,15 @@ def dit_from_jax(p: dict) -> State:
         for nm in ("q_norm", "k_norm", "ky_norm"):
             if nm in att:
                 _vec(sd, pre + "attention." + nm, att[nm])
-        for nm in ("w1", "w2", "w3"):
-            _lin(sd, pre + "feed_forward." + nm, b["feed_forward"][nm])
+        ff = b["feed_forward"]
+        if "time_experts" in ff:  # the video MoE: (E, in, out) stacks
+            for kind in ("time_experts", "freq_experts"):
+                for nm in ("w1", "w2", "w3"):
+                    for e, w in enumerate(np.asarray(ff[kind][nm]["w"])):
+                        _lin(sd, f"{pre}feed_forward.{kind}.{e}.{nm}", {"w": w})
+        else:
+            for nm in ("w1", "w2", "w3"):
+                _lin(sd, pre + "feed_forward." + nm, ff[nm])
         for nm in ("attention_norm", "ffn_norm", "attention_y_norm"):
             _vec(sd, pre + nm, b[nm])
         _lin(sd, pre + "adaLN_modulation.1", b["adaLN"])
@@ -252,15 +266,32 @@ def clap_from_jax(p: dict) -> State:
     return sd
 
 
+def video_feat_from_jax(p: dict) -> State:
+    """Video_Feat_Encoder_NoPosembed: embedder.0.*."""
+    sd: State = {}
+    _lin(sd, "embedder.0", p["embedder"])
+    return sd
+
+
+def clap_fusion_from_jax(p: dict) -> State:
+    """The CLIP-visual + CLAP-text fusion layer: fuse.*."""
+    sd: State = {}
+    _lin(sd, "fuse", p["fuse"])
+    return sd
+
+
 COND_FROM_JAX = {"clap_flan": clap_flan_from_jax, "flan": flan_from_jax,
-                 "clap": clap_from_jax}
+                 "clap": clap_from_jax, "video_feat": video_feat_from_jax,
+                 "video_feat_inpaint": video_feat_from_jax}
 
 
 def params_from_jax(params: dict, cond_kind: str = "clap_flan") -> Dict[str, State]:
-    """{dit, vae, vocoder, cond} JAX trees -> state dicts for the port's
-    DiT, AutoencoderKL, BigVGAN (AMPBlock1 or 2; snake, snake-beta or
-    lrelu) and conditioner of `cond_kind` (CLAPFLAN, FLAN or CLAP; the JAX
-    tree may hold more towers than the kind reads), whichever are present."""
+    """{dit, vae, vocoder, cond, clap_fusion} JAX trees -> state dicts for the
+    port's DiT (text or video MoE), AutoencoderKL, BigVGAN (AMPBlock1 or 2;
+    snake, snake-beta or lrelu), conditioner of `cond_kind` (CLAPFLAN, FLAN,
+    CLAP or the video feature encoder; the JAX tree may hold more towers than
+    the kind reads) and ClapFusion, whichever are present."""
     conv = {"dit": dit_from_jax, "vae": vae_from_jax,
-            "vocoder": bigvgan_from_jax, "cond": COND_FROM_JAX[cond_kind]}
+            "vocoder": bigvgan_from_jax, "cond": COND_FROM_JAX[cond_kind],
+            "clap_fusion": clap_fusion_from_jax}
     return {k: conv[k](v) for k, v in params.items() if k in conv}

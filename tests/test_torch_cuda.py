@@ -840,3 +840,78 @@ def test_cuda_fused_trainer_matches_unfused(cuda_dev, tmp_path):
     for n, p in unfused.state.dit.named_parameters():
         a, b = p.detach().cpu(), canon[n].detach().cpu()
         assert (a - b).abs().max().item() <= 1e-4 * max(1.0, a.abs().max().item()), n
+
+
+# -- int8 serving and the video MoE (card against CPU) ---------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,group", [(4, 0), (2496, 0), (3, 128), (624, 128)])
+def test_dense_w8a8_on_the_card_matches_cpu(cuda_dev, m, group):
+    """torch._int_mm on the card (rows <= 16 padded, the grouped loop): the
+    same int8 codes, outputs within 1e-3 x max(1, |cpu|)."""
+    from maa3_tpu_torch.ops import quant
+    g = torch.Generator().manual_seed(m + group)
+    w = torch.randn(384, 256, generator=g)
+    x = torch.randn(m, 256, generator=g) * torch.rand(256, generator=g) * 4
+    b = torch.randn(384, generator=g)
+    qc = quant.quantize_weight_int8(w, group)
+    qg = quant.quantize_weight_int8(w.to(cuda_dev), group)
+    assert torch.equal(qc.w_q, qg.w_q.cpu())
+    torch.testing.assert_close(qg.w_scale.cpu(), qc.w_scale, rtol=1e-6, atol=0)
+    n = quant.int_mm_calls
+    want = quant.dense_w8a8(x, qc, b)
+    got = quant.dense_w8a8(x.to(cuda_dev), qg, b.to(cuda_dev), torch.bfloat16)
+    assert quant.int_mm_calls - n == 2 * (256 // group if group else 1)
+    assert got.dtype == torch.bfloat16
+    err = (got.float().cpu() - want).abs().max().item()
+    assert err <= 2.0 ** -6 * max(1.0, want.abs().max().item()), err
+    got = quant.dense_w8a8(x.to(cuda_dev), qg, b.to(cuda_dev))
+    assert (got.cpu() - want).abs().max().item() <= 1e-3 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,d", [(384, 3, 1), (384, 7, 5), (96, 11, 3)])
+def test_w8a8_convs_on_the_card_match_cpu(cuda_dev, c, k, d):
+    from maa3_tpu_torch.ops import conv
+    g = torch.Generator().manual_seed(c + k + d)
+    w = torch.randn(c, c, k, generator=g) / (c * k) ** 0.5
+    b = torch.randn(c, generator=g)
+    x = torch.randn(2, c, 300, generator=g)
+    qc, qg = conv.quantize_conv_int8(w, b), conv.quantize_conv_int8(w.to(cuda_dev), b.to(cuda_dev))
+    assert torch.equal(qc.w_q, qg.w_q.cpu())
+    pad = (k * d - d) // 2
+    for fn in (conv.conv1d_unfold_w8a8, conv.conv1d_tapgemm_w8a8):
+        want = fn(qc, x, padding=pad, dilation=d)
+        got = fn(qg, x.to(cuda_dev), padding=pad, dilation=d).cpu()
+        assert (got - want).abs().max().item() <= 1e-3 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_moe_forced_flash_forward_and_backward_on_the_card(cuda_dev):
+    """A small MoE DiT with use_flash=True on the card (K3a forward, K4a
+    backward) against the same weights on the CPU (plain versions), fp32:
+    output and every gradient within 1e-4 x max(1, |cpu|)."""
+    import copy
+    from maa3_tpu_torch.models import dit_moe
+    from maa3_tpu_torch.models.dit import dit_init_, unfreeze_zero_init
+    cfg = dit_moe.MoEDiTConfig(in_channels=20, context_dim=32, hidden_size=64, depth=2,
+                               num_heads=4, multiple_of=32, use_flash=True)
+    g = torch.Generator().manual_seed(0)
+    cpu = unfreeze_zero_init(dit_init_(dit_moe.MoEDiT(cfg), g), g)
+    card = copy.deepcopy(cpu).to(cuda_dev)
+    x = torch.randn(2, 20, 40, generator=g)
+    t = torch.tensor([10, 900])
+    ctx = torch.randn(2, 6, 32, generator=g)
+    outs = []
+    n = dict(fa.launches)
+    with full_fp32():
+        for m, dev in ((cpu, "cpu"), (card, cuda_dev)):
+            y = dit_moe.moe_dit_apply(m, x.to(dev), t.to(dev), ctx.to(dev),
+                                      compute_dtype=torch.float32, training=True)
+            y.square().mean().backward()
+            outs.append((y.detach().cpu(), {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    assert fa.launches["K3a"] - n["K3a"] == 2 and fa.launches["K4a"] - n["K4a"] == 2
+    (yc, gc), (yg, gg) = outs
+    assert (yg - yc).abs().max().item() <= 1e-4 * max(1.0, yc.abs().max().item())
+    for k in gc:
+        assert (gg[k] - gc[k]).abs().max().item() <= 1e-4 * max(1.0, gc[k].abs().max().item()), k
