@@ -139,6 +139,20 @@ Phases, each timed on a line of its own:
      seed, the trainable video encoder, bf16: one warm and three timed
      steps, ms per step, tokens per second, peak memory, finite losses,
      parameters moved.
+ 15. evaluation: (a) fp32 without TF32, the card against the CPU on the
+     same weights (1e-3 x max(1, max|cpu|)): Cnn14 on 2 x 5 s, the CLAP text
+     and audio towers and score at full width, the VGGishish on (8, 80,
+     624) with running BN statistics and without, the Melception's logits,
+     features and aux, LPAPS; (b) the eval flow, every file under
+     build/chip_smoke_eval/ (the norm statistics too): phase 5's XL system
+     generates 8 clips of 10 s (2 x batch 4; K1 / K2 counted as "eval"),
+     their wavs, manifest and VAE mels, reference mels by mel_spec; then
+     train_melclf (VGGishish, 20 steps over phase 12's mels with labels,
+     --norm, --val_tsv), predict_melclf on its file, cal_fd_score with that
+     classifier (--norm_stats; batch statistics, as JAX evaluates its own)
+     and with a random Melception, cal_clap_score with random towers, and
+     structurize_captions: ms per classifier step, embeddings per second
+     per backbone, ms per CLAP-scored clip, the host's FD time, peak memory.
 Kernel, plain and library times are per call over 10 calls queued back to
 back (time_ms). Then the `kernels` JSON line, the card line, and the result
 line. Any failure exits non-zero without the result line; without a CUDA
@@ -2409,6 +2423,223 @@ def moe_train_run(torch, system_mod, video_path, fa, card):
 
 
 
+# phase 15: evaluation (CLAP score, FD / KL over VGGishish and Melception,
+# LPAPS, the classifier trainer and metrics, caption structuring)
+EVAL_CLIPS = 8                      # 2 x the XL batch of 4, 10 s each
+EVAL_CAPTIONS = ["a dog barks in the distance", "rain falls on a tin roof",
+                 "a crowd cheers at a stadium", "an engine idles then revs up",
+                 "birds sing while a stream flows", "a door slams followed by footsteps",
+                 "thunder rolls as wind blows", "a phone rings, then a man speaks"]
+MELCLF_LABELS = ("dog", "rain", "engine", "crowd")
+
+
+def eval_small_reference(torch, full_fp32):
+    """Phase 15 (a): the eval towers at full width, fp32 without TF32, the
+    card against the CPU on the same weights (serving rule 1e-3 x max(1,
+    max|cpu|)): Cnn14 on 2 x 5 s, the CLAP text tower, the CLAP score,
+    VGGishish on (8, 80, 624) with running statistics and without, the
+    Melception's logits, features and aux, LPAPS. Returns the card's
+    CLAPScorer (full width, random towers)."""
+    import numpy as np
+    from maa3_tpu_torch.eval import lpaps
+    from maa3_tpu_torch.eval.clap_score import CLAPScorer
+    from maa3_tpu_torch.models import cnn14, melception, melclf
+    g = torch.Generator().manual_seed(15)
+    mel8 = torch.randn(8, 80, 624, generator=g) * 2.0 - 4.0
+    mel4 = mel8[:4]
+    wav = torch.randn(2, 5 * 44100, generator=g) * 0.3
+
+    def with_stats(m):
+        for name, buf in m.named_buffers():
+            buf.copy_(torch.rand(buf.shape, generator=g) * 0.2
+                      + (0.9 if name.endswith("var") else -0.1))
+        return m
+
+    clf = melclf.melclf_init_(melclf.MelClf(), g)
+    clf_rs = with_stats(melclf.melclf_init_(melclf.MelClf(running_stats=True), g))
+    runs = [
+        ("Cnn14 2 x 5 s", cnn14.cnn14_init_(cnn14.Cnn14(), g),
+         lambda m, w: tuple(cnn14.cnn14_apply(m, w).values()), (wav,)),
+        ("VGGishish (8, 80, 624) batch statistics", clf,
+         lambda m, x: melclf.melclf_apply(m, x, True), (mel8,)),
+        ("VGGishish (8, 80, 624) running statistics", clf_rs,
+         lambda m, x: melclf.melclf_apply(m, x, True), (mel8,)),
+        ("Melception (4, 80, 624) logits, features, aux",
+         melception.melception_init_(melception.Melception(), g),
+         lambda m, x: melception.melception_apply(m, x, True, True), (mel4,)),
+        ("LPAPS (4, 80, 624)", lpaps.lpaps_init_(lpaps.LPAPS(), g), lpaps.lpaps_apply,
+         (mel4, mel4.flip(0)))]
+    with torch.no_grad(), full_fp32():
+        for what, model, fn, args in runs:
+            want = fn(model, *args)
+            got = fn(model.to("cuda"), *(a.to("cuda") for a in args))
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = [_within(gt, wt, what) for gt, wt in zip(got, want)]
+            log(f"eval reference: {what}: max |cuda - cpu| "
+                f"{', '.join(f'{e:.3e}' for e in errs)}")
+            model.cpu()
+    cpu = CLAPScorer.random_init(torch.Generator().manual_seed(1), device="cpu")
+    card = CLAPScorer.random_init(torch.Generator().manual_seed(1), device="cuda")
+    rng = np.random.RandomState(15)
+    wavs = [(0.3 * rng.randn(160000)).astype(np.float32) for _ in range(2)]
+    caps = EVAL_CAPTIONS[:4]
+    for what, fn in (("CLAP text tower", lambda s: s.text_embeddings(caps)),
+                     ("CLAP audio tower", lambda s: s.audio_embeddings(wavs[:2])),
+                     ("CLAP score", lambda s: torch.from_numpy(s.score(wavs, caps[:2])))):
+        log(f"eval reference: {what}: max |cuda - cpu| {_within(fn(card), fn(cpu), what):.3e}")
+    return card
+
+
+def eval_generate(torch, system_mod, config_path, k1, k2, d):
+    """Phase 15 (b) 1-2: phase 5's XL system turns EVAL_CAPTIONS into 8 clips
+    of 10 s (2 x batch 4); their int16 wavs <name>_0.wav, the manifest
+    (name, ori_cap, audio_path) and the VAE's mels under d. Returns the
+    manifest and the K1 / K2 launches of the two vocodes."""
+    import numpy as np
+    from scipy.io import wavfile
+    system = system_mod.MAA3System.from_config(
+        [config_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
+    for sub in ("wavs", "gen_mels"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k1.launches = k2.launches = 0
+    lines = ["name\tori_cap\taudio_path"]
+    t = time.perf_counter()
+    for b in range(0, EVAL_CLIPS, B):
+        caps = EVAL_CAPTIONS[b:b + B]
+        c = system.get_learned_conditioning({"ori_caption": caps, "struct_caption":
+                                             [f"<{p}& all>" for p in caps]})
+        uc = system.get_learned_conditioning({"ori_caption": [""] * B,
+                                              "struct_caption": [""] * B})
+        z = system.sample_cfg(c, 5.0, uc, gen, shape=(B, 20, LATENT), timesteps=25)
+        mel = system.decode_first_stage(z)
+        wav = system.vocode(mel)
+        for i, (m, w) in enumerate(zip(mel.float().cpu().numpy(), wav)):
+            name = f"clip{b + i:02d}"
+            np.save(os.path.join(d, "gen_mels", f"{name}.npy"), m)
+            path = os.path.join(d, "wavs", f"{name}_0.wav")
+            wavfile.write(path, 16000, (np.clip(w, -1, 1) * 32767).astype(np.int16))
+            lines.append(f"{name}\t{caps[i]}\t{path}")
+    torch.cuda.synchronize()
+    counts = (k1.launches, k2.launches)
+    require(counts == tuple(2 * n for n in K1_K2_PER_VOCODE),
+            f"eval generation: K1/K2 {counts} over 2 vocodes")
+    log(f"eval flow: {EVAL_CLIPS} clips of 10 s generated in "
+        f"{time.perf_counter() - t:.2f} s (2 x batch {B}, 25 steps), K1 / K2 {counts}")
+    tsv = os.path.join(d, "clips.tsv")
+    with open(tsv, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    del system
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tsv, counts
+
+
+def eval_flow(torch, system_mod, config_path, k1, k2, scorer, mel_tsv, card):
+    """Phase 15 (b): generate (eval_generate), reference mels by mel_spec,
+    then train_melclf (20 steps over phase 12's mels with labels, --norm,
+    --val_tsv), predict_melclf, cal_fd_score with the trained VGGishish
+    (--norm_stats) and a random Melception, cal_clap_score with random
+    towers, structurize_captions; every file under build/. Logs ms per
+    CLAP-scored clip, embeddings per second per backbone, ms per classifier
+    step and peak memory. Returns the K1 / K2 launches of the generation."""
+    import io
+    import numpy as np
+    from maa3_tpu_torch import (cal_clap_score, cal_fd_score, mel_spec, predict_melclf,
+                                structurize_captions, train_melclf)
+    from maa3_tpu_torch.data.datasets import read_tsv
+    from maa3_tpu_torch.eval.classifier import embed, new_classifier
+    from maa3_tpu_torch.pipeline import full_fp32
+    d = os.path.join(ROOT, "build", "chip_smoke_eval")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    tsv, counts = eval_generate(torch, system_mod, config_path, k1, k2, d)
+    torch.cuda.reset_peak_memory_stats()
+
+    def quiet(fn, argv):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn(argv)
+        return out, time.perf_counter() - t, buf.getvalue()
+
+    _, s, _ = quiet(mel_spec.main, ["--tsv_path", tsv, "--save_path",
+                                    os.path.join(d, "ref_mels"), "--device", "cuda"])
+    log(f"eval flow: mel_spec of the {EVAL_CLIPS} wavs (reference mels) {s:.2f} s")
+
+    rows = list(enumerate(read_tsv(mel_tsv)))
+    for part, sl in (("train", slice(0, 48)), ("val", slice(48, None))):
+        with open(os.path.join(d, f"melclf_{part}.tsv"), "w") as f:
+            f.write("mel_path\tlabel\n" + "".join(
+                f"{r['mel_path']}\t{MELCLF_LABELS[i % 4]}\n" for i, r in rows[sl]))
+    norm = os.path.join(d, "norm")
+    res, s, out = quiet(train_melclf.main, [
+        "--tsv", os.path.join(d, "melclf_train.tsv"), "--val_tsv",
+        os.path.join(d, "melclf_val.tsv"), "--steps", "20", "--norm", "--norm_cache", norm,
+        "--ckpt_dir", os.path.join(d, "melclf"), "--device", "cuda"])
+    require(np.isfinite(res["losses"]).all() and res["val"] is not None
+            and np.isfinite(list(res["val"].values())).all(), "train_melclf: finite")
+    stats = [os.path.join(norm, f) for f in os.listdir(norm)]
+    require(len(stats) == 1, f"train_melclf --norm: one statistics file in {norm}")
+    step_ms = sorted(x * 1e3 for x in res["step_s"][1:])
+    log(f"eval flow ({card}): train_melclf VGGishish, batch 16 x 624, 20 steps in "
+        f"{s:.2f} s with the build; ms per step after the first: median "
+        f"{statistics.median(step_ms):.2f} (min {step_ms[0]:.2f}, max {step_ms[-1]:.2f}); "
+        f"first {res['step_s'][0] * 1e3:.1f}; losses {res['losses'][0]:.4f} -> "
+        f"{res['losses'][-1]:.4f}; val {json.dumps({k: round(v, 4) for k, v in res['val'].items()})}")
+    pred, s, _ = quiet(predict_melclf.main, [
+        "--tsv", os.path.join(d, "melclf_val.tsv"), "--clf_ckpt", res["ckpt"],
+        "--norm_stats", stats[0], "--device", "cuda"])
+    require(np.isfinite([v for v in pred.values()]).all(), "predict_melclf: finite")
+    log(f"eval flow: predict_melclf {s:.2f} s: {json.dumps(pred)}")
+
+    for backbone, extra in (("vggishish", ["--clf_ckpt", res["ckpt"], "--norm_stats",
+                                           stats[0]]),
+                            ("melception", [])):
+        fd, s, _ = quiet(cal_fd_score.main, [
+            "--gen_dir", os.path.join(d, "gen_mels"), "--ref_dir", os.path.join(d, "ref_mels"),
+            "--backbone", backbone, "--device", "cuda", *extra])
+        require(np.isfinite([fd["fd"], fd["kl"]]).all() and fd["n_gen"] == fd["n_ref"]
+                == EVAL_CLIPS, f"cal_fd_score {backbone}: {fd}")
+        model = new_classifier(backbone, 309).to("cuda").eval()
+        mel16 = torch.randn(16, 80, 624, device="cuda") - 4.0
+        with torch.no_grad(), full_fp32():
+            embed(model, mel16)
+            warm = [_sync_ms(torch, lambda: embed(model, mel16))[1] for _ in range(3)]
+        del model
+        log(f"eval flow ({card}): cal_fd_score {backbone}: fd {fd['fd']}, kl {fd['kl']}; "
+            f"{s:.2f} s in all, {2 * EVAL_CLIPS} mels embedded in {fd['embed_s']:.3f} s "
+            f"({2 * EVAL_CLIPS / fd['embed_s']:.1f} per s, the process's first batches), "
+            f"FD on the host {fd['fd_s']:.2f} s; warm batch 16: "
+            f"{', '.join(f'{t:.2f}' for t in warm)} ms, "
+            f"{16e3 / min(warm):.1f} embeddings per s")
+
+    scores, s, _ = quiet(cal_clap_score.main, ["--wav_dir", os.path.join(d, "wavs"),
+                                               "--tsv", tsv, "--device", "cuda"])
+    require(len(scores) == EVAL_CLIPS and np.all(np.abs(scores) <= 1.0 + 1e-5),
+            f"cal_clap_score: {scores}")
+    from scipy.io import wavfile
+    wavs = [wavfile.read(os.path.join(d, "wavs", f"clip{i:02d}_0.wav"))[1].astype(np.float32)
+            / 32767 for i in range(EVAL_CLIPS)]
+    scorer.score(wavs, EVAL_CAPTIONS)
+    ms = [_sync_ms(torch, lambda: scorer.score(wavs, EVAL_CAPTIONS))[1] for _ in range(3)]
+    log(f"eval flow ({card}): cal_clap_score (random towers) {s:.2f} s with the towers' "
+        f"build, mean {np.mean(scores):.4f}; warm score of {EVAL_CLIPS} clips "
+        f"{', '.join(f'{t:.1f}' for t in ms)} ms, {min(ms) / EVAL_CLIPS:.2f} ms per clip")
+
+    out, s, _ = quiet(structurize_captions.main, ["--tsv_path", tsv, "--out",
+                                                  os.path.join(d, "clips.struct.tsv")])
+    struct = read_tsv(out)
+    require(len(struct) == EVAL_CLIPS and all(r["caption"].startswith("<") for r in struct),
+            "structurize_captions: a caption per row")
+    log(f"eval flow: structurize_captions {s * 1e3:.1f} ms, e.g. {struct[7]['caption']!r}; "
+        f"peak memory after the generation {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2575,11 +2806,20 @@ def main() -> int:
     moe_train_run(torch, system_mod, video_path, fa, card)
     log(f"MoE training: done, {time.perf_counter() - t:.2f} s")
 
+    t = time.perf_counter()
+    scorer = eval_small_reference(torch, full_fp32)
+    log(f"eval reference: done, {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    eval_counts = eval_flow(torch, system_mod, config_path, k1, k2, scorer, tsv, card)
+    del scorer
+    log(f"eval flow: done, {time.perf_counter() - t:.2f} s")
+
     kernels = []
     # launches, ms and the bound: phase 5's batch-4 XL vocode (bf16), as in
     # earlier runs; the other counted paths (phase 11's served requests, one
     # AMPBlock1 vocode per batch, and its AMPBlock2 vocoder; phase 12's audio
-    # logger; phase 13's vocoder-GAN disc step), each counted from 0, only
+    # logger; phase 13's vocoder-GAN disc step; phase 15's two generation
+    # vocodes, "eval"), each counted from 0, only
     # under launches_by_path, and the music and GAN shapes' phase 3 errors
     # under max_abs_err_by_path
     for i, (name, src, rep) in enumerate((
@@ -2590,6 +2830,7 @@ def main() -> int:
         by_path = {"xl_serving": counts[i], "music_server": serve["launches"][i],
                    "amp2_vocoder": amp2[i], "audio_logger": recipe["logger_counts"][i],
                    "vocoder_gan_disc_step": voc_gan["disc_counts"][i],
+                   "eval": eval_counts[i],
                    **{f"xl_serving_{m}": c[i] for m, c in int8_counts.items() if m},
                    **{f"video2audio_{m}_per_vocode": c[i] for m, c in v2a_counts.items()}}
         err = {path: max(r["err"] for r in rows if r["kernel"] == name[:2]

@@ -11,9 +11,9 @@ maa3_tpu/models/discriminators.py).
   (ldm/modules/discriminator/multi_window_disc.py:6-197), keys as the JAX
   tree names them.
 
-BatchNorm is train-mode only: batch statistics with the biased variance and
-eps 1e-5, and no running statistics (the modules hold no buffers), as the
-JAX package computes it for GAN training.
+BatchNorm is train-mode only (ops/basic.BatchNorm2d without running
+statistics): batch statistics with the biased variance and eps 1e-5, and
+no buffers, as the JAX package computes it for GAN training.
 """
 
 from __future__ import annotations
@@ -24,24 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from maa3_tpu_torch.ops.basic import BatchNorm2d
 from maa3_tpu_torch.ops.stft import reflect_pad, stft_magnitude
 
 Logits = List[torch.Tensor]
 FeatureMaps = List[List[torch.Tensor]]
-
-
-class BatchNormTrain(nn.Module):
-    """An affine BatchNorm2d that always normalises with the batch's
-    statistics (the reference's running statistics are never read)."""
-
-    def __init__(self, ch: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(ch))
-        self.bias = nn.Parameter(torch.zeros(ch))
-
-    def forward(self, x):
-        return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
-                            eps=1e-5)
 
 
 class NLayerDiscriminator(nn.Module):
@@ -56,7 +43,7 @@ class NLayerDiscriminator(nn.Module):
             nf_prev, nf = nf, min(2 ** n, 8)
             stride = 2 if n < n_layers else 1
             layers += [nn.Conv2d(ndf * nf_prev, ndf * nf, 4, stride, 1, bias=False),
-                       BatchNormTrain(ndf * nf), nn.LeakyReLU(0.2)]
+                       BatchNorm2d(ndf * nf, running_stats=False), nn.LeakyReLU(0.2)]
         layers.append(nn.Conv2d(ndf * nf, 1, 4, 1, 1))
         self.main = nn.Sequential(*layers)
 
@@ -154,7 +141,7 @@ class WindowBlock(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, hidden, 3, 2, 1)
         if bn:
-            self.bn = BatchNormTrain(hidden)
+            self.bn = BatchNorm2d(hidden, running_stats=False)
 
 
 class WindowDiscriminator(nn.Module):
@@ -203,7 +190,7 @@ def disc_init_(disc: nn.Module, generator: torch.Generator) -> nn.Module:
             if m.bias is not None:
                 bound = (m.in_channels * m.kernel_size[0] * m.kernel_size[1]) ** -0.5
                 m.bias.uniform_(-bound, bound, generator=generator)
-        elif isinstance(m, BatchNormTrain):
+        elif isinstance(m, BatchNorm2d):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, nn.Linear):

@@ -76,6 +76,30 @@ def rms_norm(weight: torch.Tensor, x: torch.Tensor,
     return normed.to(x.dtype) * weight.to(x.dtype)
 
 
+class BatchNorm2d(nn.Module):
+    """Affine BatchNorm over dim 1 with the JAX eval towers' rule
+    (maa3_tpu/models/melclf.py:67, melception.py:163): the running
+    statistics when the module holds them (an imported trained model), else
+    the batch's own (biased variance), which are never stored. Keys weight,
+    bias and, with running_stats, running_mean and running_var (a reference
+    file's num_batches_tracked is skipped at import)."""
+
+    def __init__(self, ch: int, eps: float = 1e-5, running_stats: bool = True):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+        if running_stats:
+            self.register_buffer("running_mean", torch.zeros(ch))
+            self.register_buffer("running_var", torch.ones(ch))
+        else:
+            self.running_mean = self.running_var = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                            self.bias, training=self.running_mean is None, eps=self.eps)
+
+
 def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
                bias: Optional[torch.Tensor] = None,
                eps: float = 1e-6) -> torch.Tensor:

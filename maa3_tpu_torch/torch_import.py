@@ -171,3 +171,66 @@ def nlayer_disc_from_torch(sd: State, disc: nn.Module) -> nn.Module:
         sd = strip_prefix(sd, "discriminator.")
     load_module_state(disc, sd, "nlayer_disc")
     return disc
+
+
+# ---------------------------------------------------------------------------
+# Eval towers: each builds its module and loads the file's keys strictly
+# ---------------------------------------------------------------------------
+
+def _has_running_stats(sd: State) -> bool:
+    return any(k.endswith(".running_mean") for k in sd)
+
+
+def cnn14_from_torch(sd: State, prefix: str = ""):
+    """A PANNs Cnn14 state dict (keys under `prefix`) into a Cnn14
+    (maa3_tpu/models/cnn14.py:141)."""
+    from maa3_tpu_torch.models.cnn14 import Cnn14
+    m = Cnn14()
+    load_module_state(m, strip_prefix(sd, prefix) if prefix else sd, "cnn14")
+    return m
+
+
+def clap_scorer_from_torch(sd: State, bert_cfg=None, d_proj: int = 1024):
+    """CLAP_weights_2022.pth's `model` dict into a CLAPModel: the keys under
+    audio_encoder.base. (Cnn14), audio_encoder.projection.,
+    caption_encoder.base. (BERT) and caption_encoder.projection.
+    (maa3_tpu/eval/clap_score.py:56)."""
+    from maa3_tpu_torch.eval.clap_score import CLAPModel
+    from maa3_tpu_torch.models.bert import BertConfig
+    from maa3_tpu_torch.models.cnn14 import Cnn14Config
+    m = CLAPModel(Cnn14Config(), bert_cfg or BertConfig(), d_proj)
+    load_module_state(m, sd, "clap")
+    return m
+
+
+def melclf_from_torch(sd: State, cfg=None):
+    """A VGGishish state dict (features.{i}, classifier.{0,2,4}) into a
+    MelClf (maa3_tpu/torch_import.py:404): with BN running statistics when
+    the file has them (a reference classifier), else batch statistics (a
+    classifier trained by train_melclf, which keeps none)."""
+    from maa3_tpu_torch.models.melclf import MelClf, MelClfConfig
+    m = MelClf(cfg or MelClfConfig(), running_stats=_has_running_stats(sd))
+    load_module_state(m, sd, "melclf")
+    return m
+
+
+def melception_from_torch(sd: State):
+    """A torchvision-keyed melception state dict into a Melception
+    (maa3_tpu/torch_import.py:435): the classes from fc.weight, the aux
+    head when the file has AuxLogits.*, BN running statistics when it has
+    them."""
+    from maa3_tpu_torch.models.melception import Melception, MelceptionConfig
+    cfg = MelceptionConfig(num_classes=int(sd["fc.weight"].shape[0]),
+                           aux_logits=any(k.startswith("AuxLogits.") for k in sd))
+    m = Melception(cfg, running_stats=_has_running_stats(sd))
+    load_module_state(m, sd, "melception")
+    return m
+
+
+def lpaps_from_torch(sd: State):
+    """An LPAPS state dict (scaling_layer.*, net.slice{s}.{i}, lin{k}.model.1)
+    into an LPAPS (maa3_tpu/torch_import.py:355)."""
+    from maa3_tpu_torch.eval.lpaps import LPAPS
+    m = LPAPS(n_mels=int(sd["scaling_layer.shift"].numel()))
+    load_module_state(m, sd, "lpaps")
+    return m

@@ -295,3 +295,102 @@ def params_from_jax(params: dict, cond_kind: str = "clap_flan") -> Dict[str, Sta
             "vocoder": bigvgan_from_jax, "cond": COND_FROM_JAX[cond_kind],
             "clap_fusion": clap_fusion_from_jax}
     return {k: conv[k](v) for k, v in params.items() if k in conv}
+
+
+# ---------------------------------------------------------------------------
+# Eval towers
+# ---------------------------------------------------------------------------
+
+def _bn(sd: State, name: str, p: dict) -> None:
+    """BatchNorm {weight, bias, mean?, var?} -> weight, bias, running_*."""
+    _vec(sd, name, p)
+    for k, tk in (("mean", "running_mean"), ("var", "running_var")):
+        if k in p:
+            sd[f"{name}.{tk}"] = _t(p[k])
+
+
+def cnn14_from_jax(p: dict, prefix: str = "") -> State:
+    """Cnn14 {bn0, blocks, fc1, fc_audioset} -> PANNs keys."""
+    sd: State = {}
+    _bn(sd, prefix + "bn0", p["bn0"])
+    for i, b in enumerate(p["blocks"], 1):
+        pre = f"{prefix}conv_block{i}."
+        _conv(sd, pre + "conv1", b["conv1"])
+        _conv(sd, pre + "conv2", b["conv2"])
+        _bn(sd, pre + "bn1", b["bn1"])
+        _bn(sd, pre + "bn2", b["bn2"])
+    _lin(sd, prefix + "fc1", p["fc1"])
+    _lin(sd, prefix + "fc_audioset", p["fc_audioset"])
+    return sd
+
+
+def clap_scorer_from_jax(p: dict) -> State:
+    """CLAPScorer.params {audio, audio_proj, text, text_proj} -> the
+    CLAP_weights_2022.pth keys of CLAPModel."""
+    sd = cnn14_from_jax(p["audio"], "audio_encoder.base.")
+    pj = p["audio_proj"]
+    _lin(sd, "audio_encoder.projection.linear1", pj["linear1"])
+    _lin(sd, "audio_encoder.projection.linear2", pj["linear2"])
+    _vec(sd, "audio_encoder.projection.layer_norm", pj["ln"])
+    _bert_proj(sd, {"bert": p["text"], "projection": p["text_proj"]})
+    return sd
+
+
+def melclf_from_jax(p: dict, conv_layers) -> State:
+    """VGGishish {features, fc1, fc2, fc3} -> features.{i} (conv, then its
+    BN when present, then ReLU; one index per max-pool), classifier.{0,2,4}."""
+    sd: State = {}
+    idx, layers = 0, iter(p["features"])
+    for v in conv_layers:
+        if v == "MP":
+            idx += 1
+            continue
+        layer = next(layers)
+        _conv(sd, f"features.{idx}", layer)
+        idx += 2
+        if "bn" in layer:
+            _bn(sd, f"features.{idx - 1}", layer["bn"])
+            idx += 1
+    for i, nm in ((0, "fc1"), (2, "fc2"), (4, "fc3")):
+        _lin(sd, f"classifier.{i}", p[nm])
+    return sd
+
+
+def melception_from_jax(p: dict) -> State:
+    """Melception's torchvision-named tree -> its keys: a {conv, bn} node is
+    a BasicConv2d (<path>.conv.weight, <path>.bn.*), an {w, b} node a
+    Linear (fc, AuxLogits.fc)."""
+    sd: State = {}
+
+    def walk(node: dict, path: str) -> None:
+        if "conv" in node and "bn" in node:
+            sd[path + "conv.weight"] = _t(node["conv"]["w"])
+            _bn(sd, path + "bn", node["bn"])
+        elif "w" in node:
+            _lin(sd, path[:-1], node)
+        else:
+            for k, v in node.items():
+                walk(v, f"{path}{k}.")
+
+    walk(p, "")
+    return sd
+
+
+def lpaps_from_jax(p: dict, conv_layers) -> State:
+    """LPAPS {scaling, features, lins} -> scaling_layer.{shift, scale}
+    (1, 1, F, 1), net.slice{s}.{i} and lin{k}.model.1.weight (1, C, 1, 1)."""
+    from maa3_tpu_torch.eval.lpaps import SLICE_BOUNDS
+    sd: State = {}
+    for k in ("shift", "scale"):
+        sd[f"scaling_layer.{k}"] = _t(np.asarray(p["scaling"][k]).reshape(1, 1, -1, 1))
+    idx, layers = 0, iter(p["features"])
+    for v in conv_layers:
+        if v == "MP":
+            idx += 1
+            continue
+        s = next(i for i, (lo, hi) in enumerate(SLICE_BOUNDS, 1) if lo <= idx < hi)
+        _conv(sd, f"net.slice{s}.{idx}", next(layers))
+        idx += 2
+    for k, w in enumerate(p["lins"]):
+        sd[f"lin{k}.model.1.weight"] = _t(np.asarray(w).reshape(1, -1, 1, 1))
+    return sd

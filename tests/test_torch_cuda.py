@@ -915,3 +915,89 @@ def test_moe_forced_flash_forward_and_backward_on_the_card(cuda_dev):
     assert (yg - yc).abs().max().item() <= 1e-4 * max(1.0, yc.abs().max().item())
     for k in gc:
         assert (gg[k] - gc[k]).abs().max().item() <= 1e-4 * max(1.0, gc[k].abs().max().item()), k
+
+
+def _eval_close(got, want, rel=1e-3):
+    """The serving rule: fp32 on the card within 1e-3 x max(1, max|cpu|)."""
+    err = (got.float().cpu() - want.float()).abs().max().item()
+    assert err <= rel * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("running", [False, True])
+def test_eval_towers_on_the_card_match_cpu(cuda_dev, running):
+    """fp32 without TF32, the card against the CPU on the same weights: the
+    VGGishish (--small's stack; batch and running statistics), the
+    Melception (logits, features, aux), LPAPS and Cnn14 at full width, and
+    the CLAP score with a small BERT."""
+    from maa3_tpu_torch.eval import lpaps
+    from maa3_tpu_torch.eval.clap_score import CLAPScorer
+    from maa3_tpu_torch.models import cnn14, melception, melclf
+    from maa3_tpu_torch.models.bert import BertConfig
+    g = torch.Generator().manual_seed(0)
+    mel = torch.randn(3, 80, 96, generator=g)
+    clf = melclf.melclf_init_(melclf.MelClf(melclf.MelClfConfig(
+        conv_layers=melclf.SMALL_CONV_LAYERS, num_classes=5), running_stats=running), g)
+    mc = melception.melception_init_(melception.Melception(
+        melception.MelceptionConfig(num_classes=5), running_stats=running), g)
+    if running:
+        for m in (clf, mc):
+            for name, buf in m.named_buffers():
+                buf.copy_(torch.rand(buf.shape, generator=g) * 0.2
+                          + (0.9 if name.endswith("var") else -0.1))
+    lp = lpaps.lpaps_init_(lpaps.LPAPS(), g)
+    c14 = cnn14.cnn14_init_(cnn14.Cnn14(), g)
+    wav = torch.randn(2, 11025, generator=g) * 0.3
+    runs = [(clf, lambda m, x: melclf.melclf_apply(m, x, True), (mel,)),
+            (mc, lambda m, x: melception.melception_apply(m, x, True, True), (mel,)),
+            (lp, lpaps.lpaps_apply, (mel, mel.flip(0))),
+            (c14, lambda m, w: tuple(cnn14.cnn14_apply(m, w).values()), (wav,))]
+    with torch.no_grad(), full_fp32():
+        for model, fn, args in runs:
+            want = fn(model, *args)
+            got = fn(model.to(cuda_dev), *(a.to(cuda_dev) for a in args))
+            for gt, wt in zip(got if isinstance(got, tuple) else (got,),
+                              want if isinstance(want, tuple) else (want,)):
+                _eval_close(gt, wt)
+    cfg = BertConfig(hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64)
+    cpu = CLAPScorer.random_init(torch.Generator().manual_seed(1), bert_cfg=cfg, device="cpu")
+    card = CLAPScorer.random_init(torch.Generator().manual_seed(1), bert_cfg=cfg,
+                                  device=cuda_dev)
+    cpu.duration = card.duration = 0.5
+    wavs = [np.random.RandomState(i).randn(8000).astype(np.float32) * 0.3 for i in range(2)]
+    caps = ["a dog barks", "rain falls on a roof"]
+    for fn in (lambda s: s.audio_embeddings(wavs), lambda s: s.text_embeddings(caps),
+               lambda s: torch.from_numpy(s.score(wavs, caps))):
+        _eval_close(fn(card), fn(cpu))
+
+
+@pytest.mark.cuda
+def test_train_melclf_step_on_the_card_matches_cpu(cuda_dev, tmp_path):
+    """train_melclf (--small, --cls_weights) for two steps on the card and on
+    the CPU from the same weights and draws: the losses and every parameter
+    within 1e-4 x max(1, max|cpu|) but for elements Adam moves by noise
+    (conv biases cancelled by the batch-statistics BN; their gradient is
+    rounding error), which stay within 2 lr x steps."""
+    from maa3_tpu_torch import train_melclf
+    rng = np.random.RandomState(0)
+    lines = ["mel_path\tlabel"]
+    for i in range(8):
+        path = tmp_path / f"m{i}.npy"
+        np.save(path, (rng.randn(80, 90) - 4.0 + 0.5 * (i % 3)).astype(np.float32))
+        lines.append(f"{path}\t{['a', 'b', 'b'][i % 3]}")
+    (tmp_path / "m.tsv").write_text("\n".join(lines) + "\n")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = train_melclf.main([
+            "--tsv", str(tmp_path / "m.tsv"), "--mel_len", "80", "--batch_size", "4",
+            "--steps", "2", "--small", "--cls_weights", "--lr", "1e-3",
+            "--ckpt_dir", str(tmp_path / dev), "--device", dev])
+    np.testing.assert_allclose(out["cuda"]["losses"], out["cpu"]["losses"], rtol=1e-4)
+    got = torch.load(out["cuda"]["ckpt"], weights_only=True)["model"]
+    want = torch.load(out["cpu"]["ckpt"], weights_only=True)["model"]
+    for k, w in want.items():
+        diff = (got[k] - w).abs()
+        assert diff.max().item() <= 2 * 1e-3 * 2, k
+        if not (k.startswith("features.") and k.endswith(".bias")):
+            off = diff > 1e-4 * max(1.0, w.abs().max().item())
+            assert off.sum().item() <= max(1, 1e-5 * off.numel()), (k, int(off.sum()))
