@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (maa3_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --xxl-batch-probe]
 
 Phases, each timed on a line of its own:
   1. environment: card name and power limit (nvidia-smi), torch, nvcc;
@@ -153,6 +153,26 @@ Phases, each timed on a line of its own:
      and with a random Melception, cal_clap_score with random towers, and
      structurize_captions: ms per classifier step, embeddings per second
      per backbone, ms per CLAP-scored clip, the host's FD time, peak memory.
+ 16. XXL through the parallel entry points (maa3_tpu_torch/parallel): an
+     NCCL process group of world size 1 in this process (a FileStore under
+     build/) and its 1 x 1 ("data", "model") DeviceMesh: (a) the XXL system
+     as configs/txt2audio-cfm-cfg-XXL.yaml writes it (DiT 1536 x 32 x 32
+     heads of 48, 1.47 B; random weights from the seed, gates made nonzero)
+     serves 4 prompts x 10 s, 25 steps, guidance 5.0, bf16 through
+     shard_serving: end-to-end and ODE ms, peak memory, K1 / K2 72 / 37
+     ("xxl_serve"); a depth-2 model of XXL width in fp32 sampled with
+     shard_serving and without it: the same bits; (b) the YAML's training
+     (trainable conditioner) through Trainer(n_model=1, fsdp=True), a no-op
+     FSDP at data width 1, batch XXL_TRAIN at latent 1248 (the flash route),
+     bf16: one warm and three timed steps, K3a / K4a 32 / 32 per step at
+     (8, 32, 1248, 48) ("xxl_train"; phase 6 holds that shape to its plain
+     versions), median step ms, tokens per second, peak; a checkpoint
+     through the gathered path loaded back, every parameter equal; (c) two
+     spawned gloo ranks on the card: a depth-2 XXL-width TP=2 serving
+     sample and a DP=2 + FSDP step against one rank (1e-3 and 1e-4 x
+     max(1, |ref|)). --xxl-batch-probe runs phase 6's head-dim-48 check
+     and the XXL step at several batches, with and without remat, alone
+     (no result line).
 Kernel, plain and library times are per call over 10 calls queued back to
 back (time_ms). Then the `kernels` JSON line, the card line, and the result
 line. Any failure exits non-zero without the result line; without a CUDA
@@ -204,9 +224,13 @@ TOL_FP32, TOL_BF16 = 1e-4, 2.0 ** -6     # times max(1, max|plain|)
 # (batch 6 x latent 1248, 16 heads of 72), the K3b route by length, the
 # serving length, an odd masked length with a fully masked batch row, and a
 # forced block_k
+# phase 16's XXL training: batch x latent (the flash route from 1248 tokens),
+# and its per-step K3a / K4a shape (32 heads of 48)
+XXL_TRAIN = (8, 1248)
+XXL_FLASH = (XXL_TRAIN[0], 32, XXL_TRAIN[1], 48)
 FLASH_SHAPES = [(6, 16, 1248, 72, False, None), (2, 16, 2048, 72, False, None),
                 (4, 16, 312, 72, False, None), (3, 4, 1000, 24, True, None),
-                (4, 16, 312, 72, False, 64)]
+                (4, 16, 312, 72, False, 64), XXL_FLASH + (False, None)]
 # long-Lq timing: the first 256-multiple of query rows past the JAX
 # package's split point for head dim 72 in bf16 (~13.8k rows, where the fused
 # body's fp32 dq block outgrows its 10 MiB VMEM budget)
@@ -624,7 +648,7 @@ def main_path(torch, system_mod, config_path, k1, k2, profile=False):
     return times, counts
 
 
-def check_flash(torch, fa, full_fp32):
+def check_flash(torch, fa, full_fp32, shapes=FLASH_SHAPES):
     """Phase 6: returns per-(shape, dtype, kernel) rows."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
@@ -634,7 +658,7 @@ def check_flash(torch, fa, full_fp32):
         item = torch.finfo(dtype).bits // 8
         tol = TOL_FP32 if dtype == torch.float32 else TOL_BF16
         peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
-        for b, h, L, d, masked, block_k in FLASH_SHAPES:
+        for b, h, L, d, masked, block_k in shapes:
             q, k, v, do = (torch.randn(b, h, L, d, generator=g, device=dev).to(dtype)
                            for _ in range(4))
             mask = None
@@ -2640,6 +2664,315 @@ def eval_flow(torch, system_mod, config_path, k1, k2, scorer, mel_tsv, card):
     return counts
 
 
+# -- phase 16: XXL on the card through the parallel entry points -------------------
+
+XXL_CAPTIONS = ["a dog barks in the distance", "rain falls on a tin roof",
+                "a crowd cheers at a stadium", "an engine idles then revs up",
+                "birds chirp at dawn", "a door creaks open",
+                "thunder rolls over the hills", "a kettle whistles"]
+
+
+def nccl_world_of_one(torch) -> str:
+    """Phase 16's process group: NCCL at world size 1, in this process,
+    through a FileStore under build/ (no port, no launcher)."""
+    import torch.distributed as dist
+    d = os.path.join(ROOT, "build", "chip_smoke_xxl")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "nccl_store")
+    if os.path.exists(path):
+        os.remove(path)
+    dist.init_process_group("nccl", store=dist.FileStore(path, 1), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    return d
+
+
+def xxl_serve(torch, system_mod, xxl_path, k1, k2, card, mesh):
+    """Phase 16 (a): the XXL system as its YAML writes it (random weights from
+    the seed, zero-init gates made nonzero), served through shard_serving on
+    the 1 x 1 mesh in bf16: 4 prompts x 10 s, 25 steps, guidance 5.0."""
+    import numpy as np
+    t = time.perf_counter()
+    system = system_mod.MAA3System.from_config(
+        [xxl_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
+    system.shard_serving(mesh)
+    n_dit = sum(p.numel() for p in system.dit.parameters())
+    torch.cuda.synchronize()
+    log(f"XXL serve: system built, DiT {n_dit / 1e6:.1f} M parameters "
+        f"({system.dit.cfg.hidden_size} x {system.dit.cfg.depth} x "
+        f"{system.dit.cfg.num_heads} heads of {system.dit.cfg.head_dim}), mesh "
+        f"{mesh.shape}, {time.perf_counter() - t:.2f} s")
+    caps = XXL_CAPTIONS[:B]
+    prompts = system.captions(caps, [f"<{c}& all>" for c in caps])
+    empty = system.captions([""] * B, [""] * B)
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        c = system.get_learned_conditioning(prompts)
+        uc = system.get_learned_conditioning(empty)
+        torch.cuda.synchronize()
+        s_ode = time.perf_counter()
+        z = system.sample_cfg(c, 5.0, uc, gen, shape=(B, 20, LATENT), timesteps=25)
+        torch.cuda.synchronize()
+        ode = time.perf_counter() - s_ode
+        wav = system.vocode(system.decode_first_stage(z))
+        return z, wav, (time.perf_counter() - s) * 1e3, ode * 1e3
+
+    run()  # warm-up: the serving copy, cuBLAS / cuDNN handles
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k2.launches = 0
+    z, wav, e2e, ode = run()
+    counts = (k1.launches, k2.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(tuple(z.shape) == (B, 20, LATENT) and bool(torch.isfinite(z).all())
+            and wav.shape == (B, 159744) and np.isfinite(wav).all()
+            and 0 < np.abs(wav).max() <= 1.0, "XXL serve: finite outputs of the shapes")
+    require(counts == K1_K2_PER_VOCODE, f"XXL serve: K1 / K2 {counts} == {K1_K2_PER_VOCODE}")
+    log(f"XXL serve (4 x 10 s, 25 steps, bf16, 1 x 1 mesh over NCCL): end to end "
+        f"{e2e:.1f} ms, ODE {ode:.1f} ms, peak {peak:.2f} GiB, K1 / K2 {counts}; {card}")
+    del system
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"e2e_ms": e2e, "ode_ms": ode, "peak_gib": peak, "counts": counts}
+
+
+def xxl_depth2_check(torch, system_mod, xxl_path, mesh, full_fp32):
+    """Phase 16 (a): a depth-2 model of XXL width in fp32 on the card,
+    sampled through shard_serving on the NCCL mesh and without it."""
+    over = ["model.params.unet_config.params.depth=2"]
+    s = system_mod.MAA3System.from_config([xxl_path], over, seed=0, device="cuda",
+                                          compute_dtype=torch.float32, unfreeze=True,
+                                          init_cond=False)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    ctx = torch.randn(2, 154, 1024, generator=g, device="cuda")
+    x0 = torch.randn(2, 20, LATENT, generator=g, device="cuda")
+    with full_fp32():
+        plain = s.sample_cfg(ctx, 5.0, torch.zeros_like(ctx), x0=x0, timesteps=4)
+        s.shard_serving(mesh)
+        sharded = s.sample_cfg(ctx, 5.0, torch.zeros_like(ctx), x0=x0, timesteps=4)
+    require(torch.equal(plain, sharded), "XXL depth 2, fp32: shard_serving on the 1 x 1 "
+            "NCCL mesh gives the unsharded latents")
+    log("XXL depth 2, fp32: shard_serving on the 1 x 1 NCCL mesh equals the plain path")
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def xxl_train(torch, system_mod, xxl_path, fa, card, mesh, batch, remat=False,
+              steps=3, check_ckpt=True):
+    """Phase 16 (b): the XXL YAML's training (trainable CLAP+FLAN
+    conditioner) through Trainer(n_model=1, fsdp=True) on the NCCL mesh,
+    batch x latent XXL_TRAIN[1] (the flash route), bf16; a checkpoint
+    through the gathered path, loaded back."""
+    import numpy as np
+    from maa3_tpu_torch.train.loop import Trainer
+    latent = XXL_TRAIN[1]
+    over = ["model.params.unet_config.params.remat=true"] if remat else []
+    t = time.perf_counter()
+    system = system_mod.MAA3System.from_config(
+        [xxl_path], over, seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
+    d = os.path.join(ROOT, "build", "chip_smoke_xxl")
+    trainer = Trainer(system, batch_size=batch, log_every=1, ckpt_every=0, ckpt_dir=d,
+                      n_model=1, fsdp=True, mesh=mesh)
+    require(not trainer.fsdp and not trainer.sharded and trainer.state.cond is not None,
+            "XXL train: fsdp is a no-op on one data rank; the conditioner trains")
+    n_dit = sum(p.numel() for p in system.dit.parameters())
+    n_cond = sum(p.numel() for p in system.cond.parameters())
+    log(f"XXL train {batch}x{latent}: system built, DiT {n_dit / 1e6:.1f} M + conditioner "
+        f"{n_cond / 1e6:.1f} M trainable, remat {remat}, mesh {mesh.shape}, fsdp requested "
+        f"(a no-op at data width 1, as in JAX), {time.perf_counter() - t:.2f} s")
+    c = [XXL_CAPTIONS[i % len(XXL_CAPTIONS)] for i in range(batch)]
+    raw = {"image": np.random.RandomState(16).randn(batch, 80, 2 * latent).astype(
+               np.float32) - 4.0,
+           "caption": {"ori_caption": c, "struct_caption": [f"<{x}& all>" for x in c]}}
+    loader = itertools.repeat(raw)
+    m = trainer.fit(loader, max_steps=1)  # warm-up: scale_by_std, cuBLAS, caches
+    require(np.isfinite(m["loss"]), f"XXL warm-up loss finite: {m}")
+    torch.cuda.reset_peak_memory_stats()
+    results = _timed_steps(torch, fa, trainer, loader, steps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for ms, counts, m in results:
+        require(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+                f"XXL step finite: {m}")
+        log(f"XXL train {batch}x{latent} step {m['step']}: {ms:.1f} ms, "
+            f"{batch * latent / ms * 1e3:.0f} tokens/s, loss {m['loss']:.4f}, grad norm "
+            f"{m['grad_norm']:.4f}, launches {counts}")
+    depth = system.dit.cfg.depth
+    want = {"K3a": depth * (2 if remat else 1), "K3b": 0, "K4a": depth, "K4b": 0, "K4c": 0}
+    for _, counts, _ in results:
+        require(counts == want, f"XXL step launches {counts} == {want}")
+    med = statistics.median(ms for ms, _, _ in results)
+    log(f"XXL train {batch}x{latent}: median step {med:.1f} ms, "
+        f"{batch * latent / med * 1e3:.0f} tokens/s, peak {peak:.2f} GiB; {card}")
+    out = {"step_ms": med, "tokens_per_s": batch * latent / med * 1e3, "peak_gib": peak,
+           "counts": results[-1][1], "batch": batch}
+    if check_ckpt:
+        t = time.perf_counter()
+        path = trainer.save_checkpoint(tag="xxl")
+        saved = time.perf_counter() - t
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        live = {k: m.state_dict() for k, m in trainer.state.trainable().items()}
+        same = all(torch.equal(payload["params"][k][n], v.cpu())
+                   for k, sd in live.items() for n, v in sd.items())
+        require(same, "XXL checkpoint: the file holds the live parameters")
+        with torch.no_grad():
+            for p in trainer.state.trainable_parameters():
+                p.zero_()
+        t = time.perf_counter()
+        trainer.restore_checkpoint(path)
+        loaded = time.perf_counter() - t
+        back = all(torch.equal(payload["params"][k][n], v.cpu())
+                   for k, m in trainer.state.trainable().items()
+                   for n, v in m.state_dict().items())
+        require(back, "XXL checkpoint: restore_checkpoint gives the saved parameters")
+        size = os.path.getsize(path) / 2 ** 30
+        os.remove(path)
+        del payload
+        log(f"XXL checkpoint: {size:.2f} GiB written in {saved:.1f} s, loaded back in "
+            f"{loaded:.1f} s, parameters equal")
+        out.update(ckpt_gib=size, ckpt_save_s=saved, ckpt_load_s=loaded)
+    trainer.close()
+    del trainer, system
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gloo_rank(rank: int, d: str) -> None:
+    """Phase 16 (c), one of two ranks on the one card: gloo over CUDA
+    tensors; a depth-2 XXL-width TP=2 serving sample and a DP=2 + FSDP step,
+    written to d."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(d, "gloo_store"), 2),
+                            rank=rank, world_size=2)
+    try:
+        from maa3_tpu_torch import system as system_mod
+        from maa3_tpu_torch.parallel import mesh as pmesh
+        from maa3_tpu_torch.pipeline import full_fp32
+        out = {}
+        with full_fp32():
+            out["serve"] = _two_rank_serve(torch, system_mod, pmesh.make_mesh(n_model=2))
+            out["step"] = _two_rank_step(torch, system_mod, pmesh.make_mesh(n_model=1))
+        torch.save(out, os.path.join(d, f"gloo_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _xxl_depth2(torch, system_mod):
+    over = ["model.params.unet_config.params.depth=2", NO_COND]
+    return system_mod.MAA3System.from_config(
+        [os.path.join(ROOT, "configs", "txt2audio-cfm-cfg-XXL.yaml")], over, seed=0,
+        device="cuda", compute_dtype=torch.float32, unfreeze=True, init_cond=False)
+
+
+def _two_rank_serve(torch, system_mod, mesh):
+    s = _xxl_depth2(torch, system_mod)
+    if mesh is not None:
+        s.shard_serving(mesh)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    ctx = torch.randn(2, 154, 1024, generator=g, device="cuda")
+    x0 = torch.randn(2, 20, LATENT, generator=g, device="cuda")
+    return s.sample_cfg(ctx, 5.0, torch.zeros_like(ctx), x0=x0, timesteps=4).cpu()
+
+
+def _two_rank_step(torch, system_mod, mesh):
+    import numpy as np
+    from maa3_tpu_torch.train.loop import Trainer
+    s = _xxl_depth2(torch, system_mod)
+    d = os.path.join(ROOT, "build", "chip_smoke_xxl", f"gloo_{mesh.data_rank}")
+    tr = Trainer(s, batch_size=4, warm_up_steps=0, log_every=100, ckpt_every=0,
+                 ckpt_dir=d, fsdp=mesh.n_data > 1, fsdp_min_size=65536, mesh=mesh)
+    rng = np.random.RandomState(16)
+    raw = {"image": rng.randn(4, 80, 624).astype(np.float32) - 4.0,
+           "context": rng.randn(4, 154, 1024).astype(np.float32)}
+    m = tr.train_step(raw, seed=16)
+    return {"params": {n: t.cpu() for n, t in tr._full_params()["dit"].items()},
+            "loss": float(m["loss"]), "sharded": tr.sharded}
+
+
+def two_ranks_one_card(torch, system_mod, full_fp32):
+    """Phase 16 (c): two gloo ranks on the one card against one rank."""
+    import torch.multiprocessing as mp
+    d = os.path.join(ROOT, "build", "chip_smoke_xxl", "gloo")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t = time.perf_counter()
+    ctx = mp.start_processes(_gloo_rank, args=(d,), nprocs=2, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + 300
+    try:
+        while not ctx.join(timeout=1.0):
+            require(time.monotonic() < deadline, "two gloo ranks finished within 300 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    ranks = [torch.load(os.path.join(d, f"gloo_{r}.pt"), weights_only=False)
+             for r in range(2)]
+    with full_fp32():
+        one_z = _two_rank_serve(torch, system_mod, None)
+        from maa3_tpu_torch.parallel import mesh as pmesh
+        one = _two_rank_step(torch, system_mod, pmesh.Mesh())
+    for r in ranks:
+        _within(r["serve"], one_z, "gloo TP=2 serving vs one rank", rel=1e-3)
+        require(r["step"]["sharded"], "the two-rank step is sharded (FSDP over data 2)")
+        require(abs(r["step"]["loss"] - one["loss"]) <= 1e-4 * max(1.0, abs(one["loss"])),
+                "gloo DP=2 + FSDP loss vs one rank")
+        for n, p in r["step"]["params"].items():
+            _within(p, one["params"][n], f"gloo DP=2 + FSDP step: {n}", rel=1e-4)
+    log(f"two gloo ranks on the card: TP=2 serving and a DP=2 + FSDP step agree with "
+        f"one rank, {time.perf_counter() - t:.2f} s")
+
+
+def xxl_phase(torch, system_mod, k1, k2, fa, card, full_fp32, gloo=True):
+    """Phase 16: XXL serving and training through the parallel entry points
+    on an NCCL group of world size 1, then two gloo ranks on the card."""
+    import torch.distributed as dist
+    from maa3_tpu_torch.parallel import mesh as pmesh
+    xxl_path = os.path.join(ROOT, "configs", "txt2audio-cfm-cfg-XXL.yaml")
+    nccl_world_of_one(torch)
+    try:
+        mesh = pmesh.make_mesh(n_model=1)
+        require(mesh.shape == {"data": 1, "model": 1} and mesh.device_mesh is not None
+                and dist.get_backend() == "nccl", "a 1 x 1 DeviceMesh over NCCL")
+        serve = xxl_serve(torch, system_mod, xxl_path, k1, k2, card, mesh)
+        xxl_depth2_check(torch, system_mod, xxl_path, mesh, full_fp32)
+        train = xxl_train(torch, system_mod, xxl_path, fa, card, mesh, XXL_TRAIN[0])
+    finally:
+        dist.destroy_process_group()
+    if gloo:
+        two_ranks_one_card(torch, system_mod, full_fp32)
+    return serve, train
+
+
+def xxl_batch_probe(torch, system_mod, fa, card) -> None:
+    """chip_smoke.py --xxl-batch-probe: the XXL step's time and peak at
+    several batches, with and without remat (an out-of-memory step is
+    reported and the next setting tried)."""
+    import torch.distributed as dist
+    from maa3_tpu_torch.parallel import mesh as pmesh
+    xxl_path = os.path.join(ROOT, "configs", "txt2audio-cfm-cfg-XXL.yaml")
+    nccl_world_of_one(torch)
+    try:
+        mesh = pmesh.make_mesh(n_model=1)
+        for batch, remat in ((6, False), (8, False), (10, False), (12, True), (16, True)):
+            try:
+                r = xxl_train(torch, system_mod, xxl_path, fa, card, mesh, batch, remat,
+                              steps=2, check_ckpt=False)
+                log(f"XXL probe: batch {batch} remat {remat}: {r}")
+            except torch.cuda.OutOfMemoryError as e:
+                log(f"XXL probe: batch {batch} remat {remat}: out of memory ({str(e)[:120]})")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     try:
         import torch
@@ -2684,6 +3017,15 @@ def main() -> int:
     from maa3_tpu_torch import system as system_mod
     from maa3_tpu_torch.ops import pallas_aa_snake as k1, pallas_amp as k2
     from maa3_tpu_torch.pipeline import full_fp32
+
+    if "--xxl-batch-probe" in sys.argv[1:]:
+        # the head-dim-48 flash check and the XXL step at several batches;
+        # no result line
+        from maa3_tpu_torch.ops import flash_attention as fa
+        check_flash(torch, fa, full_fp32, [XXL_FLASH + (False, None)])
+        xxl_batch_probe(torch, system_mod, fa, card)
+        log("XXL batch probe: done (no result line)")
+        return 3
 
     t = time.perf_counter()
     rows = check_kernels(torch, k1, k2, full_fp32)
@@ -2813,6 +3155,12 @@ def main() -> int:
     eval_counts = eval_flow(torch, system_mod, config_path, k1, k2, scorer, tsv, card)
     del scorer
     log(f"eval flow: done, {time.perf_counter() - t:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    xxl_serving, xxl_training = xxl_phase(torch, system_mod, k1, k2, fa, card, full_fp32)
+    log(f"XXL: done, {time.perf_counter() - t:.2f} s")
 
     kernels = []
     # launches, ms and the bound: phase 5's batch-4 XL vocode (bf16), as in
@@ -2830,7 +3178,7 @@ def main() -> int:
         by_path = {"xl_serving": counts[i], "music_server": serve["launches"][i],
                    "amp2_vocoder": amp2[i], "audio_logger": recipe["logger_counts"][i],
                    "vocoder_gan_disc_step": voc_gan["disc_counts"][i],
-                   "eval": eval_counts[i],
+                   "eval": eval_counts[i], "xxl_serve": xxl_serving["counts"][i],
                    **{f"xl_serving_{m}": c[i] for m, c in int8_counts.items() if m},
                    **{f"video2audio_{m}_per_vocode": c[i] for m, c in v2a_counts.items()}}
         err = {path: max(r["err"] for r in rows if r["kernel"] == name[:2]
@@ -2870,7 +3218,8 @@ def main() -> int:
         mine = [r for r in frows if r["kernel"] == name[:3] and r["dtype"] == "bfloat16"]
         r = next(r for r in mine if r["shape"] == shape)
         phase12 = recipe["micro_step_counts"].get(name[:3], 0)
-        kernels.append({
+        xxl_n = xxl_training["counts"].get(name[:3], 0)
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": cnt, "max_abs_err": max(x["err"] for x in mine),
             "ms": r["ms"] * cnt, "plain_ms": r["plain_ms"] * cnt,
@@ -2878,7 +3227,14 @@ def main() -> int:
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
             "library_ms": r["library_ms"] * cnt,
             "launches_by_path": {"main": cnt, "recipe_micro_step": phase12,
-                                 "moe_forced_flash_step": moe_flash[name[:3]]}})
+                                 "moe_forced_flash_step": moe_flash[name[:3]],
+                                 "xxl_train": xxl_n}}
+        if xxl_n:  # phase 16's XXL step at head dim 48: per step, bf16
+            x = next(r for r in mine if r["shape"] == XXL_FLASH)
+            entry["xxl_train"] = {k: x[k] * xxl_n for k in ("ms", "plain_ms", "bound_ms",
+                                                            "library_ms")}
+            entry["xxl_train"]["max_abs_err"] = x["err"]
+        kernels.append(entry)
     log(f"ODE chunk (XL, 25 steps, ms): " + "; ".join(
         f"batch {b} chunk {c}: {[round(x, 1) for x in v]}" for (b, c), v in chunk_ms.items()))
     print(json.dumps({"kernels": kernels}), flush=True)

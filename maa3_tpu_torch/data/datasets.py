@@ -226,14 +226,24 @@ class TestManifestDataset(AnyLenSpecDataset):
 
 class BucketBatchSampler:
     """Batches of consecutive indices (duration-sorted when the caller sorts
-    them), shuffled per epoch."""
+    them), shuffled per epoch, split round-robin over `num_replicas`
+    (maa3_tpu/data/datasets.py:279-318): replica `rank` takes
+    batches[rank::num_replicas] of the same shuffled list, or batches[0]
+    when there are fewer batches than replicas. drop_last drops the partial
+    batch, and the batches past the last multiple of num_replicas."""
 
     def __init__(self, indices: Sequence[int], batch_size: int,
-                 shuffle: bool = True, seed: int = 0):
+                 num_replicas: int = 1, rank: int = 0, shuffle: bool = True,
+                 seed: int = 0, drop_last: bool = False):
+        if not 0 <= rank < num_replicas:
+            raise ValueError(f"rank {rank} of {num_replicas} replicas")
         self.indices = list(indices)
         self.batch_size = batch_size
+        self.num_replicas = num_replicas
+        self.rank = rank
         self.shuffle = shuffle
         self.seed = seed
+        self.drop_last = drop_last
         self.epoch = 0
         self.batches = self._build()
 
@@ -244,10 +254,16 @@ class BucketBatchSampler:
     def _build(self) -> List[List[int]]:
         batches = [self.indices[i:i + self.batch_size]
                    for i in range(0, len(self.indices), self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
         if self.shuffle:
             rng = np.random.RandomState(self.seed + self.epoch)
             batches = [batches[i] for i in rng.permutation(len(batches))]
-        return batches
+        if self.drop_last:
+            batches = batches[:len(batches) // self.num_replicas * self.num_replicas]
+        if len(batches) >= self.num_replicas:
+            return batches[self.rank::self.num_replicas]
+        return batches[:1]
 
     def __iter__(self) -> Iterator[List[int]]:
         return iter(self.batches)

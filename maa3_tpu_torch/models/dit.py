@@ -36,6 +36,7 @@ from maa3_tpu_torch.ops.basic import (RMSNorm, TimestepEmbedder, checkpoint_name
                                       layer_norm, linear, modulate, rms_norm, silu)
 from maa3_tpu_torch.ops.ffn import FeedForward, feed_forward_apply
 from maa3_tpu_torch.ops.rope import precompute_rope
+from maa3_tpu_torch.parallel.fsdp import gathered
 
 # JAX's remat policies (maa3_tpu/models/dit.py:254-293): what the backward
 # keeps of a block's forward. The names are the projections' checkpoint
@@ -79,6 +80,11 @@ class DiTConfig:
     # keeping what remat_policy names (REMAT_SAVES)
     remat: bool = False
     remat_policy: str = "nothing"
+    # Megatron sequence parallelism for tensor-parallel training: the
+    # residual stream between the blocks' products is sharded over the
+    # sequence on the model group (parallel/tp.py); no effect without a TP
+    # group (maa3_tpu/models/dit.py:92-97)
+    seq_parallel: bool = False
 
     def __post_init__(self):
         if self.remat_policy not in REMAT_SAVES:
@@ -139,6 +145,10 @@ class DiT(nn.Module):
         self.blocks = nn.ModuleList(TransformerBlock(cfg)
                                     for _ in range(cfg.depth))
         self.final_layer = FinalLayer(d, cfg.in_channels)
+        # set when the parameters are this rank's shards: the model group
+        # (parallel/tp.py TP) and ZeRO-3 over the data group (parallel/fsdp.py)
+        self.tp = None
+        self.fsdp = None
 
 
 @torch.no_grad()
@@ -312,27 +322,47 @@ def _amax(a: torch.Tensor) -> torch.Tensor:
     return a.float().abs().amax(dim=(0, 1))
 
 
+def _reduces(lin: nn.Module) -> bool:
+    """An int8 row-parallel weight whose product sums over the model group
+    itself (ops/quant.py dense_w8a8)."""
+    return getattr(lin.weight, "amax_group", None) is not None
+
+
 def _block_apply(blk: TransformerBlock, cfg: DiTConfig, x, cos, sin, mod,
                  y=None, y_kv=None, x_mask=None, y_mask=None,
-                 compute_dtype=None, return_stats: bool = False):
+                 compute_dtype=None, return_stats: bool = False, tp=None):
     """TransformerBlock.forward with the (B, 6H) modulation given.
     return_stats: also {attn_in, ffn_in, ffn_prod}, the per-channel amax of
-    the three quantized-GEMM inputs (maa3_tpu/models/dit.py:376-419)."""
+    the three quantized-GEMM inputs (maa3_tpu/models/dit.py:376-419).
+    tp: the block's weights are this rank's shards (parallel/tp.py); the
+    attention and the FFN run between tp.enter and tp.exit, and x is this
+    rank's sequence shard under sequence parallelism."""
+    if tp is not None and return_stats:
+        raise NotImplementedError("calibrate SmoothQuant before sharding")
+    if tp is not None:
+        mod = tp.on_stream(mod)
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
         mod.chunk(6, dim=-1))
-    x_attn_in = modulate(rms_norm(blk.attention_norm.weight, x, cfg.norm_eps),
-                         shift_msa, scale_msa)
+    w_attn, w_ffn = blk.attention_norm.weight, blk.ffn_norm.weight
+    if tp is not None:
+        w_attn, w_ffn = tp.on_stream(w_attn), tp.on_stream(w_ffn)
+    x_attn_in = modulate(rms_norm(w_attn, x, cfg.norm_eps), shift_msa, scale_msa)
+    seq = x.shape[1] * (tp.size if tp is not None and tp.seq_parallel else 1)
     h_attn = attention_apply(
-        blk.attention, x_attn_in,
+        blk.attention, x_attn_in if tp is None else tp.enter(x_attn_in),
         cos, sin, y=y, y_kv=y_kv, x_mask=x_mask, y_mask=y_mask,
         n_heads=cfg.num_heads, n_kv_heads=cfg.n_kv_heads,
-        compute_dtype=compute_dtype, use_flash=cfg.flash_for_len(x.shape[1]),
-        fp32_scores=cfg.fp32_scores)
+        compute_dtype=compute_dtype, use_flash=cfg.flash_for_len(seq),
+        fp32_scores=cfg.fp32_scores, tp=tp)
+    if tp is not None and not _reduces(blk.attention.wo):
+        h_attn = tp.exit(h_attn)
     h = x + gate_msa[:, None, :].to(x.dtype) * h_attn
-    x_ffn_in = modulate(rms_norm(blk.ffn_norm.weight, h, cfg.norm_eps),
-                        shift_mlp, scale_mlp)
-    h_ffn = feed_forward_apply(blk.feed_forward, x_ffn_in, compute_dtype,
-                               return_stats=return_stats)
+    x_ffn_in = modulate(rms_norm(w_ffn, h, cfg.norm_eps), shift_mlp, scale_mlp)
+    h_ffn = feed_forward_apply(blk.feed_forward,
+                               x_ffn_in if tp is None else tp.enter(x_ffn_in),
+                               compute_dtype, return_stats=return_stats)
+    if tp is not None and not _reduces(blk.feed_forward.w2):
+        h_ffn = tp.exit(h_ffn)
     if return_stats:
         h_ffn, prod_amax = h_ffn
         stats = {"attn_in": _amax(x_attn_in), "ffn_in": _amax(x_ffn_in),
@@ -373,13 +403,14 @@ def _embed(dit: DiT, x: torch.Tensor, compute_dtype):
 
 
 def _dit_block(blk: TransformerBlock, cfg: DiTConfig, h, cos, sin, adaln,
-               context, x_mask, context_mask, compute_dtype):
+               context, x_mask, context_mask, compute_dtype, tp=None, fsdp=None):
     """One block of dit_apply, its modulation and normed context included
-    (the body JAX's remat recomputes)."""
-    mod = linear(blk.adaLN_modulation[1], silu(adaln.float()))
-    y = rms_norm(blk.attention_y_norm.weight, context, cfg.norm_eps)
-    return _block_apply(blk, cfg, h, cos, sin, mod, y=y, x_mask=x_mask,
-                        y_mask=context_mask, compute_dtype=compute_dtype)
+    (the body JAX's remat recomputes), its FSDP shards gathered inside."""
+    with gathered(fsdp, blk):
+        mod = linear(blk.adaLN_modulation[1], silu(adaln.float()))
+        y = rms_norm(blk.attention_y_norm.weight, context, cfg.norm_eps)
+        return _block_apply(blk, cfg, h, cos, sin, mod, y=y, x_mask=x_mask,
+                            y_mask=context_mask, compute_dtype=compute_dtype, tp=tp)
 
 
 def dit_apply(dit: DiT, x: torch.Tensor, t: torch.Tensor,
@@ -389,22 +420,34 @@ def dit_apply(dit: DiT, x: torch.Tensor, t: torch.Tensor,
               training: bool = False) -> torch.Tensor:
     """x: (B, C, T); t: (B,) integer timesteps; context: (B, Ly, ctx).
     Returns the (B, C, T) fp32 velocity. training=True selects the training
-    flash threshold."""
+    flash threshold. A DiT sharded over a model group (dit.tp) runs
+    Megatron's tensor parallelism, with cfg.seq_parallel its sequence
+    parallelism; one sharded over the data group (dit.fsdp) gathers its
+    parameters as it goes."""
     cfg = dit.cfg.resolve_flash(x.shape[-1], training)
-    h, cos, sin = _embed(dit, x, compute_dtype)
-    adaln = dit.t_embedder(t) + _cap_emb(dit, context, context_mask)
-    remat = cfg.remat and torch.is_grad_enabled()
-    ckpt = {"use_reentrant": False}
-    if remat and cfg.remat_policy != "nothing":  # "nothing": a plain checkpoint
-        ckpt["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
-                                               remat_policy_fn(cfg.remat_policy))
-    for blk in dit.blocks:
-        args = (blk, cfg, h, cos, sin, adaln, context, x_mask, context_mask,
-                compute_dtype)
-        h = checkpoint(_dit_block, *args, **ckpt) if remat else _dit_block(*args)
-    fl = dit.final_layer
-    shift, scale = linear(fl.adaLN_modulation[1], silu(adaln.float())).chunk(2, -1)
-    return _final(dit, h, shift, scale)
+    tp = getattr(dit, "tp", None)
+    if tp is not None:
+        tp = tp.with_seq_parallel(cfg.seq_parallel)
+    fsdp = getattr(dit, "fsdp", None)
+    with gathered(fsdp, dit.proj_in, dit.t_embedder, dit.cap_embedder, dit.final_layer):
+        h, cos, sin = _embed(dit, x, compute_dtype)
+        adaln = dit.t_embedder(t) + _cap_emb(dit, context, context_mask)
+        if tp is not None:
+            h = tp.split_seq(h)
+        remat = cfg.remat and torch.is_grad_enabled()
+        ckpt = {"use_reentrant": False}
+        if remat and cfg.remat_policy != "nothing":  # "nothing": a plain checkpoint
+            ckpt["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                   remat_policy_fn(cfg.remat_policy))
+        for blk in dit.blocks:
+            args = (blk, cfg, h, cos, sin, adaln, context, x_mask, context_mask,
+                    compute_dtype, tp, fsdp)
+            h = checkpoint(_dit_block, *args, **ckpt) if remat else _dit_block(*args)
+        if tp is not None:
+            h = tp.join_seq(h)
+        fl = dit.final_layer
+        shift, scale = linear(fl.adaLN_modulation[1], silu(adaln.float())).chunk(2, -1)
+        return _final(dit, h, shift, scale)
 
 
 @torch.no_grad()
@@ -435,7 +478,7 @@ def dit_sample_plan(dit: DiT, t_ints: torch.Tensor, context: torch.Tensor,
     for blk in dit.blocks:
         yn = yf * blk.attention_y_norm.weight.to(context.dtype)
         k, v = context_kv(blk.attention, yn.to(compute_dtype or yn.dtype),
-                          compute_dtype)
+                          compute_dtype, getattr(dit, "tp", None))
         yk.append(k)
         yv.append(v)
     return {"mods": mods, "final": final, "yk": yk, "yv": yv}
@@ -452,12 +495,14 @@ def dit_apply_planned(dit: DiT, x: torch.Tensor, mods: torch.Tensor,
     {"attn_in", "ffn_in": (depth, H), "ffn_prod": (depth, H')}, the
     per-block, per-channel amax of the quantized-GEMM inputs."""
     cfg = dit.cfg
+    tp = getattr(dit, "tp", None)
     h, cos, sin = _embed(dit, x, compute_dtype)
     stats = []
     for i, blk in enumerate(dit.blocks):
         h = _block_apply(blk, cfg, h, cos, sin, mods[i], y_kv=(yk[i], yv[i]),
                          x_mask=x_mask, y_mask=y_mask,
-                         compute_dtype=compute_dtype, return_stats=return_stats)
+                         compute_dtype=compute_dtype, return_stats=return_stats,
+                         tp=tp and tp.with_seq_parallel(False))
         if return_stats:
             h, st = h
             stats.append(st)

@@ -68,13 +68,22 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     return out.transpose(1, 2).to(v.dtype)
 
 
+def _head_norm(x: torch.Tensor, norm: nn.LayerNorm, tp=None) -> torch.Tensor:
+    """qk_norm's LayerNorm over every head's features (all-reduced
+    statistics when the heads are sharded over tp)."""
+    if tp is not None:
+        return tp.layer_norm(x, norm.weight, norm.bias, eps=1e-5)
+    return layer_norm(x, norm.weight, norm.bias, eps=1e-5)
+
+
 def context_kv(att: Attention, y: torch.Tensor,
-               compute_dtype: Optional[torch.dtype] = None
+               compute_dtype: Optional[torch.dtype] = None, tp=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cross-attention K/V of an already rms-normed context y."""
+    """Cross-attention K/V of an already rms-normed context y (this rank's
+    heads under tensor parallelism, parallel/tp.py)."""
     yk = dense(y, att.wk_y.weight, None, compute_dtype)
     if hasattr(att, "ky_norm"):
-        yk = layer_norm(yk, att.ky_norm.weight, att.ky_norm.bias, eps=1e-5)
+        yk = _head_norm(yk, att.ky_norm, tp)
     yv = dense(y, att.wv_y.weight, None, compute_dtype)
     return yk, yv
 
@@ -87,15 +96,19 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
                     compute_dtype: Optional[torch.dtype] = None,
                     y_kv: Optional[tuple] = None,
                     use_flash: bool = False,
-                    fp32_scores: bool = False) -> torch.Tensor:
+                    fp32_scores: bool = False, tp=None) -> torch.Tensor:
     """x: (B, L, D); y: (B, Ly, y_dim) normed context, or y_kv: its
     precomputed (yk, yv), each (B, Ly, n_kv * head_dim). use_flash routes
     self-attention through the flash kernels; fp32_scores keeps the dense
-    logits in fp32 in bf16 mode."""
+    logits in fp32 in bf16 mode. With tp (parallel/tp.py) the weights are
+    this rank's heads, and the result is this rank's partial sum of the
+    output projection."""
     b, l, d = x.shape
     n_kv = n_heads if n_kv_heads is None else n_kv_heads
     hd = d // n_heads
     scale = 1.0 / math.sqrt(hd)
+    if tp is not None:
+        n_heads, n_kv = tp.local(n_heads), tp.local(n_kv)
     if att.wqkv is not None:
         xq, xk, xv = dense(x, att.wqkv, None, compute_dtype,
                            names=("attn_q", "attn_k", "attn_v")).split(
@@ -105,8 +118,8 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
         xk = dense(x, att.wk.weight, None, compute_dtype, names=("attn_k",))
         xv = dense(x, att.wv.weight, None, compute_dtype, names=("attn_v",))
     if hasattr(att, "q_norm"):
-        xq = layer_norm(xq, att.q_norm.weight, att.q_norm.bias, eps=1e-5)
-        xk = layer_norm(xk, att.k_norm.weight, att.k_norm.bias, eps=1e-5)
+        xq = _head_norm(xq, att.q_norm, tp)
+        xk = _head_norm(xk, att.k_norm, tp)
     xq = xq.reshape(b, l, n_heads, hd)
     xk = xk.reshape(b, l, n_kv, hd)
     xv = xv.reshape(b, l, n_kv, hd)
@@ -123,7 +136,9 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
         out = _sdpa(xq, xk, xv, scale, x_mask, fp32_scores)
 
     if hasattr(att, "wk_y") and (y is not None or y_kv is not None):
-        yk, yv = y_kv if y_kv is not None else context_kv(att, y, compute_dtype)
+        if y_kv is None:  # copy-to-TP: y feeds this rank's column products
+            y_kv = context_kv(att, y if tp is None else tp.copy(y), compute_dtype, tp)
+        yk, yv = y_kv
         ly = yk.shape[1]
         yk = yk.reshape(b, ly, n_kv, hd)
         yv = yv.reshape(b, ly, n_kv, hd)

@@ -40,13 +40,15 @@ int_mm_calls = 0
 class QuantWeight(nn.Module):
     """An int8 matmul weight: w_q (..., out, in) int8 and w_scale (..., out)
     fp32; with group_size, w_q (..., G, out, group_size) and w_scale
-    (..., G, out)."""
+    (..., G, out). amax_group: the process group over which a row-parallel
+    weight's input columns are sharded (parallel/tp.py), else None."""
 
     def __init__(self, w_q: torch.Tensor, w_scale: torch.Tensor, group_size: int = 0):
         super().__init__()
         self.register_buffer("w_q", w_q)
         self.register_buffer("w_scale", w_scale)
         self.group_size = group_size
+        self.amax_group = None
 
 
 class QuantLinear(nn.Module):
@@ -113,17 +115,26 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out[:m, :n] if out.shape != (m, n) else out
 
 
-def quantize_activations(xf: torch.Tensor):
+def quantize_activations(xf: torch.Tensor, amax_group=None):
     """Per-row symmetric int8 of fp32 activations over the last axis:
-    (codes, scale (..., 1))."""
-    sx = _per_127(xf.abs().amax(dim=-1, keepdim=True))
+    (codes, scale (..., 1)). amax_group: the rows' features are sharded over
+    this process group (a row-parallel weight, parallel/tp.py), whose MAX
+    all-reduce gives the whole row's amax, so the codes are one device's."""
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax_group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=amax_group)
+    sx = _per_127(amax)
     return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
 
 
 def dense_w8a8(x: torch.Tensor, qw: QuantWeight, b: Optional[torch.Tensor] = None,
                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """y = dequant(quant(x) @ w_q^T) (+ b), in compute_dtype when given, else
-    fp32 (maa3_tpu/ops/quant.py:58). x: (..., in)."""
+    fp32 (maa3_tpu/ops/quant.py:58). x: (..., in). A row-parallel weight
+    (`amax_group` set, parallel/tp.py) holds this rank's input columns:
+    the activations' amax is all-reduced with MAX and the int32 products
+    with SUM over that group, so y is one device's, already reduced."""
     lead = x.shape[:-1]
     xf = x.float().reshape(-1, x.shape[-1])
     w_q = qw.w_q
@@ -137,8 +148,13 @@ def dense_w8a8(x: torch.Tensor, qw: QuantWeight, b: Optional[torch.Tensor] = Non
             part = int8_matmul(x_q[j], w_q[j].t()).float() * sx[:, j] * ws[j]
             y = part if y is None else y + part
     else:
-        x_q, sx = quantize_activations(xf)
-        y = int8_matmul(x_q, w_q.t()).float() * sx * ws
+        group = qw.amax_group
+        x_q, sx = quantize_activations(xf, group)
+        acc = int8_matmul(x_q, w_q.t())
+        if group is not None:  # a row-parallel weight: the exact int32 sum over K
+            import torch.distributed as dist
+            dist.all_reduce(acc, group=group)
+        y = acc.float() * sx * ws
     if b is not None:
         y = y + b.float()
     y = y.reshape(lead + (y.shape[-1],))

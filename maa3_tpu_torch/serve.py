@@ -15,8 +15,15 @@ default; bf16 serving copy of the DiT, fp32 residual, bf16 vocoder), fp32
 package's six-pass fp32 matmul setting and is fp32 here: the card's fp32
 path already runs without TF32. --fp32 is the deprecated alias of
 --precision fp32. --quant selects int8 serving
-(MAA3System.set_serving_quant) and composes with --precision bf16 only. Not
-yet in the port: --n_model (tensor-parallel serving).
+(MAA3System.set_serving_quant) and composes with --precision bf16 only.
+
+--n_model N serves tensor-parallel under torchrun (one process per GPU;
+NCCL, gloo with --device cpu): every rank builds the same system and
+shards its serving DiT (system.shard_serving over make_mesh(n_model=N),
+the world split into world / N data ranks); rank 0 serves HTTP and the
+other ranks sample each batch in lockstep (serving.follow):
+
+    torchrun --nproc_per_node 2 -m maa3_tpu_torch.serve --n_model 2 ...
 """
 
 from __future__ import annotations
@@ -60,13 +67,22 @@ def parse_args(argv=None):
                    help="comma-separated batch buckets to run before accepting "
                         "traffic ('' to skip); e.g. 1,8")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--n_model", type=int, default=1,
+                   help="tensor-parallel serving over n_model GPUs (under torchrun)")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     opt = parse_args(argv)
-    from maa3_tpu_torch.serving import AudioServer, ServeConfig
+    from maa3_tpu_torch.parallel.mesh import distributed
+    with distributed(opt.device) as device:
+        _serve(opt, device)
+
+
+def _serve(opt, device):
+    from maa3_tpu_torch.parallel import mesh as pmesh
+    from maa3_tpu_torch.serving import AudioServer, Lockstep, ServeConfig, follow
     from maa3_tpu_torch.system import MAA3System
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg_paths = [c for c in opt.base.split(",") if c] or [
@@ -74,13 +90,23 @@ def main(argv=None):
     precision = "fp32" if opt.fp32 else opt.precision
     if opt.quant and precision != "bf16":
         sys.exit("--quant int8 composes with --precision bf16 only")
+    mesh = pmesh.make_mesh(n_model=opt.n_model)
     system = MAA3System.from_config(
-        cfg_paths, seed=opt.seed, device=opt.device,
+        cfg_paths, seed=opt.seed, device=device,
         compute_dtype=torch.bfloat16 if precision == "bf16" else torch.float32,
         tokenizer_dir=opt.tokenizer_dir or None, ckpt_path=opt.resume or None,
         vocoder_dir=opt.vocoder_ckpt or None)
     if opt.quant:
         system.set_serving_quant(opt.quant)
+    lockstep = None
+    if pmesh.world_size() > 1:
+        system.shard_serving(mesh)
+        group = pmesh.control_group()
+        if pmesh.rank() != 0:
+            n = follow(system, group)
+            print(f"rank {pmesh.rank()}: followed {n} batch(es)", flush=True)
+            return
+        lockstep = Lockstep(group)
     if not opt.resume:
         print("WARNING: no checkpoint given (-r); serving random weights")
     server = AudioServer(
@@ -90,13 +116,19 @@ def main(argv=None):
                     sample_rate=system.vocoder.cfg.sampling_rate, seed=opt.seed,
                     max_latent_len=opt.max_latent_len),
         host=opt.host, port=opt.port)
-    if opt.warmup:
-        buckets = [int(b) for b in opt.warmup.split(",") if b]
-        print(f"warming up buckets {buckets}...", flush=True)
-        server.batcher.warmup(buckets, steps=opt.steps)
-    print(f"serving on http://{opt.host}:{server.port}  "
-          "(POST /generate, GET /healthz, GET /stats)", flush=True)
-    server.serve_forever()
+    if lockstep is not None:
+        server.batcher.lockstep = lockstep
+    try:
+        if opt.warmup:
+            buckets = [int(b) for b in opt.warmup.split(",") if b]
+            print(f"warming up buckets {buckets}...", flush=True)
+            server.batcher.warmup(buckets, steps=opt.steps)
+        print(f"serving on http://{opt.host}:{server.port}  "
+              "(POST /generate, GET /healthz, GET /stats)", flush=True)
+        server.serve_forever()
+    finally:
+        if lockstep is not None:
+            server.shutdown()  # releases the other ranks, whatever raised
 
 
 if __name__ == "__main__":

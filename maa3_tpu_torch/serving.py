@@ -13,7 +13,11 @@ maa3_tpu/serving.py).
   {prompt, seed} gives its audio whatever it is batched with, up to the
   GEMMs' batch-size-dependent rounding;
 - `AudioServer.shutdown` stops the HTTP loop, answers queued requests with
-  503, and joins the batcher, HTTP and handler threads: no thread is left.
+  503, and joins the batcher, HTTP and handler threads: no thread is left;
+- **tensor-parallel serving** (system.shard_serving over several ranks):
+  rank 0 owns the HTTP front and the batcher, and announces each batch's
+  captions, noise, steps and scale to the other ranks (`Lockstep`), which
+  sample it in lockstep (`follow`) until shutdown announces the end.
 
 Endpoints: POST /generate {"prompt", "seed"?, "steps"?, "scale"?,
 "latent_len"?, "struct_caption"?, "format": "wav" | "json"} -> a 16-bit wav
@@ -102,13 +106,56 @@ def wav_bytes(wav: np.ndarray, sample_rate: int) -> bytes:
     return buf.getvalue()
 
 
+class Lockstep:
+    """Rank 0's side of a tensor-parallel server: every batch it samples is
+    first broadcast over `group` (every rank; a gloo group with a long
+    timeout, mesh.control_group), and close() releases the followers."""
+
+    def __init__(self, group):
+        self.group = group
+        self.closed = False
+
+    def announce(self, msg: Optional[dict]) -> None:
+        import torch.distributed as dist
+        dist.broadcast_object_list([msg], src=0, group=self.group)
+
+    def close(self) -> None:
+        if not self.closed:
+            self.closed = True
+            self.announce(None)
+
+
+def follow(system, group) -> int:
+    """A rank other than 0 of a tensor-parallel server: sample every batch
+    rank 0 announces, in lockstep (its collectives), until the end. Returns
+    the batches followed."""
+    import torch.distributed as dist
+    uc_cache: dict = {}
+    n = 0
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=group)
+        msg = box[0]
+        if msg is None:
+            return n
+        bucket = len(msg["prompts"])
+        if bucket not in uc_cache:
+            uc_cache[bucket] = system.get_learned_conditioning(
+                system.captions([""] * bucket, [""] * bucket))
+        c = system.get_learned_conditioning(system.captions(msg["prompts"], msg["structs"]))
+        system.sample_cfg(c, msg["scale"], uc_cache[bucket], timesteps=msg["steps"],
+                          x0=torch.from_numpy(msg["x0"]).to(system.device))
+        n += 1
+
+
 class Batcher(threading.Thread):
     """The single card-owner thread: dequeue -> coalesce -> generate."""
 
-    def __init__(self, system, cfg: ServeConfig):
+    def __init__(self, system, cfg: ServeConfig, lockstep: Optional[Lockstep] = None):
         super().__init__(daemon=True, name="maa3-batcher")
         self.system = system
         self.cfg = cfg
+        self.lockstep = lockstep
         self.queue: "Queue[_Pending]" = Queue()
         # not `_stop`: Thread.join calls a Thread method of that name
         self._stop_event = threading.Event()
@@ -265,11 +312,16 @@ class Batcher(threading.Thread):
             first = batch[0]
             bucket = _bucket(len(batch), self.cfg.max_batch)
             pad = [""] * (bucket - len(batch))
-            c = self.system.get_learned_conditioning(self.system.captions(
-                [r.prompt for r in batch] + pad, [r.struct for r in batch] + pad))
+            prompts = [r.prompt for r in batch] + pad
+            structs = [r.struct for r in batch] + pad
+            c = self.system.get_learned_conditioning(self.system.captions(prompts, structs))
+            x0 = self._noise(batch, bucket, first.latent_len)
+            if self.lockstep is not None:
+                self.lockstep.announce({"prompts": prompts, "structs": structs,
+                                        "x0": x0.cpu().numpy(), "scale": first.scale,
+                                        "steps": first.steps})
             z = self.system.sample_cfg(c, first.scale, self._uncond(bucket),
-                                       timesteps=first.steps,
-                                       x0=self._noise(batch, bucket, first.latent_len))
+                                       timesteps=first.steps, x0=x0)
             wavs = self.system.vocode(self.system.decode_first_stage(z))
             now = time.perf_counter()
             with self._lock:
@@ -426,4 +478,6 @@ class AudioServer:
                 self.batcher.join()
             else:  # never started
                 self.batcher._drain()
+            if self.batcher.lockstep is not None:
+                self.batcher.lockstep.close()
             self.httpd.server_close()

@@ -181,6 +181,7 @@ class MAA3System:
         self._serving_voc_key = None
         self._smooth_stats = None   # SmoothQuant calibration (calibrate_smooth)
         self.serve_quant: Optional[str] = None  # set_serving_quant
+        self._serving_mesh = None   # shard_serving
 
     # -- construction ------------------------------------------------------
 
@@ -346,6 +347,24 @@ class MAA3System:
         self.serve_quant = mode
         self._serving_dit = self._serving_voc = None
 
+    def shard_serving(self, mesh) -> None:
+        """Tensor-parallel serving over a ("data", "model") mesh
+        (parallel/mesh.py make_mesh; maa3_tpu/system.py:319): the serving
+        DiT becomes this rank's Megatron shards over "model"
+        (parallel/tp.py shard_serving_dit_; bf16 and every int8 mode, the
+        int8 copy quantized before it is sharded), and sample_cfg splits
+        its batch rows over "data", gathering the latents, so it returns
+        what one device returns. None: back to one device. A mesh with an
+        "expert" dim raises (expert-parallel serving, ROADMAP item 9b)."""
+        if mesh is not None and "expert" in getattr(mesh, "dim_names", ()):
+            raise NotImplementedError("expert-parallel serving (an 'expert' mesh dim) "
+                                      "is not in the port yet (ROADMAP item 9b)")
+        if mesh is not None and mesh.n_model > 1 and self.moe:
+            raise NotImplementedError("tensor-parallel serving of the video MoE is "
+                                      "not in the port yet (ROADMAP item 9b)")
+        self._serving_mesh = mesh
+        self._serving_dit = None
+
     def calibrate_smooth(self, cond: torch.Tensor, uncond: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
                          timesteps: int = 25, scale: float = 5.0, shape=None,
@@ -372,9 +391,11 @@ class MAA3System:
         int8 mode the quantized copy (models/dit.py quant_serving_copy), in
         bf16 a serving copy, in fp32 the DiT itself; rebuilt whenever the mode
         or a canonical parameter changed."""
-        if self.serve_quant is None and self.compute_dtype == torch.float32:
+        mesh = self._serving_mesh
+        tp = mesh is not None and mesh.n_model > 1
+        if self.serve_quant is None and self.compute_dtype == torch.float32 and not tp:
             return self.dit
-        key = (_versions(self.dit), self.serve_quant, id(self._smooth_stats))
+        key = (_versions(self.dit), self.serve_quant, id(self._smooth_stats), id(mesh))
         if self._serving_dit is None or self._serving_key != key:
             if self.serve_quant:
                 group, skip_w2, _, smooth = _parse_quant_mode(self.serve_quant)
@@ -384,9 +405,12 @@ class MAA3System:
                         "system.calibrate_smooth(cond, uncond) once before sampling")
                 s = quant_serving_copy(self.dit, group, skip_w2,
                                        self._smooth_stats if smooth else None)
-            else:
+            else:  # bf16; or fp32 under TP: the fused layout, fp32 weights
                 s = serving_copy(self.dit, self.compute_dtype)
             s.cfg = self._serving_cfg()
+            if tp:
+                from maa3_tpu_torch.parallel.tp import TP, shard_serving_dit_
+                shard_serving_dit_(s, TP.of(mesh))
             self._serving_dit, self._serving_key = s, key
         return self._serving_dit
 
@@ -413,9 +437,36 @@ class MAA3System:
             if shape is None:
                 shape = (cond.shape[0], self.spec.mel_dim, self.spec.mel_length)
             x0 = torch.randn(shape, generator=generator, device=self.device)
+        mesh = self._serving_mesh
+        if mesh is not None and mesh.n_data > 1:
+            return self._sample_data_parallel(x0, cond, uncond, scale, timesteps,
+                                              cond_mask, uncond_mask)
         return sample_planned(self.serving_dit(), x0.float(), cond, uncond, scale,
                               timesteps, cond_mask, uncond_mask,
                               self.compute_dtype, self.spec.timesteps)
+
+    def _sample_data_parallel(self, x0, cond, uncond, scale, timesteps,
+                              cond_mask, uncond_mask) -> torch.Tensor:
+        """sample_cfg over the mesh's data ranks: every rank holds the whole
+        batch (the same noise and conditioning), samples its rows (the batch
+        padded to a multiple of n_data by repeating its last row) and the
+        latents are all-gathered."""
+        from maa3_tpu_torch.parallel.mesh import all_gather_dim, local_slice
+        mesh = self._serving_mesh
+        b, n = x0.shape[0], mesh.n_data
+        pad = -b % n
+
+        def mine(t):
+            if t is None:
+                return None
+            if pad:
+                t = torch.cat([t, t[-1:].expand((pad,) + tuple(t.shape[1:]))])
+            return local_slice(t, 0, mesh.data_rank, n)
+
+        z = sample_planned(self.serving_dit(), mine(x0.float()), mine(cond),
+                           mine(uncond), scale, timesteps, mine(cond_mask),
+                           mine(uncond_mask), self.compute_dtype, self.spec.timesteps)
+        return all_gather_dim(z, 0, mesh.data_group, n)[:b]
 
     @torch.no_grad()
     def sample(self, cond: torch.Tensor, generator: Optional[torch.Generator] = None,

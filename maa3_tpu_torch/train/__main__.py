@@ -1,7 +1,6 @@
-"""Training CLI on the port (the flags of scripts/train.py that training the
-text-to-audio DiT on one device uses):
+"""Training CLI on the port (the flags of scripts/train.py):
 
-    python -m maa3_tpu_torch.train -b configs/txt2audio-cfm-cfg-XL.yaml \\
+    python -m maa3_tpu_torch.train -b configs/txt2audio-cfm-cfg-XL.yaml [-t] \\
         --max_steps 100 [--batch_size 6] [--device cuda] [--remat] \\
         [--accum_steps 2] [--mu_dtype bfloat16] [--fuse_gemms] \\
         [--val_every N --val_batches M] [--audio_log_every N] \\
@@ -26,11 +25,28 @@ save_gemms_lite). With --val_every, fit and the validation loss over
 --val_batches batches of the validation split alternate every --val_every
 steps (scripts/train.py:198-208); --audio_log_every writes generated
 samples under <ckpt_dir>/audio. Checkpoints: every --ckpt_every steps,
-`last` at the end, `crash` when a step raises, and `usr1` on SIGUSR1.
+`last` at the end, `crash` when a step raises, and `usr1` on SIGUSR1 (at
+world size 1). -t/--train is accepted and ignored, as the JAX CLI does.
+
+Parallelism, one process per GPU under torchrun (NCCL; gloo with --device
+cpu):
+
+    torchrun --nproc_per_node 8 -m maa3_tpu_torch.train -b CONFIG \\
+        [--n_model 2] [--fsdp] [--seq_parallel] [--batch_size 16] ...
+
+--batch_size is the batch of a node (JAX's per-host batch): the node's
+data ranks (nproc_per_node / n_model) split its rows, each node's sampler
+takes its share of the batches, and the lr scales with nodes x batch_size,
+so the same command on the same number of GPUs trains the same global
+batch at the same lr. --n_model is the tensor-parallel width (it must
+divide the world; without torchrun only 1), --fsdp shards the DiT's
+parameters, moments and EMA over the data ranks (a no-op on one),
+--seq_parallel adds sequence parallelism to n_model > 1, --multihost lets
+the world span nodes (torchrun --nnodes). --n_pipe, --n_micro and
+--n_expert raise above 1 (ROADMAP item 9b).
 
 Not in the port: Orbax checkpoints (--vae_ckpt reads the port's own
-files), and the JAX CLI's parallelism (--n_model, --fsdp, --n_pipe, --n_micro, --seq_parallel,
---multihost) and expert parallelism (--n_expert); see ROADMAP.md.
+files); see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -46,6 +62,8 @@ import torch
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("-b", "--base", nargs="+", required=True, help="config yamls")
+    p.add_argument("-t", "--train", action="store_true",
+                   help="accepted and ignored (the reference main.py's flag)")
     p.add_argument("-r", "--resume", type=str, default="",
                    help="a checkpoint (.pt) of the port's Trainer to continue from")
     p.add_argument("--torch_ckpt", type=str, default="",
@@ -75,16 +93,34 @@ def parse_args(argv=None):
                    help="AudioLogger sample interval in steps (0: off)")
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--fp32", action="store_true", help="train in fp32")
+    p.add_argument("--n_model", type=int, default=1,
+                   help="tensor-parallel width (Megatron column / row shards)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3: shard the DiT's parameters, AdamW moments and EMA "
+                        "over the data ranks (a no-op on one)")
+    p.add_argument("--seq_parallel", action="store_true",
+                   help="Megatron sequence parallelism (with --n_model > 1)")
+    p.add_argument("--n_pipe", type=int, default=1,
+                   help="pipeline stages (above 1: ROADMAP item 9b)")
+    p.add_argument("--n_micro", type=int, default=1,
+                   help="pipeline microbatches (above 1: ROADMAP item 9b)")
+    p.add_argument("--n_expert", type=int, default=1,
+                   help="expert-parallel width (above 1: ROADMAP item 9b)")
+    p.add_argument("--multihost", action="store_true",
+                   help="initialise from the launcher's environment across nodes")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("overrides", nargs="*", default=[], help="key.sub=value")
     return p.parse_args(argv)
 
 
 def build_loader(data, batch_size: int, seed: int, moments_dim: int,
-                 num_workers: int = 2):
+                 num_workers: int = 2, num_replicas: int = 1, rank: int = 0,
+                 drop_last: bool = False):
     """Endless batches of the split `data` (config.DataSpec), reshuffled every
-    epoch and loaded ahead by PrefetchLoader; close() the generator to stop
-    and join the loader's threads."""
+    epoch, this replica's share (BucketBatchSampler's split; a replica is a
+    node, as a host is in scripts/train.py:128-130), loaded ahead by
+    PrefetchLoader; close() the generator to stop and join the loader's
+    threads."""
     from maa3_tpu_torch.data.datasets import (AnyLenSpecDataset, BucketBatchSampler,
                                               PrefetchLoader, TextSpecDataset)
     if data.any_len:
@@ -95,7 +131,8 @@ def build_loader(data, batch_size: int, seed: int, moments_dim: int,
         ds = TextSpecDataset(data.split, data.dataset_name, data.spec_crop_len,
                              data.drop, seed=seed, moments_dim=moments_dim, lazy=True)
         indices = range(len(ds))
-    sampler = BucketBatchSampler(indices, batch_size, seed=seed)
+    sampler = BucketBatchSampler(indices, batch_size, num_replicas=num_replicas,
+                                 rank=rank, seed=seed, drop_last=drop_last)
     with PrefetchLoader(ds, sampler, num_workers=num_workers) as loader:
         for epoch in itertools.count():
             sampler.set_epoch(epoch)
@@ -112,15 +149,23 @@ def load_vae_ckpt(vae: torch.nn.Module, path: str) -> None:
 
 def main(argv=None):
     opt = parse_args(argv)
+    from maa3_tpu_torch.parallel.mesh import distributed
+    with distributed(opt.device, opt.multihost) as device:
+        return _train(opt, device)
+
+
+def _train(opt, device):
     from maa3_tpu_torch import config as config_mod
+    from maa3_tpu_torch.parallel import mesh as pmesh
     from maa3_tpu_torch.system import MAA3System
     from maa3_tpu_torch.train.audio_logger import AudioLogger
     from maa3_tpu_torch.train.loop import Trainer
 
+    mesh = pmesh.make_mesh(n_model=opt.n_model)
     cfg = config_mod.load_config(opt.base, opt.overrides)
     data = config_mod.parse_data_config(cfg)
     system = MAA3System.from_config(
-        opt.base, opt.overrides, seed=opt.seed, device=opt.device,
+        opt.base, opt.overrides, seed=opt.seed, device=device,
         compute_dtype=torch.float32 if opt.fp32 else torch.bfloat16,
         ckpt_path=opt.torch_ckpt or None)
     if opt.vae_ckpt:
@@ -131,7 +176,10 @@ def main(argv=None):
     trainer = Trainer(system, batch_size=batch_size, use_ema=opt.use_ema,
                       log_every=opt.log_every, ckpt_every=opt.ckpt_every,
                       ckpt_dir=opt.ckpt_dir, accum_steps=opt.accum_steps,
-                      mu_dtype=getattr(torch, opt.mu_dtype), fuse_gemms=opt.fuse_gemms)
+                      mu_dtype=getattr(torch, opt.mu_dtype), fuse_gemms=opt.fuse_gemms,
+                      n_model=opt.n_model, fsdp=opt.fsdp, seq_parallel=opt.seq_parallel,
+                      n_pipe=opt.n_pipe, n_micro=opt.n_micro, n_expert=opt.n_expert,
+                      mesh=mesh)
     if opt.resume:
         trainer.restore_checkpoint(opt.resume)
         print(f"resumed from {opt.resume} at step {trainer.state.step}")
@@ -143,8 +191,13 @@ def main(argv=None):
         print("SIGUSR1: checkpointing...", flush=True)
         trainer.save_checkpoint(tag="usr1")
 
-    previous = signal.signal(signal.SIGUSR1, melk)
-    loader = build_loader(data, batch_size, opt.seed, moments_dim)
+    # one rank's signal cannot checkpoint a sharded state alone
+    single = pmesh.world_size() == 1
+    previous = signal.signal(signal.SIGUSR1, melk) if single else None
+    # the sampler splits over nodes; the node's data ranks split each batch
+    split = dict(num_replicas=mesh.n_nodes, rank=mesh.data_rank // mesh.data_per_node,
+                 drop_last=mesh.n_data > 1)
+    loader = build_loader(data, batch_size, opt.seed, moments_dim, **split)
     try:
         # fit and evaluate alternate every val_every steps (scripts/train.py:198-208)
         chunk = opt.val_every or opt.max_steps
@@ -156,17 +209,19 @@ def main(argv=None):
             done += n
             if opt.val_every:
                 val = build_loader(config_mod.parse_data_config(cfg, "validation"),
-                                   batch_size, opt.seed, moments_dim)
+                                   batch_size, opt.seed, moments_dim, **split)
                 try:
                     trainer.evaluate(val, max_batches=opt.val_batches)
                 finally:
                     val.close()
     finally:
         loader.close()
-        signal.signal(signal.SIGUSR1, previous)
+        if single:
+            signal.signal(signal.SIGUSR1, previous)
     trainer.save_checkpoint(tag="last")
     trainer.close()
-    print("final:", metrics)
+    if trainer.is_main:
+        print("final:", metrics)
     return metrics
 
 

@@ -1,11 +1,27 @@
-"""Trainer for one device (counterpart of maa3_tpu/train/loop.py: the
-text-to-audio DiT with its text conditioner, and the video MoE DiT with its
-video feature encoder, trained through moe_dit_apply(training=True) on
-batches with `video_feat`, as maa3_tpu/train/loop.py:217-222 and :290-291;
-expert parallelism, n_expert > 1, is not in the port).
+"""Trainer (counterpart of maa3_tpu/train/loop.py: the text-to-audio DiT
+with its text conditioner, and the video MoE DiT with its video feature
+encoder, trained through moe_dit_apply(training=True) on batches with
+`video_feat`, as maa3_tpu/train/loop.py:217-222 and :290-291), on one
+device or over a ("data", "model") mesh of torch.distributed ranks
+(parallel/mesh.py):
 
-- lr = base_learning_rate * accum_steps * batch_size (main.py:786-790, one
-  process);
+- data parallelism: `batch_size` is the batch of a node (JAX's per-host
+  batch); each data rank of the node takes its rows of it, and draws the
+  posterior noise, the timesteps and the flow noise of the whole global
+  batch from the step's shared (seed, step) generator and takes its rows,
+  so the step is the one-device step on the global batch. The replicated
+  gradients are averaged over the data ranks;
+- fsdp: ZeRO-3 over the data ranks (parallel/fsdp.py, add_fsdp_specs'
+  placements); a no-op on a data dim of width 1, as in JAX;
+- n_model: Megatron tensor parallelism of the text DiT (parallel/tp.py),
+  with seq_parallel its sequence parallelism; fuse_gemms raises with it, as
+  in JAX; pipeline (n_pipe, n_micro) and expert (n_expert) parallelism
+  raise above 1 (ROADMAP item 9b). JAX falls back to n_model = 1 when the
+  device count does not divide; the port raises;
+- the global-norm clip is taken over the whole model: every rank's squared
+  norms, each replicated tensor counted once, summed over the world;
+- lr = base_learning_rate * accum_steps * nodes * batch_size
+  (main.py:786-790: base_lr * accum * global batch);
 - the latent std rescale on the first batch when the config asks for it
   (ddpm_audio.py:88-103);
 - global-norm clip 1.0, AdamW (its first moment in `mu_dtype`; adafactor
@@ -33,11 +49,18 @@ Each step's random draws come from a generator seeded with (seed, step), so a
 run resumed from a checkpoint draws what the uninterrupted run would have.
 
 Checkpoints are `torch.save` files of the port's own layout: the JAX
-package's Orbax checkpoints cannot be read here, nor these there.
+package's Orbax checkpoints cannot be read here, nor these there. The file
+is the same at every world size: every rank gathers the whole state (the
+shards over the data and the model groups) and rank 0 writes it;
+`restore_checkpoint` loads any such file and takes this rank's shards.
+Only rank 0 logs. A `crash` checkpoint is written at world size 1 only: the
+other ranks may wait in a collective.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import os
 import time
@@ -45,10 +68,14 @@ from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from maa3_tpu_torch.models.clap import clap_flan_encode_batch, video_feat_encoder_apply
 from maa3_tpu_torch.models.dit import fuse_dit_gemms, fuse_dit_state, unfuse_dit_gemms
 from maa3_tpu_torch.models.dit_moe import moe_dit_apply
+from maa3_tpu_torch.parallel import mesh as pmesh
+from maa3_tpu_torch.parallel.fsdp import FSDP, average_grads
+from maa3_tpu_torch.parallel.tp import TP
 from maa3_tpu_torch.train.optim import make_optimizer
 from maa3_tpu_torch.train.step import (create_train_state, make_eval_step,
                                        make_train_step, sample_latent)
@@ -56,6 +83,32 @@ from maa3_tpu_torch.train.step import (create_train_state, make_eval_step,
 
 def _encode_video(cond, batch: dict) -> torch.Tensor:
     return video_feat_encoder_apply(cond, batch["video_feat"])
+
+
+def _take_rows(raw: dict, lo: int, hi: int) -> dict:
+    """Rows lo:hi of a collated batch (arrays, tensors, lists, and dicts of
+    them such as the captions)."""
+    def take(v):
+        if isinstance(v, dict):
+            return {k: take(x) for k, x in v.items()}
+        return v[lo:hi]
+    return {k: take(v) for k, v in raw.items()}
+
+
+def _n_rows(raw: dict) -> int:
+    for key in ("image", "moments", "video_feat", "context"):
+        if key in raw:
+            return len(raw[key])
+    raise ValueError(f"no batch rows among {sorted(raw)}")
+
+
+def sharded_norm(grads: List[torch.Tensor], weights: List[float]) -> torch.Tensor:
+    """The global norm of the whole model's gradients from every rank's
+    shards: each rank's squared norms weighted by 1 / (the ranks holding the
+    same tensor), summed over the world."""
+    sq = torch.stack([g.float().pow(2).sum() * w for g, w in zip(grads, weights)]).sum()
+    dist.all_reduce(sq)
+    return sq.sqrt()
 
 
 def _caps_from_batch(raw: dict) -> List[dict]:
@@ -74,20 +127,31 @@ class Trainer:
                  ckpt_every: int = 2000, ckpt_dir: str = "logs/ckpt",
                  train_cond: Optional[bool] = None, accum_steps: int = 1,
                  mu_dtype: torch.dtype = torch.float32, fuse_gemms: bool = False,
-                 factored: bool = False, n_expert: int = 1):
+                 factored: bool = False, n_model: int = 1, fsdp: bool = False,
+                 fsdp_min_size: int = 65536, seq_parallel: bool = False,
+                 n_pipe: int = 1, n_micro: int = 1, n_expert: int = 1,
+                 mesh: Optional[pmesh.Mesh] = None):
         """system: MAA3System (config, DiT, VAE, conditioner, tokenizers).
         Trains system.dit (a fused copy of it with fuse_gemms) and system.cond
         with train_cond, which defaults to the config's cond_stage_trainable,
         in place, in system.compute_dtype. accum_steps: optimizer updates every
         accum_steps micro-batches (accumulate_grad_batches); mu_dtype: the
         storage dtype of the first moment; factored: adafactor instead of
-        AdamW. ckpt_every=0 writes no periodic checkpoint. n_expert > 1
-        (expert parallelism across devices) raises: the port trains on one
-        device."""
+        AdamW. ckpt_every=0 writes no periodic checkpoint. batch_size: the
+        batch of a node. n_model, fsdp (fsdp_min_size), seq_parallel: see
+        the module's docstring; mesh: the ("data", "model") mesh (default:
+        make_mesh(n_model=n_model) over the process group, which raises when
+        the world cannot hold n_model). n_pipe, n_micro and n_expert above 1
+        raise (ROADMAP item 9b). With sharded parameters (n_model > 1 or
+        fsdp) system.dit holds this rank's shards until sync_system_params."""
         if n_expert > 1:
             raise NotImplementedError(
                 f"n_expert={n_expert}: expert parallelism of the video MoE across "
-                "devices is not in the port yet (ROADMAP item 9); use n_expert=1")
+                "devices is not in the port yet (ROADMAP item 9b); use n_expert=1")
+        if n_pipe > 1 or n_micro > 1:
+            raise NotImplementedError(
+                f"n_pipe={n_pipe}, n_micro={n_micro}: GPipe pipeline parallelism is "
+                "not in the port yet (ROADMAP item 9b); use 1")
         self.system = system
         self.spec = system.spec
         self.log_every = log_every
@@ -98,13 +162,40 @@ class Trainer:
         self.accum_steps = max(1, accum_steps)
         self.fuse_gemms = fuse_gemms
         self.device = system.device
+        self.mesh = mesh if mesh is not None else pmesh.make_mesh(n_model=n_model)
+        if self.mesh.n_model != n_model:
+            raise ValueError(f"n_model={n_model} on a mesh of {self.mesh.shape}")
+        self.is_main = pmesh.rank() == 0
+        n_data = self.mesh.n_data
+        moe = self.spec.backbone_kind == "video_moe_dit"
+        self.fsdp = fsdp and n_data > 1
+        if fsdp and not self.fsdp:
+            print("fsdp: a no-op on a data dim of width 1 (as in JAX)", flush=True)
+        self.sharded = n_model > 1 or self.fsdp
+        if self.sharded and moe:
+            raise NotImplementedError("tensor parallelism and FSDP of the video MoE "
+                                      "are not in the port yet (ROADMAP item 9b)")
+        if fuse_gemms and n_model > 1:
+            raise ValueError("fuse_gemms training requires model-parallel size 1 "
+                             "(the qkv concat axis does not align with TP shard "
+                             "boundaries)")
+        if factored and self.sharded:
+            raise NotImplementedError("adafactor's factored statistics over a sharded "
+                                      "dim are not in the port yet (ROADMAP); use "
+                                      "AdamW with n_model > 1 or fsdp")
+        if batch_size % self.mesh.data_per_node:
+            raise ValueError(f"batch_size {batch_size} (per node) does not divide over "
+                             f"the node's {self.mesh.data_per_node} data ranks")
         cond = system.cond if self.train_cond else None
         dit = fuse_dit_gemms(system.dit) if fuse_gemms else system.dit
+        if seq_parallel and n_model > 1 and not moe:
+            dit.cfg = dataclasses.replace(dit.cfg, seq_parallel=True)
+        self.specs = self._shard(dit, fsdp_min_size) if self.sharded else {}
         trainable = [dit] + ([cond] if cond is not None else [])
         for m in trainable:
             m.requires_grad_(True)
         lr_mult = (lr_multiplier if lr_multiplier is not None
-                   else self.accum_steps * batch_size)
+                   else self.accum_steps * self.mesh.n_nodes * batch_size)
         # one optimizer and one global-norm clip over the DiT and the conditioner
         optimizer = make_optimizer([p for m in trainable for p in m.parameters()],
                                    self.spec.base_learning_rate, lr_mult,
@@ -112,6 +203,17 @@ class Trainer:
                                    factored=factored, accum_steps=self.accum_steps)
         self.state = create_train_state(dit, system.vae, optimizer, use_ema,
                                         self.spec.scale_factor, cond=cond)
+        # each trainable parameter's placement, in trainable_parameters() order
+        self._param_specs = [self.specs.get(n) for n, _ in self._named_trainable()]
+        if pmesh.world_size() > 1:
+            weights = []
+            for p, spec in zip(self.state.trainable_parameters(), self._param_specs):
+                held = 1
+                for axis in ("model", "data"):
+                    if spec is None or axis not in spec:
+                        held *= self.mesh.size(axis)
+                weights.append(1.0 / held)
+            optimizer.norm_fn = functools.partial(sharded_norm, weights=weights)
         self.video = self.spec.cond_kind.startswith("video_feat")
         conditioner = None
         if self.train_cond:
@@ -121,14 +223,70 @@ class Trainer:
         if self.spec.backbone_kind == "video_moe_dit":
             def apply_fn(dit, x, t, c):
                 return moe_dit_apply(dit, x, t, c, compute_dtype=cdt, training=True)
-        self._train_step = make_train_step(self.spec.timesteps, ema_decay, cdt,
-                                           conditioner, apply_fn)
+        self._train_step = make_train_step(
+            self.spec.timesteps, ema_decay, cdt, conditioner, apply_fn,
+            grad_sync=self._average_grads if n_data > 1 else None)
         self._eval_step = make_eval_step(self.spec.timesteps, cdt, conditioner, apply_fn)
         self._scale_by_std_done = not self.spec.scale_by_std
         self._metrics_path = os.path.join(self.ckpt_dir, "metrics.jsonl")
         self._tb = None
         self._tb_failed = False
         os.makedirs(self.ckpt_dir, exist_ok=True)
+
+    # -- parallelism -----------------------------------------------------------
+
+    def _shard(self, dit, fsdp_min_size: int) -> Dict[str, tuple]:
+        """Shard the DiT in place: its model-parallel placements
+        (dit_param_specs), then ZeRO-3's data dim; returns the placements."""
+        mesh = self.mesh
+        named = dict(dit.named_parameters())
+        # the model dims are taken at n_model 1 too, as in JAX, so that
+        # FSDP picks the dims JAX's specs pick
+        specs = pmesh.dit_param_specs(named)
+        if self.fsdp:
+            specs = pmesh.add_fsdp_specs(named, specs, mesh.n_data,
+                                         min_size=fsdp_min_size)
+        pmesh.shard_params_(dit, specs, mesh, ("model",))
+        dit.tp = TP.of(mesh)
+        if self.fsdp:
+            dit.fsdp = FSDP(dit, specs, mesh)
+        return {"dit." + n: s for n, s in specs.items()}
+
+    def _named_trainable(self):
+        return [(f"{k}.{n}", p) for k, m in self.state.trainable().items()
+                for n, p in m.named_parameters()]
+
+    def _average_grads(self) -> None:
+        """The data-parallel mean of the replicated gradients (FSDP shards
+        were reduce-scattered in the backward)."""
+        fs = getattr(self.state.dit, "fsdp", None)
+        average_grads([p for p in self.state.trainable_parameters()
+                       if fs is None or not fs.is_sharded(p)],
+                      self.mesh.data_group, self.mesh.n_data)
+
+    def _local_rows(self, raw: dict):
+        """This data rank's rows of a node batch, and (lo, hi, n) of them in
+        the global batch (None on one data rank)."""
+        mesh = self.mesh
+        if mesh.n_data == 1:
+            return raw, None
+        per = mesh.data_per_node
+        n = _n_rows(raw)
+        if n % per:
+            raise ValueError(f"a batch of {n} rows does not divide over the node's "
+                             f"{per} data ranks")
+        k = n // per
+        lo = (mesh.data_rank % per) * k
+        if per > 1:
+            raw = _take_rows(raw, lo, lo + k)
+        return raw, (mesh.data_rank * k, (mesh.data_rank + 1) * k, k * mesh.n_data)
+
+    def _data_mean(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mesh.n_data == 1:
+            return t
+        t = t.detach().clone()
+        dist.all_reduce(t, group=self.mesh.data_group)
+        return t / self.mesh.n_data
 
     def prepare_batch(self, raw: dict) -> Dict[str, torch.Tensor]:
         """Collated host batch -> device tensors: mel or moments, and the
@@ -154,11 +312,20 @@ class Trainer:
         return batch
 
     def maybe_rescale_by_std(self, batch: Dict[str, torch.Tensor],
-                             generator: torch.Generator) -> None:
+                             generator: torch.Generator, rows=None) -> None:
+        """The first batch's latent std sets the scale factor (over the
+        global batch: rows, see sample_latent)."""
         if self._scale_by_std_done:
             return
-        z = sample_latent(self.state.vae, batch, generator)
-        scale = 1.0 / float(z.flatten().std(correction=0))
+        z = sample_latent(self.state.vae, batch, generator, rows=rows)
+        if rows is None:
+            scale = 1.0 / float(z.flatten().std(correction=0))
+        else:  # count, sum and sum of squares over the data ranks, in fp64
+            zd = z.double()
+            m = torch.stack([zd.new_tensor(float(z.numel())), zd.sum(), zd.square().sum()])
+            dist.all_reduce(m, group=self.mesh.data_group)
+            n, s1, s2 = m.tolist()
+            scale = 1.0 / (s2 / n - (s1 / n) ** 2) ** 0.5
         print(f"### USING STD-RESCALING: scale_factor = {scale:.5f} ###")
         self.state.scale_factor = scale
         self.system.scale_factor = scale
@@ -171,16 +338,26 @@ class Trainer:
 
     def train_step(self, raw: dict, seed: int = 0,
                    draws: Optional[dict] = None) -> Dict[str, torch.Tensor]:
-        """One (micro-)step on a collated host batch; a `crash` checkpoint is
-        saved if the step raises. draws replaces the generator's noise (tests)."""
+        """One (micro-)step on a collated host batch (a node's batch: this
+        data rank takes its rows); a `crash` checkpoint is saved if the step
+        raises. draws replaces the generator's noise of the global batch
+        (tests)."""
         gen = self._generator(seed)
+        raw, rows = self._local_rows(raw)
+        if draws is not None and rows is not None:
+            draws = {k: v[rows[0]:rows[1]] for k, v in draws.items()}
         batch = self.prepare_batch(raw)
-        self.maybe_rescale_by_std(batch, gen)
+        self.maybe_rescale_by_std(batch, gen, rows)
         try:
-            return self._train_step(self.state, batch, gen, draws)
+            metrics = self._train_step(self.state, batch, gen, draws, rows)
         except Exception:
-            self.save_checkpoint(tag="crash")  # SetupCallback.on_exception
+            if pmesh.world_size() == 1:
+                self.save_checkpoint(tag="crash")  # SetupCallback.on_exception
             raise
+        for k in ("loss", "loss_simple"):
+            if k in metrics:
+                metrics[k] = self._data_mean(metrics[k])
+        return metrics
 
     def fit(self, loader: Iterable[dict], max_steps: int = 1000, seed: int = 0,
             audio_logger=None, sample_captions: Optional[List[dict]] = None
@@ -210,7 +387,7 @@ class Trainer:
             if audio_logger is not None and audio_logger.should_log(step):
                 self.sync_system_params()
                 caps = sample_captions or _caps_from_batch(raw)
-                if caps:
+                if caps and self.is_main:
                     audio_logger.log_samples(self.system, step, caps,
                                              self._generator(seed))
             if done:  # before drawing another batch from the loader
@@ -225,7 +402,13 @@ class Trainer:
         wq/wk/wv and w1/w3. The serving copy is rebuilt at the next sample, as
         system.serving_dit's version key sees the changed parameters."""
         st = self.state
-        if self.fuse_gemms:
+        if self.sharded:  # a whole DiT from every rank's shards (a collective)
+            from maa3_tpu_torch.system import dit_module
+            with torch.device(self.device):
+                dit = dit_module(self.spec)
+            dit.load_state_dict(self._canonical_dit(self._full_params()["dit"]))
+            self.system.dit = dit.requires_grad_(False)
+        elif self.fuse_gemms:
             canon = self._canonical_dit(dict(st.dit.named_parameters()))
             with torch.no_grad():
                 for n, p in self.system.dit.named_parameters():
@@ -244,13 +427,17 @@ class Trainer:
         for i, raw in enumerate(loader):
             if i >= max_batches:
                 break
-            losses.append(self._eval_step(self.state, self.prepare_batch(raw), gen))
+            raw, rows = self._local_rows(raw)
+            losses.append(self._data_mean(self._eval_step(
+                self.state, self.prepare_batch(raw), gen, rows=rows)))
         mean = float(torch.stack(losses).mean()) if losses else float("nan")
         metrics = {"val/loss_simple": mean, "val/batches": float(len(losses))}
         self._log(metrics | {"step": self.state.step})
         return metrics
 
     def _log(self, metrics: Dict[str, float]) -> None:
+        if not self.is_main:
+            return
         print("  ".join(f"{k}={v:.5g}" for k, v in metrics.items()), flush=True)
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(metrics) + "\n")
@@ -308,10 +495,14 @@ class Trainer:
         st = self.state
         name = tag or f"step_{st.step:08d}"
         path = os.path.join(self.ckpt_dir, name + ".pt")
-        params = {k: m.state_dict() for k, m in st.trainable().items()}
+        params = self._full_params()
         params["dit"] = self._canonical_dit(params["dit"])
+        opt = st.optimizer.state_dict()
+        for key in ("mu", "nu", "acc"):
+            if key in opt:
+                opt[key] = self._gather_list(opt[key])
         payload = {"params": params,
-                   "opt_state": st.optimizer.state_dict(),
+                   "opt_state": opt,
                    "fuse_gemms": self.fuse_gemms,
                    "step": st.step,
                    "scale_factor": st.scale_factor,
@@ -319,16 +510,38 @@ class Trainer:
                    # restored DiT decoded through another VAE is garbage
                    "frozen": {"vae": st.vae.state_dict()}}
         if st.ema is not None:
-            payload["ema_params"] = self._canonical_ema(True, st.ema)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        if tag is None and keep_last_k > 0:
-            steps = sorted(f for f in os.listdir(self.ckpt_dir)
-                           if f.startswith("step_") and f.endswith(".pt"))
-            for old in steps[:-keep_last_k]:
-                os.remove(os.path.join(self.ckpt_dir, old))
+            payload["ema_params"] = self._canonical_ema(True, self._gather_list(st.ema))
+        if self.is_main:
+            tmp = f"{path}.{os.getpid()}.tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+            if tag is None and keep_last_k > 0:
+                steps = sorted(f for f in os.listdir(self.ckpt_dir)
+                               if f.startswith("step_") and f.endswith(".pt"))
+                for old in steps[:-keep_last_k]:
+                    os.remove(os.path.join(self.ckpt_dir, old))
+        if pmesh.world_size() > 1:
+            dist.barrier()
         return path
+
+    def _gather_list(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Whole tensors of per-parameter state (trainable_parameters()
+        order) from every rank's shards."""
+        return [t if spec is None else pmesh.gather_tensor(t, spec, self.mesh)
+                for t, spec in zip(tensors, self._param_specs)]
+
+    def _shard_list(self, tensors) -> List[torch.Tensor]:
+        return [t if spec is None else pmesh.shard_tensor(t, spec, self.mesh)
+                for t, spec in zip(tensors, self._param_specs)]
+
+    def _full_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The trainable modules' state dicts with whole tensors."""
+        out = {}
+        for k, m in self.state.trainable().items():
+            out[k] = {n: (t if self.specs.get(f"{k}.{n}") is None
+                          else pmesh.gather_tensor(t, self.specs[f"{k}.{n}"], self.mesh))
+                      for n, t in m.state_dict().items()}
+        return out
 
     def restore_checkpoint(self, path: str) -> None:
         """Load a checkpoint of save_checkpoint into this trainer, deciding
@@ -338,7 +551,7 @@ class Trainer:
         without a `frozen` section keeps the current VAE; EMA shadows are
         restored when both the file and the trainer have them."""
         st = self.state
-        payload = torch.load(path, map_location=self.device, weights_only=True)
+        payload = torch.load(path, map_location="cpu", weights_only=True)
         mods = st.trainable()
         if set(payload["params"]) != set(mods):
             raise ValueError(
@@ -348,11 +561,18 @@ class Trainer:
             raise ValueError(f"{path}: checkpoint of a trainer with fuse_gemms="
                              f"{payload.get('fuse_gemms', False)}, this trainer has "
                              f"fuse_gemms={self.fuse_gemms}")
-        st.optimizer.load_state_dict(payload["opt_state"])
+        opt = dict(payload["opt_state"])
+        for key in ("mu", "nu", "acc"):
+            if key in opt:
+                opt[key] = self._shard_list(opt[key])
+        st.optimizer.load_state_dict(opt)
         for k, m in mods.items():
             sd = payload["params"][k]
             if k == "dit" and self.fuse_gemms:
                 sd = fuse_dit_state(sd, self.spec.dit.depth)
+            sd = {n: (t if self.specs.get(f"{k}.{n}") is None
+                      else pmesh.shard_tensor(t, self.specs[f"{k}.{n}"], self.mesh))
+                  for n, t in sd.items()}
             m.load_state_dict(sd)
         st.step = int(payload["step"])
         st.scale_factor = float(payload["scale_factor"])
@@ -362,8 +582,8 @@ class Trainer:
             print(f"{path}: no frozen VAE in the checkpoint; keeping the current one")
         if st.ema is not None and "ema_params" in payload:
             with torch.no_grad():
-                for e, x in zip(st.ema, self._canonical_ema(False, payload["ema_params"]),
-                                strict=True):
+                ema = self._shard_list(self._canonical_ema(False, payload["ema_params"]))
+                for e, x in zip(st.ema, ema, strict=True):
                     e.copy_(x)
         self.system.scale_factor = st.scale_factor
         self._scale_by_std_done = True

@@ -87,6 +87,9 @@ class Optimizer:
         self.count = 0
         self.mini_step = 0
         self.last_lr: Optional[float] = None
+        # the global norm of a list of gradients (train/loop.py replaces it
+        # by the norm over every rank's shards)
+        self.norm_fn: Callable[[List[torch.Tensor]], torch.Tensor] = global_norm
         ps = self.params
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in ps]
         self.acc = ([torch.zeros_like(p) for p in ps] if self.accum_steps > 1 else None)
@@ -125,7 +128,7 @@ class Optimizer:
         gradients, clipped. Returns the norm of this micro-step's gradients
         (before any clip)."""
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        norm = self.norm_fn(grads)
         if self.acc is not None:  # optax.MultiSteps: a running mean (Welford)
             n = self.mini_step
             deltas = torch._foreach_sub(grads, self.acc)
@@ -134,7 +137,7 @@ class Optimizer:
             if self.mini_step:
                 return norm
             grads = self.acc
-            clip_norm = global_norm(grads)
+            clip_norm = self.norm_fn(grads)
         else:
             clip_norm = norm
         # on the device, without a host sync; a factor of exactly 1 below the clip
@@ -219,8 +222,9 @@ class Optimizer:
         names = ["mu"] + (["acc"] if self.acc is not None else []) + (
             ["v_row", "v_col", "v"] if self.factored else ["nu"])
         with torch.no_grad():
-            for name in names:
-                torch._foreach_copy_(getattr(self, name), list(state[name]))
+            for name in names:  # per tensor: the state may lie on another device
+                for dst, src in zip(getattr(self, name), state[name], strict=True):
+                    dst.copy_(src)
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], base_lr: float = 3.0e-6,

@@ -29,6 +29,7 @@ can replay another implementation's draws.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -71,20 +72,42 @@ def create_train_state(dit: nn.Module, vae: AutoencoderKL, optimizer: Optimizer,
     return state
 
 
+def _rows_of(rows, generator, draw, shape, **kw) -> torch.Tensor:
+    """draw(shape) for the whole batch of rows[2] rows from the shared
+    generator, this rank's rows rows[0]:rows[1] of it."""
+    lo, hi, n = rows
+    return draw((n,) + tuple(shape[1:]), generator=generator, **kw)[lo:hi]
+
+
 def sample_latent(vae: AutoencoderKL, batch: dict, generator=None,
-                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  noise: Optional[torch.Tensor] = None, rows=None) -> torch.Tensor:
     """The posterior sample of the batch's mel (or cached moments), before the
-    scale factor: the frozen encoder runs in fp32, without TF32."""
+    scale factor: the frozen encoder runs in fp32, without TF32. rows
+    (lo, hi, n): the batch is rows lo:hi of a data-parallel batch of n, and
+    the noise is drawn for all n (train/loop.py)."""
     with torch.no_grad(), full_fp32():
         moments = (batch["moments"] if "moments" in batch
                    else vae_encode_moments(vae, batch["mel"]))
+        if noise is None and rows is not None:
+            mean = moments.chunk(2, dim=1)[0]
+            noise = _rows_of(rows, generator, torch.randn, mean.shape,
+                             device=mean.device, dtype=mean.dtype)
         return gaussian_sample(moments, generator, noise)
 
 
 def _loss(state: TrainState, batch: dict, generator, draws, compute_dtype,
-          num_timesteps, conditioner: Optional[Conditioner], apply_fn=None):
-    draws = draws or {}
-    z = sample_latent(state.vae, batch, generator, draws.get("noise")) * state.scale_factor
+          num_timesteps, conditioner: Optional[Conditioner], apply_fn=None,
+          rows=None):
+    draws = dict(draws or {})
+    z = sample_latent(state.vae, batch, generator, draws.get("noise"),
+                      rows) * state.scale_factor
+    if rows is not None:  # the timesteps, then the flow noise, as cfm_loss draws them
+        if "t_int" not in draws:
+            draws["t_int"] = _rows_of(rows, generator, functools.partial(
+                torch.randint, 0, num_timesteps), z.shape[:1], device=z.device)
+        if "x0" not in draws:
+            draws["x0"] = _rows_of(rows, generator, torch.randn, z.shape,
+                                   device=z.device, dtype=z.dtype)
     if "context" in batch:
         context = batch["context"]
     else:
@@ -104,19 +127,24 @@ def _loss(state: TrainState, batch: dict, generator, draws, compute_dtype,
 
 def make_train_step(num_timesteps: int = 1000, ema_decay: float = 0.9999,
                     compute_dtype: Optional[torch.dtype] = torch.bfloat16,
-                    conditioner: Optional[Conditioner] = None, apply_fn=None):
-    """train_step(state, batch, generator=None, draws=None) -> metrics
-    {loss, loss_simple, grad_norm} as 0-d tensors; updates `state` in place
-    (parameters, optimizer moments, EMA shadows, step). `conditioner` encodes
-    batches without a `context` from state.cond, inside the loss."""
+                    conditioner: Optional[Conditioner] = None, apply_fn=None,
+                    grad_sync: Optional[Callable[[], None]] = None):
+    """train_step(state, batch, generator=None, draws=None, rows=None) ->
+    metrics {loss, loss_simple, grad_norm} as 0-d tensors; updates `state`
+    in place (parameters, optimizer moments, EMA shadows, step).
+    `conditioner` encodes batches without a `context` from state.cond,
+    inside the loss. rows: see sample_latent; grad_sync() runs between the
+    backward and the update (the data-parallel gradient average)."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
-                   draws: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+                   draws: Optional[dict] = None, rows=None) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad()
         loss, aux = _loss(state, batch, generator, draws, compute_dtype,
-                          num_timesteps, conditioner, apply_fn)
+                          num_timesteps, conditioner, apply_fn, rows)
         loss.backward()
+        if grad_sync is not None:
+            grad_sync()
         grad_norm = state.optimizer.step()
         if state.ema is not None:
             ema_update(state.ema, state.trainable_parameters(), ema_decay, state.step)
@@ -135,8 +163,8 @@ def make_eval_step(num_timesteps: int = 1000,
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
                   generator: Optional[torch.Generator] = None,
-                  draws: Optional[dict] = None) -> torch.Tensor:
+                  draws: Optional[dict] = None, rows=None) -> torch.Tensor:
         return _loss(state, batch, generator, draws, compute_dtype, num_timesteps,
-                     conditioner, apply_fn)[0]
+                     conditioner, apply_fn, rows)[0]
 
     return eval_step

@@ -16,8 +16,15 @@ prompt, and the repeats are dropped); --interactive reads prompts from
 stdin until an empty line or end of input. --n_iter is accepted, as the
 JAX CLI accepts it, and unused. --quant selects int8 serving
 (MAA3System.set_serving_quant: int8, int8:g128, int8:now2, int8:voc,
-int8:smooth, calibrated on the first prompt's conditioning). Not yet in the
-port: --n_model (tensor-parallel serving).
+int8:smooth, calibrated on the first prompt's conditioning). --n_model N
+serves tensor-parallel under torchrun (one process per GPU; NCCL, gloo with
+--device cpu; system.shard_serving over make_mesh(n_model=N), the world
+split into world / N data ranks, which split each launch's rows): every
+rank runs the same prompts and seeds, and rank 0 decodes, vocodes and
+writes the files (with --interactive it reads stdin and hands each prompt
+to the other ranks):
+
+    torchrun --nproc_per_node 2 -m maa3_tpu_torch.txt2audio --n_model 2 ...
 """
 
 from __future__ import annotations
@@ -71,6 +78,9 @@ def parse_args(argv=None):
                    help="also write <name>_mel.npy next to each wav")
     p.add_argument("--interactive", action="store_true",
                    help="read prompts from stdin; an empty line ends")
+    p.add_argument("--n_model", type=int, default=1,
+                   help="tensor-parallel serving over n_model GPUs (under torchrun; "
+                        "the world reshapes to (world / n_model, n_model))")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -89,16 +99,31 @@ def _conditioning(system, prompts):
         [p["ori_caption"] for p in prompts], [p["struct_caption"] for p in prompts]))
 
 
-def _interactive(system, opt, steps, gen) -> None:
-    """scripts/txt2audio.py:128-154: one prompt per line of stdin."""
-    uc = _conditioning(system, [{"ori_caption": "", "struct_caption": ""}])
-    print("interactive mode: type a prompt (empty line to quit)")
-    n = 0
-    while True:
+def _read_prompt(main: bool) -> str:
+    """The next stdin line on rank 0 ('' at the end), handed to every rank."""
+    prompt = ""
+    if main:
         try:
             prompt = input("> ").strip()
         except EOFError:
-            break
+            pass
+    from maa3_tpu_torch.parallel import mesh as pmesh
+    if pmesh.world_size() > 1:
+        import torch.distributed as dist
+        box = [prompt]
+        dist.broadcast_object_list(box, src=0)
+        prompt = box[0]
+    return prompt
+
+
+def _interactive(system, opt, steps, gen, main: bool) -> None:
+    """scripts/txt2audio.py:128-154: one prompt per line of stdin."""
+    uc = _conditioning(system, [{"ori_caption": "", "struct_caption": ""}])
+    if main:
+        print("interactive mode: type a prompt (empty line to quit)")
+    n = 0
+    while True:
+        prompt = _read_prompt(main)
         if not prompt:
             break
         t0 = time.perf_counter()
@@ -106,6 +131,8 @@ def _interactive(system, opt, steps, gen) -> None:
                                     "struct_caption": f"<{prompt}& all>"}])
         z = system.sample_cfg(c, opt.scale, uc, gen, shape=(1, opt.H, opt.W),
                               timesteps=steps)
+        if not main:
+            continue
         wav = system.vocode(system.decode_first_stage(z))
         path = os.path.join(opt.outdir, f"interactive_{n}.wav")
         write_wav(path, wav[0], opt.sample_rate)
@@ -115,25 +142,37 @@ def _interactive(system, opt, steps, gen) -> None:
 
 def main(argv=None):
     opt = parse_args(argv)
+    from maa3_tpu_torch.parallel.mesh import distributed
+    with distributed(opt.device) as device:
+        _generate(opt, device)
+
+
+def _generate(opt, device):
     from maa3_tpu_torch.data.datasets import read_tsv
+    from maa3_tpu_torch.parallel import mesh as pmesh
     from maa3_tpu_torch.system import MAA3System
     steps = opt.steps or opt.ddim_steps
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg_paths = [c for c in opt.base.split(",") if c] or [
         os.path.join(root, "configs", "txt2audio-cfm-cfg.yaml")]
+    mesh = pmesh.make_mesh(n_model=opt.n_model)
+    main = pmesh.rank() == 0
     system = MAA3System.from_config(
-        cfg_paths, seed=opt.seed, device=opt.device,
+        cfg_paths, seed=opt.seed, device=device,
         compute_dtype=torch.float32 if opt.fp32 else torch.bfloat16,
         tokenizer_dir=opt.tokenizer_dir or None, ckpt_path=opt.resume or None,
         vocoder_dir=opt.vocoder_ckpt or None)
     if opt.quant:
         system.set_serving_quant(opt.quant)
-    if not opt.resume:
+    if pmesh.world_size() > 1:
+        system.shard_serving(mesh)
+    if not opt.resume and main:
         print("WARNING: no checkpoint given (-r); generating with random weights")
-    os.makedirs(opt.outdir, exist_ok=True)
-    gen = torch.Generator(device=opt.device).manual_seed(opt.seed)
+    if main:
+        os.makedirs(opt.outdir, exist_ok=True)
+    gen = torch.Generator(device=device).manual_seed(opt.seed)
     if opt.interactive:
-        _interactive(system, opt, steps, gen)
+        _interactive(system, opt, steps, gen, main)
         return
 
     if opt.test_dataset != "none":
@@ -162,6 +201,8 @@ def main(argv=None):
         c = _conditioning(system, launch)
         z = system.sample_cfg(c, opt.scale, uc, gen, shape=(per_launch, opt.H, opt.W),
                               timesteps=steps)
+        if not main:  # every rank samples (the collectives); rank 0 writes
+            continue
         mel = system.decode_first_stage(z)
         wav = system.vocode(mel)
         for n in range(per_launch - pad):
@@ -171,6 +212,8 @@ def main(argv=None):
             if opt.save_mel:
                 np.save(path[:-4] + "_mel.npy", mel[n].float().cpu().numpy())
             rows.append({"caption": launch[n]["ori_caption"], "file": fname})
+    if not main:
+        return
     with open(os.path.join(opt.outdir, "result.csv"), "w", newline="") as f:
         w = csv.DictWriter(f, fieldnames=["caption", "file"])
         w.writeheader()

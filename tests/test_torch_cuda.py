@@ -243,7 +243,10 @@ def _flash_inputs(b, h, lq, lk, d, dtype, dev, masked, seed=0):
     (2, 2, 17, 129, 40, True, None),
     (1, 3, 17, 129, 64, False, 64),
     (2, 2, 1248, 1248, 72, False, None),
-    (2, 3, 65, 257, 72, False, None)])
+    (2, 3, 65, 257, 72, False, None),
+    # the XXL training shape's head dim 48 (padded to the 72 template):
+    # 1248 tokens, K3a, K4a, K4b
+    (2, 4, 1248, 1248, 48, False, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(cuda_dev, b, h, lq, lk, d, masked, block_k, dtype):
     """The forward (K3a or K3b), K4a and K4b against their plain versions,
@@ -1001,3 +1004,52 @@ def test_train_melclf_step_on_the_card_matches_cpu(cuda_dev, tmp_path):
         if not (k.startswith("features.") and k.endswith(".bias")):
             off = diff > 1e-4 * max(1.0, w.abs().max().item())
             assert off.sum().item() <= max(1, 1e-5 * off.numel()), (k, int(off.sum()))
+
+
+@pytest.mark.cuda
+def test_xxl_width_forward_through_an_nccl_world_of_one(cuda_dev, tmp_path, monkeypatch):
+    """A DiT of XXL width (1536, 32 heads of 48) at depth 2 in fp32, its
+    training forward at 1248 tokens (K3a) and gradients, with its
+    parameters placed by make_mesh / dit_param_specs / shard_params_ over an
+    NCCL group of world size 1, against the same forward without the group:
+    the same bits (the split backward, K4b / K4c: K4a's dq atomics vary in
+    their last bits from run to run)."""
+    monkeypatch.setenv("MAA3_FLASH_BWD", "split")
+    import torch.distributed as dist
+    from maa3_tpu_torch.models.dit import (DiT, DiTConfig, dit_apply, dit_init_,
+                                           unfreeze_zero_init)
+    from maa3_tpu_torch.parallel import mesh as pmesh
+    from maa3_tpu_torch.parallel.tp import TP
+    cfg = DiTConfig(in_channels=20, context_dim=1024, hidden_size=1536, depth=2,
+                    num_heads=32)
+    with torch.device(cuda_dev):
+        dit = DiT(cfg)
+    g = torch.Generator(device=cuda_dev).manual_seed(0)
+    unfreeze_zero_init(dit_init_(dit, g), g)
+    x = torch.randn(2, 20, 1248, generator=g, device=cuda_dev)
+    t = torch.tensor([100, 700], device=cuda_dev)
+    c = torch.randn(2, 154, 1024, generator=g, device=cuda_dev)
+
+    def run():
+        dit.zero_grad()
+        n = fa.launches["K3a"]
+        with full_fp32():
+            out = dit_apply(dit, x, t, c, compute_dtype=torch.float32, training=True)
+            out.square().sum().backward()
+        assert fa.launches["K3a"] == n + cfg.depth
+        return out.detach(), [p.grad.clone() for p in dit.parameters()]
+
+    want, want_g = run()
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = pmesh.make_mesh(n_model=1)
+        assert mesh.shape == {"data": 1, "model": 1} and dist.get_backend() == "nccl"
+        pmesh.shard_params_(dit, pmesh.dit_param_specs(dict(dit.named_parameters())), mesh)
+        dit.tp = TP.of(mesh)
+        got, got_g = run()
+    finally:
+        dist.destroy_process_group()
+    assert dit.tp is None and torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got_g, want_g))

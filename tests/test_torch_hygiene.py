@@ -97,6 +97,43 @@ def test_serving_modules_are_among_the_checked_sources(module):
     assert ROOT / "maa3_tpu_torch" / f"{module}.py" in _port_sources()
 
 
+@pytest.mark.parametrize("module", ["__init__", "mesh", "tp", "fsdp"])
+def test_parallel_modules_are_among_the_checked_sources(module):
+    """The parallel package (mesh, tensor parallelism, FSDP) is among the
+    sources the two tests above read and import with JAX blocked."""
+    assert ROOT / "maa3_tpu_torch" / "parallel" / f"{module}.py" in _port_sources()
+
+
+def test_entry_points_default_to_the_card():
+    """Every CLI's --device and every function's `device` default is the
+    card ("cuda"); the CPU runs only where the caller asks for it."""
+    import importlib
+    import inspect
+    import pkgutil
+    import maa3_tpu_torch
+    flags = [(p.name, m.group(0)) for p in (ROOT / "maa3_tpu_torch").rglob("*.py")
+             for m in re.finditer(r'add_argument\("--device"[^)]*\)', p.read_text())]
+    assert len(flags) >= 12
+    assert all('default="cuda"' in f for _, f in flags), flags
+    defaults = {}
+    for info in pkgutil.walk_packages(maa3_tpu_torch.__path__, "maa3_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            funcs = ([(name, obj)] if inspect.isfunction(obj) else
+                     [(f"{name}.{k}", getattr(f, "__func__", f)) for k, f in vars(obj).items()]
+                     if inspect.isclass(obj) else [])
+            for fname, f in funcs:
+                if inspect.isfunction(f):
+                    d = inspect.signature(f).parameters.get("device")
+                    if d is not None and isinstance(d.default, str):
+                        defaults[f"{info.name}.{fname}"] = d.default
+    assert "maa3_tpu_torch.system.MAA3System.from_config" in defaults
+    assert "maa3_tpu_torch.parallel.mesh.init_distributed" in defaults
+    assert set(defaults.values()) == {"cuda"}, defaults
+
+
 def test_server_runs_with_blocked_modules(tmp_path):
     """A tiny text-to-music system served over HTTP from checkpoint files
     (a Lightning-layout file and a vocoder directory), with JAX, the JAX
