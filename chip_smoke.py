@@ -173,6 +173,26 @@ Phases, each timed on a line of its own:
      max(1, |ref|)). --xxl-batch-probe runs phase 6's head-dim-48 check
      and the XXL step at several batches, with and without remat, alone
      (no result line).
+ 17. GPipe and expert parallelism on two spawned gloo ranks sharing the
+     card (the same helper as 16 (c); two processes on one card over gloo,
+     so nothing here speaks for NCCL; gloo's point-to-point calls fail on
+     CUDA tensors, so the ring shift sends host copies over gloo): (a)
+     Trainer(n_pipe=2, n_micro=2) on the
+     XL width (1152 x 16 heads of 72) at depth 4, fp32, batch 4 x latent
+     1248 (the flash route), context given: the loss and every parameter
+     after one step against one rank's step (1e-4 x max(1, |ref|)), two
+     blocks stored a stage, K3a / K4a 6 / 6 a stage (3 ticks of 2 blocks;
+     "pipe_stage_step_xl_depth4_fp32"); (b) the XL YAML's DiT at full depth
+     (14 blocks a stage), bf16, 6 x 1248, n_micro 3: step ms, tokens per
+     second, the peak and parameter bytes of each rank, K3a / K4a 56 / 56 a
+     stage ("pipe_stage_step_xl"); (c) the video YAML's MoE as written (768
+     x 16 x 32 heads, 4 experts, 2 a rank) over ("data", "model", "expert")
+     1 x 1 x 2: in fp32 a 10 s window of video2audio's sampler (25 steps)
+     through shard_serving against one rank (1e-3) and one training step at
+     16 x 312 (the trainable video encoder) against one rank's (1e-4); in
+     bf16 three timed 10 s clips (latent, decode, vocode through K1 / K2
+     72 / 37, "video2audio_expert_parallel_per_vocode") and three timed
+     steps, the expert bytes each rank holds.
 Kernel, plain and library times are per call over 10 calls queued back to
 back (time_ms). Then the `kernels` JSON line, the card line, and the result
 line. Any failure exits non-zero without the result line; without a CUDA
@@ -2839,27 +2859,57 @@ def xxl_train(torch, system_mod, xxl_path, fa, card, mesh, batch, remat=False,
     return out
 
 
-def _gloo_rank(rank: int, d: str) -> None:
-    """Phase 16 (c), one of two ranks on the one card: gloo over CUDA
-    tensors; a depth-2 XXL-width TP=2 serving sample and a DP=2 + FSDP step,
-    written to d."""
+def _gloo_main(rank: int, world: int, d: str, task: str) -> None:
+    """One of `world` spawned ranks on the one card: gloo over CUDA tensors;
+    GLOO_TASKS[task](torch, rank)'s result written to d."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, ROOT)
     torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(d, "gloo_store"), 2),
-                            rank=rank, world_size=2)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(d, "gloo_store"), world),
+                            rank=rank, world_size=world)
     try:
-        from maa3_tpu_torch import system as system_mod
-        from maa3_tpu_torch.parallel import mesh as pmesh
-        from maa3_tpu_torch.pipeline import full_fp32
-        out = {}
-        with full_fp32():
-            out["serve"] = _two_rank_serve(torch, system_mod, pmesh.make_mesh(n_model=2))
-            out["step"] = _two_rank_step(torch, system_mod, pmesh.make_mesh(n_model=1))
+        out = GLOO_TASKS[task](torch, rank)
         torch.save(out, os.path.join(d, f"gloo_{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def gloo_ranks_one_card(torch, task: str, world: int = 2, timeout: float = 300) -> list:
+    """GLOO_TASKS[task] on `world` spawned gloo ranks sharing the one card
+    (NCCL puts no two ranks on one device; gloo carries every collective on
+    CUDA tensors, and the pipeline's ring shift sends host copies); their
+    results by rank. A rank that raises, or a run past `timeout`, fails the
+    run."""
+    import torch.multiprocessing as mp
+    d = os.path.join(ROOT, "build", f"chip_smoke_gloo_{task}")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    ctx = mp.start_processes(_gloo_main, args=(world, d, task), nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            require(time.monotonic() < deadline,
+                    f"{world} gloo ranks ({task}) finished within {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    return [torch.load(os.path.join(d, f"gloo_{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _xxl_two_rank_task(torch, rank: int) -> dict:
+    """Phase 16 (c), one rank: a depth-2 XXL-width TP=2 serving sample and a
+    DP=2 + FSDP step."""
+    from maa3_tpu_torch import system as system_mod
+    from maa3_tpu_torch.parallel import mesh as pmesh
+    from maa3_tpu_torch.pipeline import full_fp32
+    with full_fp32():
+        return {"serve": _two_rank_serve(torch, system_mod, pmesh.make_mesh(n_model=2)),
+                "step": _two_rank_step(torch, system_mod, pmesh.make_mesh(n_model=1))}
 
 
 def _xxl_depth2(torch, system_mod):
@@ -2896,24 +2946,8 @@ def _two_rank_step(torch, system_mod, mesh):
 
 def two_ranks_one_card(torch, system_mod, full_fp32):
     """Phase 16 (c): two gloo ranks on the one card against one rank."""
-    import torch.multiprocessing as mp
-    d = os.path.join(ROOT, "build", "chip_smoke_xxl", "gloo")
-    shutil.rmtree(d, ignore_errors=True)
-    os.makedirs(d)
     t = time.perf_counter()
-    ctx = mp.start_processes(_gloo_rank, args=(d,), nprocs=2, join=False,
-                             start_method="spawn")
-    deadline = time.monotonic() + 300
-    try:
-        while not ctx.join(timeout=1.0):
-            require(time.monotonic() < deadline, "two gloo ranks finished within 300 s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-            p.join(10)
-    ranks = [torch.load(os.path.join(d, f"gloo_{r}.pt"), weights_only=False)
-             for r in range(2)]
+    ranks = gloo_ranks_one_card(torch, "xxl")
     with full_fp32():
         one_z = _two_rank_serve(torch, system_mod, None)
         from maa3_tpu_torch.parallel import mesh as pmesh
@@ -2971,6 +3005,279 @@ def xxl_batch_probe(torch, system_mod, fa, card) -> None:
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
+
+
+# -- phase 17: pipeline and expert parallelism on two gloo ranks -------------------
+
+PIPE_CHECK = (4, 1248, 4)   # (a): batch x latent (the flash route), depth
+PIPE_XL = (6, 1248, 3)      # (b): batch x latent, n_micro (4 ticks of 2 rows)
+EP_TRAIN = (16, 312)        # (c): the video YAML's batch x latent
+EP_SEED = 17
+
+
+def _pipe_system(torch, system_mod, depth, dtype):
+    over = [NO_COND] + ([f"model.params.unet_config.params.depth={depth}"] if depth else [])
+    return system_mod.MAA3System.from_config(
+        [os.path.join(ROOT, "configs", "txt2audio-cfm-cfg-XL.yaml")], over, seed=0,
+        device="cuda", compute_dtype=dtype, unfreeze=True, init_cond=False)
+
+
+def _pipe_batch(batch: int, latent: int, seed: int) -> dict:
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return {"image": rng.randn(batch, 80, 2 * latent).astype(np.float32) - 4.0,
+            "context": rng.randn(batch, 154, 1024).astype(np.float32)}
+
+
+def _stage_storage(dit) -> tuple:
+    """(blocks with storage, GiB of the DiT's parameters) on this rank."""
+    held = sum(1 for b in dit.blocks if b.attention.wo.weight.numel())
+    return held, sum(p.numel() * p.element_size() for p in dit.parameters()) / 2 ** 30
+
+
+def _pipe_check_step(torch, system_mod, mesh) -> dict:
+    """Phase 17 (a): one fp32 step of the XL-width DiT at depth 4 (context
+    given), Trainer(n_pipe=2, n_micro=2) on mesh, or one rank's step on a
+    mesh of ones; the loss, the whole parameters and the flash launches."""
+    from maa3_tpu_torch.ops import flash_attention as fa
+    from maa3_tpu_torch.train.loop import Trainer
+    batch, latent, depth = PIPE_CHECK
+    s = _pipe_system(torch, system_mod, depth, torch.float32)
+    n_pipe = mesh.n_pipe
+    tr = Trainer(s, batch_size=batch, warm_up_steps=0, log_every=10 ** 6, ckpt_every=0,
+                 ckpt_dir=os.path.join(ROOT, "build", "chip_smoke_pipe", f"a{mesh.pipe_rank}"),
+                 n_pipe=n_pipe, n_micro=2 if n_pipe > 1 else 1, mesh=mesh)
+    reset_launches(fa)
+    m = tr.train_step(_pipe_batch(batch, latent, EP_SEED), seed=EP_SEED)
+    torch.cuda.synchronize()
+    counts = dict(fa.launches)
+    out = {"loss": float(m["loss"]), "counts": counts, "blocks": _stage_storage(s.dit)[0],
+           "params": {n: t.cpu() for n, t in tr._full_params()["dit"].items()}}
+    del tr, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pipe_xl_steps(torch, system_mod, mesh, steps: int = 3) -> dict:
+    """Phase 17 (b): the XL YAML's DiT at full depth (14 blocks a stage),
+    bf16, Trainer(n_pipe=2, n_micro=3) at 6 x 1248 with the context given:
+    a warm-up step, then `steps` timed ones (ms, loss, flash launches) and
+    the peak memory of this rank."""
+    from maa3_tpu_torch.ops import flash_attention as fa
+    from maa3_tpu_torch.train.loop import Trainer
+    batch, latent, n_micro = PIPE_XL
+    s = _pipe_system(torch, system_mod, None, torch.bfloat16)
+    tr = Trainer(s, batch_size=batch, log_every=10 ** 6, ckpt_every=0,
+                 ckpt_dir=os.path.join(ROOT, "build", "chip_smoke_pipe", f"b{mesh.pipe_rank}"),
+                 n_pipe=2, n_micro=n_micro, mesh=mesh)
+    raw = _pipe_batch(batch, latent, 0)
+    tr.train_step(raw)  # warm-up: cuBLAS, caches, the std rescale
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    for _ in range(steps):
+        reset_launches(fa)
+        m, ms = _sync_ms(torch, lambda: tr.train_step(raw))
+        out.append((ms, float(m["loss"]), float(m["grad_norm"]), dict(fa.launches)))
+    blocks, gib = _stage_storage(s.dit)
+    res = {"steps": out, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "blocks": blocks, "param_gib": gib, "depth": s.dit.cfg.depth}
+    del tr, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _pipe_task(torch, rank: int) -> dict:
+    """Phase 17 (a) and (b), one of the two pipeline stages."""
+    from maa3_tpu_torch import system as system_mod
+    from maa3_tpu_torch.parallel import mesh as pmesh
+    from maa3_tpu_torch.pipeline import full_fp32
+    mesh = pmesh.make_pipe_mesh(n_pipe=2)
+    with full_fp32():
+        check = _pipe_check_step(torch, system_mod, mesh)
+    return {"mesh": mesh.shape, "check": check,
+            "xl": _pipe_xl_steps(torch, system_mod, mesh)}
+
+
+def _expert_bytes(dit) -> int:
+    return sum(p.numel() * p.element_size() for n, p in dit.named_parameters()
+               if "_experts." in n)
+
+
+def _ep_latent(torch, system, mesh, seed: int = EP_SEED):
+    """One 10 s window of video2audio's sampler (25 steps, guidance 4.5)
+    through shard_serving over mesh (None: one device)."""
+    import numpy as np
+    from maa3_tpu_torch import video2audio
+    opt = video2audio.parse_args(["--feat_dir", "-", "--seed", str(seed)])
+    if mesh is not None:
+        system.shard_serving(mesh)
+    gen = video2audio.WindowSampler(system, opt)
+    seg = np.random.RandomState(seed).randn(gen.truncate_frame, 512).astype(np.float32)
+    return gen, seg, gen.latent(seg, 0, None)
+
+
+def _ep_step(torch, system, mesh, batch: int, latent: int, seed: int = EP_SEED):
+    """One Trainer step of the video system at batch x latent (the trainable
+    video encoder as the YAML has it), expert-parallel over mesh (a mesh of
+    ones: one rank); the trainer, the loss and the step's ms."""
+    import numpy as np
+    from maa3_tpu_torch.train.loop import Trainer
+    n_exp = mesh.n_expert
+    tr = Trainer(system, batch_size=batch, warm_up_steps=0, log_every=10 ** 6, ckpt_every=0,
+                 ckpt_dir=os.path.join(ROOT, "build", "chip_smoke_ep", f"r{mesh.expert_rank}"),
+                 n_expert=n_exp, mesh=mesh)
+    rng = np.random.RandomState(seed)
+    raw = {"image": rng.randn(batch, 80, 2 * latent).astype(np.float32) - 4.0,
+           "video_feat": rng.randn(batch, V2A_FRAMES, 512).astype(np.float32)}
+    return tr, raw
+
+
+def _ep_check(torch, system_mod, mesh) -> dict:
+    """Phase 17 (c) in fp32: the expert-parallel (or one rank's) 10 s latent
+    and one training step's parameters."""
+    video_path = os.path.join(ROOT, "configs", "video2audio-cfm-cfg-moe.yaml")
+    s = system_mod.MAA3System.from_config([video_path], seed=0, device="cuda",
+                                          compute_dtype=torch.float32, unfreeze=True)
+    _, _, z = _ep_latent(torch, s, mesh if mesh.n_expert > 1 else None)
+    tr, raw = _ep_step(torch, s, mesh, *EP_TRAIN)
+    m = tr.train_step(raw, seed=EP_SEED)
+    out = {"latent": z.cpu(), "loss": float(m["loss"]),
+           "params": {n: t.cpu() for n, t in tr._full_params()["dit"].items()}}
+    del tr, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_task(torch, rank: int) -> dict:
+    """Phase 17 (c), one of the two expert ranks: the fp32 checks, then in
+    bf16 a timed 10 s clip (latent, decode, vocode through K1 / K2) and
+    timed training steps at 16 x 312, with the expert bytes this rank
+    holds."""
+    from maa3_tpu_torch import system as system_mod
+    from maa3_tpu_torch.ops import pallas_aa_snake as k1, pallas_amp as k2
+    from maa3_tpu_torch.parallel import mesh as pmesh
+    from maa3_tpu_torch.pipeline import full_fp32
+    mesh = pmesh.make_moe_mesh(n_expert=2)
+    with full_fp32():
+        out = {"check": _ep_check(torch, system_mod, mesh), "mesh": mesh.shape}
+    video_path = os.path.join(ROOT, "configs", "video2audio-cfm-cfg-moe.yaml")
+    s = system_mod.MAA3System.from_config([video_path], seed=0, device="cuda",
+                                          compute_dtype=torch.bfloat16, unfreeze=True)
+    full_bytes = _expert_bytes(s.dit)
+    gen, seg, _ = _ep_latent(torch, s, mesh)   # warm-up: the serving copy
+    serve_bytes = _expert_bytes(s.serving_dit())
+    clips = []
+    for _ in range(3):
+        k1.launches = k2.launches = 0
+        wav, ms = _sync_ms(torch, lambda: s.vocode(torch.as_tensor(
+            gen.mel(seg, 0, None)[None], device="cuda")))
+        clips.append((ms, (k1.launches, k2.launches), wav.shape))
+    tr, raw = _ep_step(torch, s, mesh, *EP_TRAIN)
+    tr.train_step(raw, seed=0)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(3):
+        m, ms = _sync_ms(torch, lambda: tr.train_step(raw, seed=i))
+        steps.append((ms, float(m["loss"])))
+    out.update(clips=clips, steps=steps, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               expert_bytes={"full_fp32": full_bytes, "serving_bf16": serve_bytes,
+                             "trainer_fp32": _expert_bytes(tr.state.dit)})
+    del tr, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+GLOO_TASKS = {"xxl": _xxl_two_rank_task, "pipe": _pipe_task, "expert": _ep_task}
+
+
+def _close(got, want, what: str, rel: float) -> float:
+    """max |got - want| <= rel * max(1, max |want|), the error returned."""
+    err = (got.float() - want.float()).abs().max().item()
+    require(err <= rel * max(1.0, want.float().abs().max().item()),
+            f"{what}: max |diff| {err:.3e}")
+    return err
+
+
+def parallel_phase(torch, system_mod, full_fp32, card, xl_peak: float) -> dict:
+    """Phase 17: GPipe and expert parallelism on two gloo ranks sharing the
+    card (two processes on one card over gloo: nothing here measures NCCL),
+    each part held against one rank in this process."""
+    from maa3_tpu_torch.parallel import mesh as pmesh
+    t = time.perf_counter()
+    pipe = gloo_ranks_one_card(torch, "pipe")
+    # (a) the pipeline at XL width, depth 4, fp32, against one rank
+    with full_fp32():
+        one = _pipe_check_step(torch, system_mod, pmesh.Mesh())
+    errs = []
+    for rank, r in enumerate(pipe):
+        c = r["check"]
+        require(r["mesh"] == {"data": 1, "pipe": 2, "model": 1} and c["blocks"] == 2,
+                f"pipe rank {rank}: a (1, 2, 1) mesh, two blocks stored")
+        require(abs(c["loss"] - one["loss"]) <= 1e-4 * max(1.0, abs(one["loss"])),
+                f"pipe rank {rank}: loss {c['loss']} vs one rank {one['loss']}")
+        errs.append(max(_close(p, one["params"][n], f"pipe rank {rank}: {n}", 1e-4)
+                        for n, p in c["params"].items()))
+        # 3 ticks (2 microbatches, 2 stages) of the stage's 2 blocks, forward and backward
+        require(c["counts"]["K3a"] == 6 and c["counts"]["K4a"] == 6,
+                f"pipe rank {rank}: K3a / K4a {c['counts']} == 6 / 6 a step")
+    log(f"phase 17 (a): Trainer(n_pipe=2, n_micro=2), XL width, depth 4, fp32, "
+        f"{PIPE_CHECK[0]} x {PIPE_CHECK[1]}: loss {pipe[0]['check']['loss']:.6f} vs one rank "
+        f"{one['loss']:.6f}; parameters max |diff| {max(errs):.2e}; K3a / K4a per stage "
+        f"{[(r['check']['counts']['K3a'], r['check']['counts']['K4a']) for r in pipe]} "
+        f"(one rank {one['counts']['K3a']} / {one['counts']['K4a']})")
+    del one
+    # (b) full XL, bf16
+    batch, latent, n_micro = PIPE_XL
+    xl = [r["xl"] for r in pipe]
+    ticks = n_micro + 1
+    for rank, x in enumerate(xl):
+        per = x["depth"] // 2
+        for ms, loss, gn, counts in x["steps"]:
+            require(loss == loss and gn == gn, f"pipe XL rank {rank}: finite loss")
+            require(counts["K3a"] == per * ticks and counts["K4a"] == per * ticks,
+                    f"pipe XL rank {rank}: K3a / K4a {counts} == {per * ticks}")
+    med = [statistics.median(ms for ms, _, _, _ in x["steps"]) for x in xl]
+    log(f"phase 17 (b): XL depth {xl[0]['depth']} ({xl[0]['blocks']} blocks a stage), bf16, "
+        f"{batch} x {latent}, n_micro {n_micro}, two processes on one card over gloo: step ms "
+        f"{[[round(ms, 1) for ms, _, _, _ in x['steps']] for x in xl]} (median per rank "
+        f"{[round(m, 1) for m in med]}), {batch * latent / max(med) * 1e3:.0f} tokens/s, "
+        f"peak per rank {[round(x['peak_gib'], 2) for x in xl]} GiB (one rank's XL step "
+        f"at 6 x 1248 with the frozen conditioner, phase 8: {xl_peak:.2f} GiB), DiT parameters "
+        f"per rank {[round(x['param_gib'], 2) for x in xl]} GiB, losses "
+        f"{[round(l, 4) for _, l, _, _ in xl[0]['steps']]}; {card}")
+    # (c) expert parallelism of the video MoE
+    ep = gloo_ranks_one_card(torch, "expert")
+    with full_fp32():
+        one = _ep_check(torch, system_mod, pmesh.Mesh(dim_names=("data", "model", "expert")))
+    for rank, r in enumerate(ep):
+        c = r["check"]
+        require(r["mesh"] == {"data": 1, "model": 1, "expert": 2},
+                f"expert rank {rank}: a (1, 1, 2) mesh")
+        zerr = _close(c["latent"], one["latent"], f"expert rank {rank}: 10 s latent", 1e-3)
+        require(abs(c["loss"] - one["loss"]) <= 1e-4 * max(1.0, abs(one["loss"])),
+                f"expert rank {rank}: step loss {c['loss']} vs one rank {one['loss']}")
+        perr = max(_close(p, one["params"][n], f"expert rank {rank}: {n}", 1e-4)
+                   for n, p in c["params"].items())
+        for ms, counts, shape in r["clips"]:
+            require(counts == K1_K2_PER_VOCODE and shape == (1, V2A_SAMPLES),
+                    f"expert rank {rank}: K1 / K2 {counts} per vocode, a 10 s wav")
+        log(f"phase 17 (c) rank {rank}: fp32 latent max |diff| {zerr:.2e}, step loss "
+            f"{c['loss']:.6f} (one rank {one['loss']:.6f}), parameters max |diff| "
+            f"{perr:.2e}; bf16 ms per 10 s clip (25 steps, decode, vocode) "
+            f"{[round(ms, 1) for ms, _, _ in r['clips']]}, K1 / K2 {r['clips'][-1][1]}; "
+            f"bf16 step at {EP_TRAIN[0]} x {EP_TRAIN[1]} "
+            f"{[round(ms, 1) for ms, _ in r['steps']]} ms, peak {r['peak_gib']:.2f} GiB; "
+            f"expert weights {r['expert_bytes']['trainer_fp32'] / 2 ** 30:.3f} GiB fp32 "
+            f"(of {r['expert_bytes']['full_fp32'] / 2 ** 30:.3f}), serving copy "
+            f"{r['expert_bytes']['serving_bf16'] / 2 ** 30:.3f} GiB; {card}")
+    log(f"phase 17: done, {time.perf_counter() - t:.2f} s")
+    return {"pipe_xl": xl[0]["steps"][-1][3], "pipe_check": pipe[0]["check"]["counts"],
+            "ep_vocode": ep[0]["clips"][-1][1]}
 
 
 def main() -> int:
@@ -3061,8 +3368,8 @@ def main() -> int:
         f"{time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
-    xl_steps, _, _ = train_path(torch, system_mod, config_path, fa, *XL_TRAIN,
-                                profile="--profile" in sys.argv[1:], measure_tf32=True)
+    xl_steps, xl_peak, _ = train_path(torch, system_mod, config_path, fa, *XL_TRAIN,
+                                      profile="--profile" in sys.argv[1:], measure_tf32=True)
     for _, c, _ in xl_steps:
         require(c == {"K3a": 28, "K3b": 0, "K4a": 28, "K4b": 0, "K4c": 0},
                 f"XL training step launches {c} == K3a 28, K3b 0, K4a 28")
@@ -3161,6 +3468,7 @@ def main() -> int:
     t = time.perf_counter()
     xxl_serving, xxl_training = xxl_phase(torch, system_mod, k1, k2, fa, card, full_fp32)
     log(f"XXL: done, {time.perf_counter() - t:.2f} s")
+    par = parallel_phase(torch, system_mod, full_fp32, card, xl_peak)
 
     kernels = []
     # launches, ms and the bound: phase 5's batch-4 XL vocode (bf16), as in
@@ -3179,6 +3487,7 @@ def main() -> int:
                    "amp2_vocoder": amp2[i], "audio_logger": recipe["logger_counts"][i],
                    "vocoder_gan_disc_step": voc_gan["disc_counts"][i],
                    "eval": eval_counts[i], "xxl_serve": xxl_serving["counts"][i],
+                   "video2audio_expert_parallel_per_vocode": par["ep_vocode"][i],
                    **{f"xl_serving_{m}": c[i] for m, c in int8_counts.items() if m},
                    **{f"video2audio_{m}_per_vocode": c[i] for m, c in v2a_counts.items()}}
         err = {path: max(r["err"] for r in rows if r["kernel"] == name[:2]
@@ -3228,7 +3537,10 @@ def main() -> int:
             "library_ms": r["library_ms"] * cnt,
             "launches_by_path": {"main": cnt, "recipe_micro_step": phase12,
                                  "moe_forced_flash_step": moe_flash[name[:3]],
-                                 "xxl_train": xxl_n}}
+                                 "xxl_train": xxl_n,
+                                 "pipe_stage_step_xl_depth4_fp32":
+                                     par["pipe_check"].get(name[:3], 0),
+                                 "pipe_stage_step_xl": par["pipe_xl"].get(name[:3], 0)}}
         if xxl_n:  # phase 16's XXL step at head dim 48: per step, bf16
             x = next(r for r in mine if r["shape"] == XXL_FLASH)
             entry["xxl_train"] = {k: x[k] * xxl_n for k in ("ms", "plain_ms", "bound_ms",

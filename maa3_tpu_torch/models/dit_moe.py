@@ -25,6 +25,13 @@ its timestep, one time expert per step.
 
 With a bf16 compute dtype the expert products give bf16 results (JAX's
 keep fp32 results of bf16 operands); fp32 is the same.
+
+Over a ("data", "model", "expert") mesh (parallel/mesh.py make_moe_mesh)
+the model runs Megatron's tensor parallelism (dit.tp: the attention as the
+text DiT's, each expert's w1 / w3 by output and w2 by input), expert
+parallelism (dit.ep: this rank's experts, see moe_apply) and ZeRO-3
+(dit.fsdp), as JAX's shardings of the stacks give (maa3_tpu/parallel/mesh.py:
+89-114, 137-167).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from maa3_tpu_torch.ops.basic import (RMSNorm, TimestepEmbedder, layer_norm, lin
                                       modulate, rms_norm, silu)
 from maa3_tpu_torch.ops.ffn import FeedForward
 from maa3_tpu_torch.ops.rope import precompute_rope
+from maa3_tpu_torch.parallel.fsdp import gathered
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +138,12 @@ class MoEDiT(nn.Module):
         self.cap_embedder = nn.Sequential(nn.LayerNorm(d, eps=1e-5), nn.Linear(d, d))
         self.blocks = nn.ModuleList(MoEBlock(cfg) for _ in range(cfg.depth))
         self.final_layer = FinalLayer(d, cfg.in_channels)
+        # set when the parameters are this rank's shards: the model group
+        # (parallel/tp.py TP), the expert group (EP) and ZeRO-3 over the data
+        # group (parallel/fsdp.py)
+        self.tp = None
+        self.ep = None
+        self.fsdp = None
 
 
 # -- the MoE feed-forward -----------------------------------------------------------
@@ -138,64 +152,107 @@ def _silu_prod(h1: torch.Tensor, h3: torch.Tensor) -> torch.Tensor:
     return silu(h1.float()) * h3.float()
 
 
-def moe_apply(moe: MoE, x: torch.Tensor, t: torch.Tensor, cfg: MoEDiTConfig,
-              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """x (B, L, D), t (B,) integer timesteps -> (B, L, D): each sample's time
-    expert, then the frequency experts on its output
-    (maa3_tpu/models/dit_moe.py:88-147)."""
-    dt = compute_dtype or x.dtype
-    idx = torch.clamp(t // cfg.time_bucket, 0, cfg.num_experts - 1).long()
-    te = moe.time_experts
-
+def _time_experts(experts, x: torch.Tensor, idx: torch.Tensor, dt) -> torch.Tensor:
+    """Each sample's expert experts[idx_b], one batched product per projection."""
     def gathered(name):  # (B, out, in) weights of each sample's expert
-        return torch.stack([getattr(e, name).weight for e in te])[idx].to(dt)
+        return torch.stack([getattr(e, name).weight for e in experts])[idx].to(dt)
 
     xb = x.to(dt)
     h1 = torch.einsum("bld,bhd->blh", xb, gathered("w1"))
     h3 = torch.einsum("bld,bhd->blh", xb, gathered("w3"))
-    y = torch.einsum("blh,bdh->bld", _silu_prod(h1, h3).to(dt), gathered("w2"))
+    return torch.einsum("blh,bdh->bld", _silu_prod(h1, h3).to(dt), gathered("w2"))
+
+
+def moe_apply(moe: MoE, x: torch.Tensor, t: torch.Tensor, cfg: MoEDiTConfig,
+              compute_dtype: Optional[torch.dtype] = None, tp=None, ep=None) -> torch.Tensor:
+    """x (B, L, D), t (B,) integer timesteps -> (B, L, D): each sample's time
+    expert, then the frequency experts on its output
+    (maa3_tpu/models/dit_moe.py:88-147).
+
+    tp (parallel/tp.py TP): the experts are this rank's column (w1, w3) and
+    row (w2) shards over "model"; each MoE runs between copy and reduce.
+    ep (EP): this rank owns experts ep.lo .. ep.lo + ep.k - 1. The time MoE
+    computes only the samples of its experts, zeros for the rest, and sums
+    over "expert" (copy before, reduce after); the frequency MoE computes
+    its experts' slices and all-gathers them over "expert"."""
+    dt = compute_dtype or x.dtype
+    idx = torch.clamp(t // cfg.time_bucket, 0, cfg.num_experts - 1).long()
+    xin = x if tp is None else tp.copy(x)
+    te = moe.time_experts
+    if ep is None:
+        y = _time_experts(te, xin, idx, dt)
+    else:
+        xin = ep.copy(xin)
+        rows = ((idx >= ep.lo) & (idx < ep.lo + ep.k)).nonzero().squeeze(1)
+        # with no row of its experts a rank still runs them on none, so that
+        # their gradients exist (zeros) as on the ranks that have rows
+        mine = _time_experts(list(te)[ep.lo:ep.lo + ep.k], xin[rows], idx[rows] - ep.lo, dt)
+        y = ep.reduce(xin.new_zeros(xin.shape, dtype=dt).index_put((rows,), mine.to(dt)))
+    if tp is not None:
+        y = tp.reduce(y)
     y = y.to(x.dtype)
     d = x.shape[-1]
-    return _freq_moe(y, *_freq_sliced_stacks(moe, cfg, d, dt), dt).to(x.dtype)
+    return _freq_moe(y, *_freq_sliced_stacks(moe, cfg, d, dt, ep), dt, tp, ep).to(x.dtype)
 
 
-def _freq_sliced_stacks(moe: MoE, cfg: MoEDiTConfig, d: int, dt):
+def _freq_sliced_stacks(moe: MoE, cfg: MoEDiTConfig, d: int, dt, ep=None):
     """The frequency experts' slices, weight only: w1s / w3s (E, h, sl) (the
-    input columns of slice e), w2s (E, sl, h) (its output rows)."""
+    input columns of slice e), w2s (E, sl, h) (its output rows); with ep
+    only this rank's experts'."""
     sl = d // cfg.num_experts
     fe = moe.freq_experts
-    w1s = torch.stack([e.w1.weight[:, i * sl:(i + 1) * sl] for i, e in enumerate(fe)])
-    w3s = torch.stack([e.w3.weight[:, i * sl:(i + 1) * sl] for i, e in enumerate(fe)])
-    w2s = torch.stack([e.w2.weight[i * sl:(i + 1) * sl] for i, e in enumerate(fe)])
+    own = range(cfg.num_experts) if ep is None else range(ep.lo, ep.lo + ep.k)
+    w1s = torch.stack([fe[i].w1.weight[:, i * sl:(i + 1) * sl] for i in own])
+    w3s = torch.stack([fe[i].w3.weight[:, i * sl:(i + 1) * sl] for i in own])
+    w2s = torch.stack([fe[i].w2.weight[i * sl:(i + 1) * sl] for i in own])
     return w1s.to(dt), w3s.to(dt), w2s.to(dt)
 
 
-def _freq_moe(y: torch.Tensor, w1s, w3s, w2s, dt) -> torch.Tensor:
-    """The frequency-MoE on pre-sliced stacks; fp32 or dt result."""
+def _freq_moe(y: torch.Tensor, w1s, w3s, w2s, dt, tp=None, ep=None) -> torch.Tensor:
+    """The frequency-MoE on pre-sliced stacks (this rank's experts and
+    shards with ep / tp, see moe_apply); fp32 or dt result."""
     b, l, d = y.shape
-    e = w1s.shape[0]
-    ys = y.reshape(b, l, e, d // e).to(dt)
+    sl = w1s.shape[-1]
+    if tp is not None:
+        y = tp.copy(y)
+    ys = y.reshape(b, l, d // sl, sl).to(dt)
+    if ep is not None:
+        ys = ep.copy(ys)[:, :, ep.lo:ep.lo + ep.k]
     g1 = torch.einsum("bleS,ehS->bleh", ys, w1s)
     g3 = torch.einsum("bleS,ehS->bleh", ys, w3s)
     z = torch.einsum("bleh,eSh->bleS", _silu_prod(g1, g3).to(dt), w2s)
+    if tp is not None:
+        z = tp.reduce(z)
+    if ep is not None:
+        z = ep.gather(z, 2)
     return z.reshape(b, l, d)
 
 
 def moe_apply_shared_t(moe: MoE, x: torch.Tensor, t_idx: int, cfg: MoEDiTConfig,
                        freq_sliced=None,
-                       compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                       compute_dtype: Optional[torch.dtype] = None,
+                       tp=None, ep=None) -> torch.Tensor:
     """moe_apply when every sample has the same time expert t_idx (the
     sampling case): one plain GEMM per projection
-    (maa3_tpu/models/dit_moe.py:223)."""
+    (maa3_tpu/models/dit_moe.py:223); tp and ep as moe_apply (with ep only
+    the rank owning t_idx computes the time expert)."""
     dt = compute_dtype or x.dtype
-    ex = moe.time_experts[t_idx]
-    xb = x.to(dt)
-    h1 = xb @ ex.w1.weight.to(dt).t()
-    h3 = xb @ ex.w3.weight.to(dt).t()
-    y = (_silu_prod(h1, h3).to(dt) @ ex.w2.weight.to(dt).t()).to(x.dtype)
+    xb = (x if tp is None else tp.copy(x)).to(dt)
+    if ep is None or ep.owns(t_idx):
+        ex = moe.time_experts[t_idx]
+        h1 = xb @ ex.w1.weight.to(dt).t()
+        h3 = xb @ ex.w3.weight.to(dt).t()
+        y = _silu_prod(h1, h3).to(dt) @ ex.w2.weight.to(dt).t()
+    else:
+        y = xb.new_zeros(xb.shape)
+    if ep is not None:
+        y = ep.reduce(y)
+    if tp is not None:
+        y = tp.reduce(y)
+    y = y.to(x.dtype)
     if freq_sliced is None:
-        freq_sliced = _freq_sliced_stacks(moe, cfg, x.shape[-1], dt)
-    return _freq_moe(y, *freq_sliced, dt).to(x.dtype)
+        freq_sliced = _freq_sliced_stacks(moe, cfg, x.shape[-1], dt, ep)
+    return _freq_moe(y, *freq_sliced, dt, tp, ep).to(x.dtype)
 
 
 # -- the model ------------------------------------------------------------------------
@@ -218,20 +275,33 @@ def _adaln_input(dit: MoEDiT, t_emb: torch.Tensor, cond: torch.Tensor) -> torch.
 
 
 def _moe_block(blk: MoEBlock, cfg: MoEDiTConfig, h, cos, sin, adaln, cond, t,
-               compute_dtype):
-    mod = linear(blk.adaLN_modulation[1], silu(adaln.float()))
-    s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp = mod.chunk(6, dim=-1)
-    ha = attention_apply(
-        blk.attention,
-        modulate(rms_norm(blk.attention_norm.weight, h, cfg.norm_eps), s_msa, sc_msa),
-        cos, sin, y=rms_norm(blk.attention_y_norm.weight, cond, cfg.norm_eps),
-        n_heads=cfg.num_heads, n_kv_heads=cfg.n_kv_heads,
-        compute_dtype=compute_dtype, use_flash=cfg.flash_for_len(h.shape[1]))
-    h = h + g_msa[:, None, :].to(h.dtype) * ha
-    hf = moe_apply(blk.feed_forward,
-                   modulate(rms_norm(blk.ffn_norm.weight, h, cfg.norm_eps), s_mlp, sc_mlp),
-                   t, cfg, compute_dtype)
-    return h + g_mlp[:, None, :].to(h.dtype) * hf
+               compute_dtype, tp=None, ep=None, fsdp=None):
+    """One block of moe_dit_apply, its FSDP shards gathered inside; with tp
+    the attention runs between tp.enter and tp.exit (no sequence
+    parallelism), the MoE as moe_apply."""
+    with gathered(fsdp, blk):
+        mod = linear(blk.adaLN_modulation[1], silu(adaln.float()))
+        s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp = mod.chunk(6, dim=-1)
+        xa = modulate(rms_norm(blk.attention_norm.weight, h, cfg.norm_eps), s_msa, sc_msa)
+        ha = attention_apply(
+            blk.attention, xa if tp is None else tp.enter(xa),
+            cos, sin, y=rms_norm(blk.attention_y_norm.weight, cond, cfg.norm_eps),
+            n_heads=cfg.num_heads, n_kv_heads=cfg.n_kv_heads,
+            compute_dtype=compute_dtype, use_flash=cfg.flash_for_len(h.shape[1]), tp=tp)
+        if tp is not None:
+            ha = tp.exit(ha)
+        h = h + g_msa[:, None, :].to(h.dtype) * ha
+        hf = moe_apply(blk.feed_forward,
+                       modulate(rms_norm(blk.ffn_norm.weight, h, cfg.norm_eps), s_mlp, sc_mlp),
+                       t, cfg, compute_dtype, tp, ep)
+        return h + g_mlp[:, None, :].to(h.dtype) * hf
+
+
+def _parallel(dit: MoEDiT):
+    """dit's TP (without sequence parallelism), EP and FSDP, each or None."""
+    tp = getattr(dit, "tp", None)
+    return (tp and tp.with_seq_parallel(False), getattr(dit, "ep", None),
+            getattr(dit, "fsdp", None))
 
 
 def _embed(dit: MoEDiT, x: torch.Tensor, compute_dtype):
@@ -250,19 +320,24 @@ def moe_dit_apply(dit: MoEDiT, x: torch.Tensor, t: torch.Tensor,
     """x (B, C, T), t (B,) integer timesteps, context (B, Lv, ctx) video
     features -> the (B, C, T) fp32 velocity (maa3_tpu/models/dit_moe.py:245).
     training=True selects the training flash threshold; cfg.remat
-    recomputes each block in the backward."""
+    recomputes each block in the backward. A MoEDiT sharded over the model
+    (dit.tp), expert (dit.ep) or data (dit.fsdp) group runs tensor, expert
+    or ZeRO-3 parallelism (parallel/)."""
     cfg = dit.cfg.resolve_flash(x.shape[-1], training)
-    h, cos, sin = _embed(dit, x, compute_dtype)
-    cond = _cond_embed(dit.c_embedder, context, compute_dtype)
-    adaln = _adaln_input(dit, dit.t_embedder(t), cond)
-    remat = cfg.remat and torch.is_grad_enabled()
-    for blk in dit.blocks:
-        args = (blk, cfg, h, cos, sin, adaln, cond, t, compute_dtype)
-        h = (checkpoint(_moe_block, *args, use_reentrant=False) if remat
-             else _moe_block(*args))
-    shift, scale = linear(dit.final_layer.adaLN_modulation[1],
-                          silu(adaln.float())).chunk(2, -1)
-    return _final(dit, h, shift, scale)
+    tp, ep, fsdp = _parallel(dit)
+    with gathered(fsdp, dit.proj_in, dit.t_embedder, dit.c_embedder, dit.cap_embedder,
+                  dit.final_layer):
+        h, cos, sin = _embed(dit, x, compute_dtype)
+        cond = _cond_embed(dit.c_embedder, context, compute_dtype)
+        adaln = _adaln_input(dit, dit.t_embedder(t), cond)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for blk in dit.blocks:
+            args = (blk, cfg, h, cos, sin, adaln, cond, t, compute_dtype, tp, ep, fsdp)
+            h = (checkpoint(_moe_block, *args, use_reentrant=False) if remat
+                 else _moe_block(*args))
+        shift, scale = linear(dit.final_layer.adaLN_modulation[1],
+                              silu(adaln.float())).chunk(2, -1)
+        return _final(dit, h, shift, scale)
 
 
 @torch.no_grad()
@@ -272,8 +347,10 @@ def moe_dit_sample_plan(dit: MoEDiT, t_ints: torch.Tensor, context: torch.Tensor
     dual batch [uc; c] for CFG). Returns {"mods": (S, depth, B, 6H),
     "final": (S, B, 2H), "yk"/"yv": per-block (B, Lv, kv), "freq_sliced":
     per-block stacks, "tidx": the time expert of each step (ints)}
-    (maa3_tpu/models/dit_moe.py:302)."""
+    (maa3_tpu/models/dit_moe.py:302). Under tp / ep the K/V are this rank's
+    heads and the stacks its experts' shards."""
     cfg = dit.cfg
+    tp, ep, _ = _parallel(dit)
     cond = _cond_embed(dit.c_embedder, context, compute_dtype)
     adaln = silu(_adaln_input(dit, dit.t_embedder(t_ints)[:, None, :], cond))  # (S, B, H)
     ada = [blk.adaLN_modulation[1] for blk in dit.blocks]
@@ -287,11 +364,11 @@ def moe_dit_sample_plan(dit: MoEDiT, t_ints: torch.Tensor, context: torch.Tensor
     yk, yv, fs = [], [], []
     for blk in dit.blocks:
         yn = yf * blk.attention_y_norm.weight.to(cond.dtype)
-        k, v = context_kv(blk.attention, yn.to(compute_dtype or yn.dtype), compute_dtype)
+        k, v = context_kv(blk.attention, yn.to(compute_dtype or yn.dtype), compute_dtype, tp)
         yk.append(k)
         yv.append(v)
         fs.append(_freq_sliced_stacks(blk.feed_forward, cfg, cfg.hidden_size,
-                                      compute_dtype or torch.float32))
+                                      compute_dtype or torch.float32, ep))
     tidx = [min(max(int(t) // cfg.time_bucket, 0), cfg.num_experts - 1)
             for t in t_ints.tolist()]
     return {"mods": mods, "final": final, "yk": yk, "yv": yv, "freq_sliced": fs,
@@ -303,23 +380,26 @@ def moe_dit_apply_planned(dit: MoEDiT, x: torch.Tensor, mods: torch.Tensor,
                           freq_sliced: List,
                           compute_dtype: Optional[torch.dtype] = torch.bfloat16):
     """moe_dit_apply for one step of a plan, every sample on time expert
-    t_idx (maa3_tpu/models/dit_moe.py:348)."""
+    t_idx (maa3_tpu/models/dit_moe.py:348); tensor and expert parallel as
+    the DiT's shards say."""
     cfg = dit.cfg
+    tp, ep, _ = _parallel(dit)
     h, cos, sin = _embed(dit, x, compute_dtype)
     for i, blk in enumerate(dit.blocks):
         s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp = mods[i].chunk(6, dim=-1)
+        xa = modulate(rms_norm(blk.attention_norm.weight, h, cfg.norm_eps), s_msa, sc_msa)
         ha = attention_apply(
-            blk.attention,
-            modulate(rms_norm(blk.attention_norm.weight, h, cfg.norm_eps), s_msa, sc_msa),
+            blk.attention, xa if tp is None else tp.enter(xa),
             cos, sin, y_kv=(yk[i], yv[i]), n_heads=cfg.num_heads,
             n_kv_heads=cfg.n_kv_heads, compute_dtype=compute_dtype,
-            use_flash=cfg.flash_for_len(h.shape[1]))
+            use_flash=cfg.flash_for_len(h.shape[1]), tp=tp)
+        if tp is not None:
+            ha = tp.exit(ha)
         h = h + g_msa[:, None, :].to(h.dtype) * ha
         hf = moe_apply_shared_t(
             blk.feed_forward,
             modulate(rms_norm(blk.ffn_norm.weight, h, cfg.norm_eps), s_mlp, sc_mlp),
-            t_idx, cfg, freq_sliced[i], compute_dtype)
+            t_idx, cfg, freq_sliced[i], compute_dtype, tp, ep)
         h = h + g_mlp[:, None, :].to(h.dtype) * hf
     shift, scale = final_mod.chunk(2, dim=-1)
     return _final(dit, h, shift, scale)
-

@@ -46,7 +46,7 @@ class FSDP:
         with torch.no_grad():
             for name, p in module.named_parameters():
                 d = spec_dim(specs[name], "data")
-                if d is not None and self.n > 1:
+                if d is not None and self.n > 1 and p.numel():  # (not another's expert)
                     p.data = shard_tensor(p.data, specs[name], mesh, ("data",))
                     self.dims[id(p)] = d
 

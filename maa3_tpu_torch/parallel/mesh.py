@@ -6,16 +6,19 @@ device from one process per host). `init_distributed` starts the process
 group from the launcher's environment: NCCL on CUDA, gloo on the CPU.
 `make_mesh` arranges the ranks as JAX reshapes devices, (n_data, n_model)
 with "model" innermost, in a `DeviceMesh` with the dims ("data", "model"),
-and exposes each dim's process group. A mesh the world cannot hold raises;
-nothing falls back to one device.
+and exposes each dim's process group; `make_pipe_mesh` adds a "pipe" dim
+between them and `make_moe_mesh` an "expert" dim inside "model". A mesh
+the world cannot hold raises; nothing falls back to one device.
 
 Placements are tuples with one entry per tensor dim: None, "model" or
 "data" (JAX's PartitionSpec, in the port's layouts). The port's matmul
 weights are nn.Linear's (out, in), so a column-parallel weight shards dim 0
 and a row-parallel one dim 1; the blocks are a ModuleList, so there is no
 stacked depth axis. `dit_param_specs` gives the Megatron placements,
-`add_fsdp_specs` adds ZeRO-3's data dim, and `shard_tensor` /
-`gather_tensor` move a tensor between its full and its local form.
+`add_fsdp_specs` adds ZeRO-3's data dim, `add_pipe_specs` /
+`add_ep_specs` name the stage owning each block tensor and the expert
+coordinate owning each expert tensor, and `shard_tensor` / `gather_tensor`
+move a tensor between its full and its local form.
 """
 
 from __future__ import annotations
@@ -111,10 +114,11 @@ def control_group(timeout_s: float = 7 * 24 * 3600.0):
 
 @dataclasses.dataclass
 class Mesh:
-    """(n_data, n_model) ranks, "model" innermost; this rank's coordinate
-    and each dim's process group (None on a 1 x 1 mesh without a process
-    group). n_nodes: the nodes the data dim spans (torchrun's
-    WORLD_SIZE / LOCAL_WORLD_SIZE)."""
+    """A mesh of ranks with named dims: ("data", "model"), ("data", "pipe",
+    "model") or ("data", "model", "expert"), the last dim innermost; this
+    rank's coordinate and each dim's process group (None on a mesh of ones
+    without a process group). A dim the mesh lacks has size 1. n_nodes: the
+    nodes the data dim spans (torchrun's WORLD_SIZE / LOCAL_WORLD_SIZE)."""
     n_data: int = 1
     n_model: int = 1
     data_rank: int = 0
@@ -124,23 +128,75 @@ class Mesh:
     device_mesh: Optional[object] = None
     n_nodes: int = 1
     dim_names: Tuple[str, ...] = ("data", "model")
+    n_pipe: int = 1
+    pipe_rank: int = 0
+    pipe_group: Optional[object] = None
+    n_expert: int = 1
+    expert_rank: int = 0
+    expert_group: Optional[object] = None
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": self.n_data, "model": self.n_model}
+        return {d: self.size(d) for d in self.dim_names}
 
     def size(self, axis: str) -> int:
-        return self.n_data if axis == "data" else self.n_model
+        return getattr(self, f"n_{axis}")
 
     def coord(self, axis: str) -> int:
-        return self.data_rank if axis == "data" else self.model_rank
+        return getattr(self, f"{axis}_rank")
 
     def group(self, axis: str):
-        return self.data_group if axis == "data" else self.model_group
+        return getattr(self, f"{axis}_group")
 
     @property
     def data_per_node(self) -> int:
         return self.n_data // self.n_nodes
+
+
+def _build_mesh(sizes: Dict[str, Optional[int]]) -> Mesh:
+    """The mesh of `sizes` (dim name -> size, outermost first; "data" None:
+    the world over the other dims) over the process group's ranks, reshaped
+    as JAX reshapes devices: the last dim innermost. Without a process group
+    only a mesh of ones exists. Raises ValueError for a shape the world
+    cannot hold."""
+    names = tuple(sizes)
+    inner = {d: s for d, s in sizes.items() if d != "data"}
+    desc = " x ".join(f"n_{d}={s}" for d, s in inner.items() if s != 1) or "n_model=1"
+    n_inner = 1
+    for d, s in sizes.items():
+        if s is not None and s < 1:
+            raise ValueError(f"mesh {sizes}: sizes must be positive")
+        if d != "data":
+            n_inner *= s
+    if not dist.is_initialized():
+        n_data = sizes["data"]
+        if n_inner != 1 or (n_data or 1) != 1:
+            raise ValueError(
+                f"{desc}: a {n_data or '?'} x {n_inner} mesh needs {(n_data or 1) * n_inner} "
+                "ranks, and no process group is initialised (launch with torchrun "
+                "--nproc_per_node N)")
+        return Mesh(dim_names=names)
+    world = dist.get_world_size()
+    if world % n_inner:
+        raise ValueError(f"{desc} does not divide the world size {world}")
+    n_data = sizes["data"] if sizes["data"] is not None else world // n_inner
+    if n_data * n_inner != world:
+        raise ValueError(f"mesh {' x '.join(str(s) for s in (n_data, *inner.values()))} "
+                         f"!= {world} ranks")
+    from torch.distributed.device_mesh import init_device_mesh
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    shape = tuple(n_data if d == "data" else s for d, s in sizes.items())
+    dm = init_device_mesh(device_type, shape, mesh_dim_names=names)
+    coords = dm.get_coordinate()
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    n_nodes = max(1, world // local)
+    if n_data % n_nodes or local % n_inner:
+        raise ValueError(f"mesh {shape} over {n_nodes} nodes of {local} ranks: the "
+                         "dims other than data must lie within a node")
+    kw = {}
+    for d, size, c in zip(names, shape, coords):
+        kw.update({f"n_{d}": size, f"{d}_rank": c, f"{d}_group": dm.get_group(d)})
+    return Mesh(device_mesh=dm, n_nodes=n_nodes, dim_names=names, **kw)
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
@@ -149,33 +205,23 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
     (maa3_tpu/parallel/mesh.py:29). n_data defaults to world / n_model.
     Without a process group only the 1 x 1 mesh exists. Raises ValueError
     for a shape the world cannot hold."""
-    if n_model < 1 or (n_data is not None and n_data < 1):
-        raise ValueError(f"mesh {n_data} x {n_model}: sizes must be positive")
-    if not dist.is_initialized():
-        if n_model != 1 or (n_data or 1) != 1:
-            raise ValueError(
-                f"n_model={n_model}: a {n_data or '?'} x {n_model} mesh needs "
-                f"{(n_data or 1) * n_model} ranks, and no process group is "
-                "initialised (launch with torchrun --nproc_per_node N)")
-        return Mesh()
-    world = dist.get_world_size()
-    if world % n_model:
-        raise ValueError(f"n_model={n_model} does not divide the world size {world}")
-    if n_data is None:
-        n_data = world // n_model
-    if n_data * n_model != world:
-        raise ValueError(f"mesh {n_data} x {n_model} != {world} ranks")
-    from torch.distributed.device_mesh import init_device_mesh
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    dm = init_device_mesh(device_type, (n_data, n_model), mesh_dim_names=("data", "model"))
-    d, m = dm.get_coordinate()
-    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    n_nodes = max(1, world // local)
-    if n_data % n_nodes or local % n_model:
-        raise ValueError(f"mesh {n_data} x {n_model} over {n_nodes} nodes of {local} "
-                         "ranks: the model dim must lie within a node")
-    return Mesh(n_data, n_model, d, m, dm.get_group("data"), dm.get_group("model"),
-                dm, n_nodes)
+    return _build_mesh({"data": n_data, "model": n_model})
+
+
+def make_pipe_mesh(n_data: Optional[int] = None, n_pipe: int = 1,
+                   n_model: int = 1) -> Mesh:
+    """The ("data", "pipe", "model") mesh (maa3_tpu/parallel/pipeline.py:50):
+    "pipe" between data and model, so the model dim stays innermost. n_data
+    defaults to world / (n_pipe * n_model)."""
+    return _build_mesh({"data": n_data, "pipe": n_pipe, "model": n_model})
+
+
+def make_moe_mesh(n_data: Optional[int] = None, n_model: int = 1,
+                  n_expert: int = 1) -> Mesh:
+    """The ("data", "model", "expert") mesh of the video MoE
+    (maa3_tpu/parallel/mesh.py:40): "expert" innermost. n_data defaults to
+    world / (n_model * n_expert)."""
+    return _build_mesh({"data": n_data, "model": n_model, "expert": n_expert})
 
 
 # -- the DiT's placements -------------------------------------------------------------
@@ -238,6 +284,7 @@ def dit_param_specs(tensors: Dict[str, torch.Tensor],
 
 
 _BLOCK = re.compile(r"(^|\.)blocks\.(\d+)\.")
+_EXPERT = re.compile(r"(^|\.)(time_experts|freq_experts)\.(\d+)\.")
 
 
 def add_fsdp_specs(tensors: Dict[str, torch.Tensor], specs: Dict[str, Spec],
@@ -246,15 +293,25 @@ def add_fsdp_specs(tensors: Dict[str, torch.Tensor], specs: Dict[str, Spec],
     least min_size elements gets one more dim sharded over `axis`, the
     largest not-yet-sharded dim that n_fsdp divides, the first of equals in
     JAX's dim order (a port weight is JAX's transposed, so its dims are
-    taken last first). JAX's leaves stack the blocks over depth, so a block
-    tensor counts depth times its size against min_size, as its stacked
-    leaf does (the depth axis is never the largest divisible dim of the
-    configs' leaves)."""
+    taken last first). JAX's leaves stack the blocks over depth and the
+    MoE's experts over E, so a block tensor counts depth (an expert's depth
+    x E) times its size against min_size, as its stacked leaf does (neither
+    stacked axis is ever the largest divisible dim of the configs' leaves;
+    under expert parallelism E is taken by "expert" in JAX's spec, and the
+    port's per-expert tensor has no such dim)."""
     depth = len({m.group(2) for n in tensors for m in [_BLOCK.search(n)] if m})
+    experts = {}
+    for n in tensors:
+        m = _EXPERT.search(n)
+        if m:
+            experts.setdefault(m.group(2), set()).add(m.group(3))
     out = {}
     for name, t in tensors.items():
         spec = tuple(specs[name]) + (None,) * (t.dim() - len(specs[name]))
         size = t.numel() * (depth if _BLOCK.search(name) else 1)
+        m = _EXPERT.search(name)
+        if m:
+            size *= len(experts[m.group(2)])
         cands = [d for d in reversed(range(t.dim()))
                  if spec[d] is None and t.shape[d] % n_fsdp == 0]
         if size < min_size or not cands:
@@ -263,6 +320,67 @@ def add_fsdp_specs(tensors: Dict[str, torch.Tensor], specs: Dict[str, Spec],
         d = max(cands, key=lambda i: t.shape[i])
         out[name] = tuple(axis if i == d else s for i, s in enumerate(spec))
     return out
+
+
+# -- pipeline and expert ownership -------------------------------------------------------
+#
+# JAX's "pipe" and "expert" shard a stacked axis (depth, or E of the MoE's
+# expert stacks); the port's blocks and experts are ModuleLists, so the axis
+# becomes ownership: each block or expert tensor belongs to one coordinate of
+# the dim, and the other coordinates hold no storage for it. An owner is
+# (mesh dim, coordinate); the placements of its dims stay dit_param_specs' /
+# add_fsdp_specs'.
+
+Owner = Tuple[str, int]
+
+
+def add_pipe_specs(tensors: Dict[str, torch.Tensor], n_pipe: int) -> Dict[str, Owner]:
+    """The "pipe" stage owning each block tensor: contiguous depth / n_pipe
+    blocks per stage, as JAX's P("pipe", ...) on the stacked depth axis
+    gives (maa3_tpu/parallel/pipeline.py:63); the embedders, proj_in and the
+    final layer are on every stage. Raises when n_pipe does not divide the
+    depth (pipeline.py:103)."""
+    blocks = {n: int(m.group(2)) for n in tensors for m in [_BLOCK.search(n)] if m}
+    depth = len(set(blocks.values()))
+    if depth % n_pipe:
+        raise ValueError(f"depth {depth} is not divisible into n_pipe={n_pipe} stages")
+    per = depth // n_pipe
+    return {n: ("pipe", i // per) for n, i in blocks.items()}
+
+
+def add_ep_specs(tensors: Dict[str, torch.Tensor], n_expert: int) -> Dict[str, Owner]:
+    """The "expert" coordinate owning each expert tensor of the video MoE:
+    contiguous E / n_expert experts per coordinate, as JAX's "expert" on the
+    stacks' E axis (maa3_tpu/parallel/mesh.py:137-167); raises JAX's "not
+    divisible by n_expert"."""
+    experts = {}
+    for n in tensors:
+        m = _EXPERT.search(n)
+        if m:
+            experts[n] = (m.group(2), int(m.group(3)))
+    out = {}
+    for n, (stack, e) in experts.items():
+        n_e = len({i for s, i in experts.values() if s == stack})
+        if n_e % n_expert:
+            raise ValueError(f"add_ep_specs: expert axis {n_e} of {n} not divisible by "
+                             f"n_expert={n_expert}")
+        out[n] = ("expert", e // (n_e // n_expert))
+    return out
+
+
+def holds(owner: Optional[Owner], mesh: "Mesh") -> bool:
+    """Whether this rank stores a tensor of that owner (None: every rank)."""
+    return owner is None or mesh.coord(owner[0]) == owner[1]
+
+
+@torch.no_grad()
+def free_unowned_(module: torch.nn.Module, owners: Dict[str, Owner], mesh: "Mesh") -> None:
+    """Drop the storage of every parameter another coordinate owns: it
+    becomes an empty tensor (0 elements), never read by this rank's
+    forward, with an empty gradient and optimizer state."""
+    for name, p in module.named_parameters():
+        if not holds(owners.get(name), mesh):
+            p.data = p.data.new_empty((0,))
 
 
 def spec_dim(spec: Spec, axis: str) -> Optional[int]:
@@ -291,9 +409,12 @@ def all_gather_dim(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
 
 
 def shard_tensor(t: torch.Tensor, spec: Spec, mesh: Mesh,
-                 axes: Iterable[str] = ("model", "data")) -> torch.Tensor:
+                 axes: Iterable[str] = ("model", "data"),
+                 owner: Optional[Owner] = None) -> torch.Tensor:
     """This rank's shard of the full tensor t under spec (over `axes`), a
-    contiguous copy."""
+    contiguous copy; an empty tensor when another coordinate owns t."""
+    if not holds(owner, mesh):
+        return t.new_empty((0,))
     for axis in axes:
         d = spec_dim(spec, axis)
         if d is not None and mesh.size(axis) > 1:
@@ -302,13 +423,23 @@ def shard_tensor(t: torch.Tensor, spec: Spec, mesh: Mesh,
 
 
 def gather_tensor(t: torch.Tensor, spec: Spec, mesh: Mesh,
-                  axes: Iterable[str] = ("data", "model")) -> torch.Tensor:
+                  axes: Iterable[str] = ("data", "model"),
+                  owner: Optional[Owner] = None, full_shape=None) -> torch.Tensor:
     """The full tensor from every rank's shard t under spec (a collective:
-    every rank of the groups calls it)."""
-    for axis in axes:
-        d = spec_dim(spec, axis)
-        if d is not None and mesh.size(axis) > 1:
-            t = all_gather_dim(t, d, mesh.group(axis), mesh.size(axis))
+    every rank of the groups calls it). An owned tensor is gathered by its
+    owner's ranks, then broadcast over the owner's dim; the others pass
+    their empty tensor and its full_shape."""
+    if holds(owner, mesh):
+        for axis in axes:
+            d = spec_dim(spec, axis)
+            if d is not None and mesh.size(axis) > 1:
+                t = all_gather_dim(t, d, mesh.group(axis), mesh.size(axis))
+    else:
+        t = t.new_empty(tuple(full_shape))
+    if owner is not None and mesh.size(owner[0]) > 1:
+        group = mesh.group(owner[0])
+        t = t.contiguous()
+        dist.broadcast(t, src=dist.get_global_rank(group, owner[1]), group=group)
     return t
 
 
@@ -317,9 +448,11 @@ def shard_params_(module: torch.nn.Module, specs: Dict[str, Spec], mesh: Mesh,
                   axes: Iterable[str] = ("model",)) -> torch.nn.Module:
     """Turn module's parameters, in place, into this rank's shards under
     specs (keyed by parameter name) over `axes`; the Parameter objects stay
-    (maa3_tpu/parallel/mesh.py:126 shard_params)."""
+    (maa3_tpu/parallel/mesh.py:126 shard_params). Parameters another
+    coordinate owns (free_unowned_: empty) stay empty."""
     axes = tuple(axes)
     for name, p in module.named_parameters():
-        if any(spec_dim(specs[name], a) is not None and mesh.size(a) > 1 for a in axes):
+        if p.numel() and any(spec_dim(specs[name], a) is not None and mesh.size(a) > 1
+                             for a in axes):
             p.data = shard_tensor(p.data, specs[name], mesh, axes)
     return module

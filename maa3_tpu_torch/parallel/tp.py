@@ -20,7 +20,9 @@ the local heads. The collectives are autograd functions:
   sharded: their per-token sums are all-reduced (forward and backward).
 
 `shard_serving_dit_` turns a serving copy of the DiT (bf16, fused or not,
-or int8) into this rank's shards. The fused wqkv / w13 are sharded part by
+or int8) or of the video MoE DiT into this rank's shards, and `EP` is a
+rank's place in the MoE's "expert" group (its experts, and the same
+collectives on that group). The fused wqkv / w13 are sharded part by
 part: the rank's [q_r; k_r; v_r] and [w1_r; w3_r] rows, fused locally (the
 same math: JAX keeps the unfused layout under TP because GSPMD's concat axis
 would cross the shard boundaries, maa3_tpu/system.py:277-288). int8
@@ -138,18 +140,18 @@ class _SplitSeq(torch.autograd.Function):
         return _all_gather(g, 1, ctx.tp.group, ctx.tp.size), None
 
 
-class _JoinSeq(torch.autograd.Function):
-    """The sharded stream -> the full sequence a replicated layer reads
-    (backward: this rank's shard of the replicated gradient)."""
+class _GatherKeep(torch.autograd.Function):
+    """Every rank's shard along dim -> the whole, which every rank goes on to
+    use alike (backward: this rank's shard of the gradient)."""
 
     @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return _all_gather(x, 1, tp.group, tp.size)
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _all_gather(x, dim, tp.group, tp.size)
 
     @staticmethod
     def backward(ctx, g):
-        return local_slice(g, 1, ctx.tp.rank, ctx.tp.size).contiguous(), None
+        return local_slice(g, ctx.dim, ctx.tp.rank, ctx.tp.size).contiguous(), None, None
 
 
 class TP:
@@ -204,7 +206,11 @@ class TP:
         return _SplitSeq.apply(x, self) if self.seq_parallel else x
 
     def join_seq(self, x):
-        return _JoinSeq.apply(x, self) if self.seq_parallel else x
+        return _GatherKeep.apply(x, 1, self) if self.seq_parallel else x
+
+    def gather(self, x, dim: int):
+        """All-gather along dim; the backward keeps this rank's shard."""
+        return _GatherKeep.apply(x, dim, self)
 
     def feature_slice(self, w: torch.Tensor) -> torch.Tensor:
         """This rank's features of a replicated full-width vector (its
@@ -222,6 +228,28 @@ class TP:
         y = xc * torch.rsqrt(var + eps)
         y = y * self.feature_slice(weight).float() + self.feature_slice(bias).float()
         return y.to(x.dtype)
+
+
+class EP(TP):
+    """This rank's place in the "expert" group of the video MoE: it owns
+    experts lo .. lo + k - 1 of each stack (mesh.add_ep_specs), and the
+    group's copy / reduce / gather carry the expert-parallel MoE
+    (models/dit_moe.py)."""
+
+    def __init__(self, group, size: int, rank: int, num_experts: int):
+        super().__init__(group, size, rank)
+        self.k = self.local(num_experts)
+        self.lo = rank * self.k
+
+    @classmethod
+    def of(cls, mesh: Mesh, num_experts: int) -> Optional["EP"]:
+        """The mesh's expert group, or None at n_expert 1."""
+        if mesh is None or mesh.n_expert == 1:
+            return None
+        return cls(mesh.expert_group, mesh.n_expert, mesh.expert_rank, num_experts)
+
+    def owns(self, e: int) -> bool:
+        return self.lo <= e < self.lo + self.k
 
 
 # -- the serving copy's shards ----------------------------------------------------------
@@ -268,13 +296,26 @@ def _shard_weight(w, parts, row: bool, tp: TP):
 
 
 @torch.no_grad()
-def shard_serving_dit_(dit: nn.Module, tp: TP) -> nn.Module:
-    """This rank's shards of a serving DiT (in place): column weights, fused
-    or not, float or int8, row weights, gates; norms, adaLN and embedders
-    stay whole. Sets dit.tp."""
+def shard_serving_dit_(dit: nn.Module, tp: Optional[TP], ep: Optional[EP] = None) -> nn.Module:
+    """This rank's shards of a serving DiT or video MoE DiT (in place):
+    column weights, fused or not, float or int8, row weights, gates, and
+    each expert's w1 / w3 (column) and w2 (row); norms, adaLN and embedders
+    stay whole. With ep the experts another expert coordinate owns are
+    dropped (empty). Sets dit.tp and dit.ep."""
     from maa3_tpu_torch.ops.ffn import FeedForward
     from maa3_tpu_torch.ops.quant import QuantLinear
     cfg = dit.cfg
+    if ep is not None:
+        for blk in dit.blocks:
+            ff = blk.feed_forward
+            for stack in (ff.time_experts, ff.freq_experts):
+                for e, ex in enumerate(stack):
+                    if not ep.owns(e):
+                        for lin_ in (ex.w1, ex.w2, ex.w3):
+                            lin_.weight.data = lin_.weight.data.new_empty((0,))
+        dit.ep = ep
+    if tp is None:
+        return dit
     n_kv = cfg.num_heads if cfg.n_kv_heads is None else cfg.n_kv_heads
     for n in (cfg.num_heads, n_kv):
         tp.local(n)  # raises when the heads do not divide over the group
@@ -284,7 +325,7 @@ def shard_serving_dit_(dit: nn.Module, tp: TP) -> nn.Module:
     def lin(m, row):
         if isinstance(m, QuantLinear):
             m.weight = _shard_weight(m.weight, 1, row, tp)
-        else:
+        elif m.weight.numel():
             m.weight.data = _shard_weight(m.weight.data, 1, row, tp)
 
     for blk in dit.blocks:
@@ -299,14 +340,14 @@ def shard_serving_dit_(dit: nn.Module, tp: TP) -> nn.Module:
             lin(att.wk_y, False)
             lin(att.wv_y, False)
             att.gate.data = local_slice(att.gate.data, 0, tp.rank, tp.size).contiguous()
-        if not isinstance(ff, FeedForward):
-            raise NotImplementedError("tensor-parallel serving of the video MoE is "
-                                      "ROADMAP item 9b")
-        if ff.w13 is not None:
-            ff.w13 = _shard_weight(ff.w13, 2, False, tp)
-        else:
-            lin(ff.w1, False)
-            lin(ff.w3, False)
-        lin(ff.w2, True)
+        experts = ([ff] if isinstance(ff, FeedForward)
+                   else list(ff.time_experts) + list(ff.freq_experts))
+        for ex in experts:
+            if ex.w13 is not None:
+                ex.w13 = _shard_weight(ex.w13, 2, False, tp)
+            else:
+                lin(ex.w1, False)
+                lin(ex.w3, False)
+            lin(ex.w2, True)
     dit.tp = tp
     return dit

@@ -348,20 +348,17 @@ class MAA3System:
         self._serving_dit = self._serving_voc = None
 
     def shard_serving(self, mesh) -> None:
-        """Tensor-parallel serving over a ("data", "model") mesh
-        (parallel/mesh.py make_mesh; maa3_tpu/system.py:319): the serving
-        DiT becomes this rank's Megatron shards over "model"
-        (parallel/tp.py shard_serving_dit_; bf16 and every int8 mode, the
-        int8 copy quantized before it is sharded), and sample_cfg splits
-        its batch rows over "data", gathering the latents, so it returns
-        what one device returns. None: back to one device. A mesh with an
-        "expert" dim raises (expert-parallel serving, ROADMAP item 9b)."""
-        if mesh is not None and "expert" in getattr(mesh, "dim_names", ()):
-            raise NotImplementedError("expert-parallel serving (an 'expert' mesh dim) "
-                                      "is not in the port yet (ROADMAP item 9b)")
-        if mesh is not None and mesh.n_model > 1 and self.moe:
-            raise NotImplementedError("tensor-parallel serving of the video MoE is "
-                                      "not in the port yet (ROADMAP item 9b)")
+        """Tensor- and expert-parallel serving (maa3_tpu/system.py:319): over a
+        ("data", "model") mesh (parallel/mesh.py make_mesh) the serving DiT
+        becomes this rank's Megatron shards over "model" (parallel/tp.py
+        shard_serving_dit_; bf16 and every int8 mode, the int8 copy quantized
+        before it is sharded; the video MoE's experts by the same column /
+        row rules); over a ("data", "model", "expert") mesh (make_moe_mesh)
+        the video MoE also keeps only this rank's experts (add_ep_specs,
+        maa3_tpu/system.py:307-315; a text DiT's expert coordinates are
+        replicas, as in JAX). sample_cfg splits its batch rows over
+        "data", gathering the latents, so it returns what one device
+        returns. None: back to one device."""
         self._serving_mesh = mesh
         self._serving_dit = None
 
@@ -393,7 +390,9 @@ class MAA3System:
         or a canonical parameter changed."""
         mesh = self._serving_mesh
         tp = mesh is not None and mesh.n_model > 1
-        if self.serve_quant is None and self.compute_dtype == torch.float32 and not tp:
+        ep = mesh is not None and mesh.n_expert > 1 and self.moe  # the text DiT has no experts
+        if (self.serve_quant is None and self.compute_dtype == torch.float32
+                and not tp and not ep):
             return self.dit
         key = (_versions(self.dit), self.serve_quant, id(self._smooth_stats), id(mesh))
         if self._serving_dit is None or self._serving_key != key:
@@ -405,12 +404,13 @@ class MAA3System:
                         "system.calibrate_smooth(cond, uncond) once before sampling")
                 s = quant_serving_copy(self.dit, group, skip_w2,
                                        self._smooth_stats if smooth else None)
-            else:  # bf16; or fp32 under TP: the fused layout, fp32 weights
+            else:  # bf16; or fp32 under TP / EP: the fused layout, fp32 weights
                 s = serving_copy(self.dit, self.compute_dtype)
             s.cfg = self._serving_cfg()
-            if tp:
-                from maa3_tpu_torch.parallel.tp import TP, shard_serving_dit_
-                shard_serving_dit_(s, TP.of(mesh))
+            if tp or ep:
+                from maa3_tpu_torch.parallel.tp import EP, TP, shard_serving_dit_
+                shard_serving_dit_(s, TP.of(mesh),
+                                   EP.of(mesh, s.cfg.num_experts) if ep else None)
             self._serving_dit, self._serving_key = s, key
         return self._serving_dit
 

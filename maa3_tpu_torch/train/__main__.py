@@ -32,7 +32,8 @@ Parallelism, one process per GPU under torchrun (NCCL; gloo with --device
 cpu):
 
     torchrun --nproc_per_node 8 -m maa3_tpu_torch.train -b CONFIG \\
-        [--n_model 2] [--fsdp] [--seq_parallel] [--batch_size 16] ...
+        [--n_model 2] [--fsdp] [--seq_parallel] [--n_pipe 2 --n_micro 4]
+        [--n_expert 2] [--batch_size 16] ...
 
 --batch_size is the batch of a node (JAX's per-host batch): the node's
 data ranks (nproc_per_node / n_model) split its rows, each node's sampler
@@ -42,8 +43,10 @@ batch at the same lr. --n_model is the tensor-parallel width (it must
 divide the world; without torchrun only 1), --fsdp shards the DiT's
 parameters, moments and EMA over the data ranks (a no-op on one),
 --seq_parallel adds sequence parallelism to n_model > 1, --multihost lets
-the world span nodes (torchrun --nnodes). --n_pipe, --n_micro and
---n_expert raise above 1 (ROADMAP item 9b).
+the world span nodes (torchrun --nnodes). --n_pipe S --n_micro M runs
+GPipe (each stage holds depth / S blocks; the world reshapes to (data, S,
+n_model)), --n_expert E expert parallelism of the video MoE (the world
+reshapes to (data, n_model, E)).
 
 Not in the port: Orbax checkpoints (--vae_ckpt reads the port's own
 files); see ROADMAP.md.
@@ -101,11 +104,17 @@ def parse_args(argv=None):
     p.add_argument("--seq_parallel", action="store_true",
                    help="Megatron sequence parallelism (with --n_model > 1)")
     p.add_argument("--n_pipe", type=int, default=1,
-                   help="pipeline stages (above 1: ROADMAP item 9b)")
+                   help="GPipe pipeline-parallel stages: shard the DiT block stack "
+                        "depth-wise over a 'pipe' mesh dim (parallel/pipeline.py); "
+                        "composes with --n_model")
     p.add_argument("--n_micro", type=int, default=1,
-                   help="pipeline microbatches (above 1: ROADMAP item 9b)")
+                   help="microbatches per pipeline step (fill/drain bubble fraction = "
+                        "(n_pipe-1)/(n_micro+n_pipe-1))")
     p.add_argument("--n_expert", type=int, default=1,
-                   help="expert-parallel width (above 1: ROADMAP item 9b)")
+                   help="expert-parallel width for the video MoE: each rank of an "
+                        "'expert' mesh dim holds E/n_expert experts of each stack "
+                        "(mesh.py add_ep_specs; dense MoE, no all-to-all); composes "
+                        "with --n_model")
     p.add_argument("--multihost", action="store_true",
                    help="initialise from the launcher's environment across nodes")
     p.add_argument("--device", type=str, default="cuda")
@@ -161,7 +170,12 @@ def _train(opt, device):
     from maa3_tpu_torch.train.audio_logger import AudioLogger
     from maa3_tpu_torch.train.loop import Trainer
 
-    mesh = pmesh.make_mesh(n_model=opt.n_model)
+    if opt.n_pipe > 1:
+        mesh = pmesh.make_pipe_mesh(n_pipe=opt.n_pipe, n_model=opt.n_model)
+    elif opt.n_expert > 1:
+        mesh = pmesh.make_moe_mesh(n_model=opt.n_model, n_expert=opt.n_expert)
+    else:
+        mesh = pmesh.make_mesh(n_model=opt.n_model)
     cfg = config_mod.load_config(opt.base, opt.overrides)
     data = config_mod.parse_data_config(cfg)
     system = MAA3System.from_config(

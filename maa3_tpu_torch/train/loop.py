@@ -2,8 +2,7 @@
 with its text conditioner, and the video MoE DiT with its video feature
 encoder, trained through moe_dit_apply(training=True) on batches with
 `video_feat`, as maa3_tpu/train/loop.py:217-222 and :290-291), on one
-device or over a ("data", "model") mesh of torch.distributed ranks
-(parallel/mesh.py):
+device or over a mesh of torch.distributed ranks (parallel/mesh.py):
 
 - data parallelism: `batch_size` is the batch of a node (JAX's per-host
   batch); each data rank of the node takes its rows of it, and draws the
@@ -13,13 +12,22 @@ device or over a ("data", "model") mesh of torch.distributed ranks
   gradients are averaged over the data ranks;
 - fsdp: ZeRO-3 over the data ranks (parallel/fsdp.py, add_fsdp_specs'
   placements); a no-op on a data dim of width 1, as in JAX;
-- n_model: Megatron tensor parallelism of the text DiT (parallel/tp.py),
-  with seq_parallel its sequence parallelism; fuse_gemms raises with it, as
-  in JAX; pipeline (n_pipe, n_micro) and expert (n_expert) parallelism
-  raise above 1 (ROADMAP item 9b). JAX falls back to n_model = 1 when the
-  device count does not divide; the port raises;
+- n_model: Megatron tensor parallelism (parallel/tp.py) of the text DiT,
+  with seq_parallel its sequence parallelism, and of the video MoE;
+  fuse_gemms raises with it, as in JAX. JAX falls back to n_model = 1 when
+  the device count does not divide; the port raises;
+- n_pipe, n_micro: GPipe over a ("data", "pipe", "model") mesh
+  (parallel/pipeline.py): each stage holds depth / n_pipe blocks, and the
+  train and eval steps run n_micro microbatches through the pipelined
+  apply; n_micro without n_pipe > 1 is a no-op, as in JAX. It refuses fsdp,
+  fuse_gemms, seq_parallel and the video MoE with JAX's messages;
+- n_expert: expert parallelism of the video MoE over a ("data", "model",
+  "expert") mesh (each rank holds E / n_expert experts of each stack,
+  models/dit_moe.py); it composes with n_model and fsdp and refuses the
+  text DiT, n_pipe > 1 and fuse_gemms, as JAX does;
 - the global-norm clip is taken over the whole model: every rank's squared
-  norms, each replicated tensor counted once, summed over the world;
+  norms, each replicated tensor counted once (a block's or an expert's by
+  the coordinate owning it), summed over the world;
 - lr = base_learning_rate * accum_steps * nodes * batch_size
   (main.py:786-790: base_lr * accum * global batch);
 - the latent std rescale on the first batch when the config asks for it
@@ -51,7 +59,8 @@ run resumed from a checkpoint draws what the uninterrupted run would have.
 Checkpoints are `torch.save` files of the port's own layout: the JAX
 package's Orbax checkpoints cannot be read here, nor these there. The file
 is the same at every world size: every rank gathers the whole state (the
-shards over the data and the model groups) and rank 0 writes it;
+shards over the data and the model groups, every stage's blocks and every
+coordinate's experts) and rank 0 writes it;
 `restore_checkpoint` loads any such file and takes this rank's shards.
 Only rank 0 logs. A `crash` checkpoint is written at world size 1 only: the
 other ranks may wait in a collective.
@@ -75,10 +84,15 @@ from maa3_tpu_torch.models.dit import fuse_dit_gemms, fuse_dit_state, unfuse_dit
 from maa3_tpu_torch.models.dit_moe import moe_dit_apply
 from maa3_tpu_torch.parallel import mesh as pmesh
 from maa3_tpu_torch.parallel.fsdp import FSDP, average_grads
-from maa3_tpu_torch.parallel.tp import TP
+from maa3_tpu_torch.parallel.pipeline import dit_apply_pipelined
+from maa3_tpu_torch.parallel.tp import EP, TP
 from maa3_tpu_torch.train.optim import make_optimizer
 from maa3_tpu_torch.train.step import (create_train_state, make_eval_step,
                                        make_train_step, sample_latent)
+
+
+# the optimizer's per-parameter state a checkpoint holds whole
+OPT_STATE = ("mu", "nu", "acc", "v_row", "v_col", "v")
 
 
 def _encode_video(cond, batch: dict) -> torch.Tensor:
@@ -137,21 +151,41 @@ class Trainer:
         in place, in system.compute_dtype. accum_steps: optimizer updates every
         accum_steps micro-batches (accumulate_grad_batches); mu_dtype: the
         storage dtype of the first moment; factored: adafactor instead of
-        AdamW. ckpt_every=0 writes no periodic checkpoint. batch_size: the
-        batch of a node. n_model, fsdp (fsdp_min_size), seq_parallel: see
-        the module's docstring; mesh: the ("data", "model") mesh (default:
-        make_mesh(n_model=n_model) over the process group, which raises when
-        the world cannot hold n_model). n_pipe, n_micro and n_expert above 1
-        raise (ROADMAP item 9b). With sharded parameters (n_model > 1 or
-        fsdp) system.dit holds this rank's shards until sync_system_params."""
-        if n_expert > 1:
-            raise NotImplementedError(
-                f"n_expert={n_expert}: expert parallelism of the video MoE across "
-                "devices is not in the port yet (ROADMAP item 9b); use n_expert=1")
-        if n_pipe > 1 or n_micro > 1:
-            raise NotImplementedError(
-                f"n_pipe={n_pipe}, n_micro={n_micro}: GPipe pipeline parallelism is "
-                "not in the port yet (ROADMAP item 9b); use 1")
+        AdamW (the port's entry to JAX's make_optimizer(factored=True)).
+        ckpt_every=0 writes no periodic checkpoint. batch_size: the batch of
+        a node. n_model, fsdp (fsdp_min_size), seq_parallel, n_pipe,
+        n_micro, n_expert: see the module's docstring; mesh: the mesh
+        (default: make_pipe_mesh with n_pipe > 1, make_moe_mesh with
+        n_expert > 1, else make_mesh, over the process group, which raise
+        when the world cannot hold the shape). With sharded parameters
+        system.dit holds this rank's shards until sync_system_params."""
+        moe = system.spec.backbone_kind == "video_moe_dit"
+        self.n_pipe, self.n_micro = max(1, n_pipe), max(1, n_micro)
+        self.n_expert = max(1, n_expert)
+        if self.n_expert > 1:
+            if not moe:
+                raise ValueError("n_expert>1 needs the video MoE backbone "
+                                 "(the text DiT has no expert axis)")
+            if self.n_pipe > 1 or fuse_gemms:
+                raise ValueError("n_expert>1 is incompatible with n_pipe>1 and fuse_gemms")
+        if self.n_pipe > 1:
+            if fsdp:
+                raise ValueError("n_pipe>1 + fsdp unsupported: FSDP's 'data' param shards "
+                                 "conflict with the manual 'data' axis of the pipeline "
+                                 "shard_map")
+            if fuse_gemms:
+                raise ValueError("n_pipe>1 requires the unfused GEMM layout")
+            if seq_parallel:
+                raise ValueError("n_pipe>1 + seq_parallel unsupported: the pipelined "
+                                 "apply (parallel/pipeline.py) runs inside its own "
+                                 "shard_map and does not place the Megatron SP sharding "
+                                 "constraints — SP would be silently inert")
+            if moe:
+                raise ValueError("pipeline parallelism covers the text DiT backbone "
+                                 "(the video MoE uses TP+DP)")
+        elif self.n_micro > 1:
+            print(f"n_micro={self.n_micro}: a no-op without n_pipe > 1 (as in JAX)",
+                  flush=True)
         self.system = system
         self.spec = system.spec
         self.log_every = log_every
@@ -162,56 +196,65 @@ class Trainer:
         self.accum_steps = max(1, accum_steps)
         self.fuse_gemms = fuse_gemms
         self.device = system.device
-        self.mesh = mesh if mesh is not None else pmesh.make_mesh(n_model=n_model)
-        if self.mesh.n_model != n_model:
-            raise ValueError(f"n_model={n_model} on a mesh of {self.mesh.shape}")
+        if mesh is None:
+            if self.n_pipe > 1:
+                mesh = pmesh.make_pipe_mesh(n_pipe=self.n_pipe, n_model=n_model)
+            elif self.n_expert > 1:
+                mesh = pmesh.make_moe_mesh(n_model=n_model, n_expert=self.n_expert)
+            else:
+                mesh = pmesh.make_mesh(n_model=n_model)
+        self.mesh = mesh
+        for axis, n in (("model", n_model), ("pipe", self.n_pipe), ("expert", self.n_expert)):
+            if mesh.size(axis) != n:
+                raise ValueError(f"n_{axis}={n} on a mesh of {mesh.shape}")
         self.is_main = pmesh.rank() == 0
-        n_data = self.mesh.n_data
-        moe = self.spec.backbone_kind == "video_moe_dit"
+        n_data = mesh.n_data
         self.fsdp = fsdp and n_data > 1
         if fsdp and not self.fsdp:
             print("fsdp: a no-op on a data dim of width 1 (as in JAX)", flush=True)
-        self.sharded = n_model > 1 or self.fsdp
-        if self.sharded and moe:
-            raise NotImplementedError("tensor parallelism and FSDP of the video MoE "
-                                      "are not in the port yet (ROADMAP item 9b)")
+        self.sharded = n_model > 1 or self.fsdp or self.n_pipe > 1 or self.n_expert > 1
         if fuse_gemms and n_model > 1:
             raise ValueError("fuse_gemms training requires model-parallel size 1 "
                              "(the qkv concat axis does not align with TP shard "
                              "boundaries)")
-        if factored and self.sharded:
-            raise NotImplementedError("adafactor's factored statistics over a sharded "
-                                      "dim are not in the port yet (ROADMAP); use "
-                                      "AdamW with n_model > 1 or fsdp")
-        if batch_size % self.mesh.data_per_node:
+        if batch_size % mesh.data_per_node:
             raise ValueError(f"batch_size {batch_size} (per node) does not divide over "
-                             f"the node's {self.mesh.data_per_node} data ranks")
+                             f"the node's {mesh.data_per_node} data ranks")
         cond = system.cond if self.train_cond else None
         dit = fuse_dit_gemms(system.dit) if fuse_gemms else system.dit
         if seq_parallel and n_model > 1 and not moe:
             dit.cfg = dataclasses.replace(dit.cfg, seq_parallel=True)
-        self.specs = self._shard(dit, fsdp_min_size) if self.sharded else {}
-        trainable = [dit] + ([cond] if cond is not None else [])
-        for m in trainable:
+        mods = {"dit": dit} | ({"cond": cond} if cond is not None else {})
+        names = [f"{k}.{n}" for k, m in mods.items() for n, _ in m.named_parameters()]
+        # each trainable parameter's whole shape, placement and owner, in
+        # trainable_parameters() order
+        self._param_shapes = [tuple(p.shape) for m in mods.values() for p in m.parameters()]
+        self.specs, self.owners = (self._shard(dit, fsdp_min_size) if self.sharded
+                                   else ({}, {}))
+        self._param_specs = [self.specs.get(n) for n in names]
+        self._param_owners = [self.owners.get(n) for n in names]
+        self._shapes = dict(zip(names, self._param_shapes))
+        for m in mods.values():
             m.requires_grad_(True)
         lr_mult = (lr_multiplier if lr_multiplier is not None
-                   else self.accum_steps * self.mesh.n_nodes * batch_size)
+                   else self.accum_steps * mesh.n_nodes * batch_size)
         # one optimizer and one global-norm clip over the DiT and the conditioner
-        optimizer = make_optimizer([p for m in trainable for p in m.parameters()],
+        optimizer = make_optimizer([p for m in mods.values() for p in m.parameters()],
                                    self.spec.base_learning_rate, lr_mult,
                                    warm_up_steps, grad_clip, mu_dtype=mu_dtype,
-                                   factored=factored, accum_steps=self.accum_steps)
+                                   factored=factored, accum_steps=self.accum_steps,
+                                   full_shapes=self._param_shapes,
+                                   dim_groups=[self._dim_groups(sp) for sp in self._param_specs])
         self.state = create_train_state(dit, system.vae, optimizer, use_ema,
                                         self.spec.scale_factor, cond=cond)
-        # each trainable parameter's placement, in trainable_parameters() order
-        self._param_specs = [self.specs.get(n) for n, _ in self._named_trainable()]
         if pmesh.world_size() > 1:
             weights = []
-            for p, spec in zip(self.state.trainable_parameters(), self._param_specs):
-                held = 1
-                for axis in ("model", "data"):
-                    if spec is None or axis not in spec:
-                        held *= self.mesh.size(axis)
+            for spec, owner in zip(self._param_specs, self._param_owners):
+                held = 1  # the ranks holding the same elements
+                for axis in mesh.dim_names:
+                    if (spec is None or axis not in spec) and (owner is None
+                                                               or owner[0] != axis):
+                        held *= mesh.size(axis)
                 weights.append(1.0 / held)
             optimizer.norm_fn = functools.partial(sharded_norm, weights=weights)
         self.video = self.spec.cond_kind.startswith("video_feat")
@@ -220,9 +263,13 @@ class Trainer:
             conditioner = (_encode_video if self.video else clap_flan_encode_batch)
         cdt = system.compute_dtype
         apply_fn = None
-        if self.spec.backbone_kind == "video_moe_dit":
+        if moe:
             def apply_fn(dit, x, t, c):
                 return moe_dit_apply(dit, x, t, c, compute_dtype=cdt, training=True)
+        elif self.n_pipe > 1:  # the train and the eval step (maa3_tpu/train/loop.py:453)
+            def apply_fn(dit, x, t, c):
+                return dit_apply_pipelined(dit, x, t, c, self.mesh, self.n_micro,
+                                           compute_dtype=cdt, training=True)
         self._train_step = make_train_step(
             self.spec.timesteps, ema_decay, cdt, conditioner, apply_fn,
             grad_sync=self._average_grads if n_data > 1 else None)
@@ -235,26 +282,42 @@ class Trainer:
 
     # -- parallelism -----------------------------------------------------------
 
-    def _shard(self, dit, fsdp_min_size: int) -> Dict[str, tuple]:
+    def _shard(self, dit, fsdp_min_size: int):
         """Shard the DiT in place: its model-parallel placements
-        (dit_param_specs), then ZeRO-3's data dim; returns the placements."""
+        (dit_param_specs), ZeRO-3's data dim, and the stage or expert
+        coordinate owning each block or expert tensor (the others drop
+        it); returns the placements and the owners, by trainable name."""
         mesh = self.mesh
         named = dict(dit.named_parameters())
         # the model dims are taken at n_model 1 too, as in JAX, so that
         # FSDP picks the dims JAX's specs pick
         specs = pmesh.dit_param_specs(named)
+        owners = {}
+        if self.n_pipe > 1:
+            owners = pmesh.add_pipe_specs(named, self.n_pipe)
+        if self.n_expert > 1:
+            owners = pmesh.add_ep_specs(named, self.n_expert)
         if self.fsdp:
             specs = pmesh.add_fsdp_specs(named, specs, mesh.n_data,
                                          min_size=fsdp_min_size)
+        pmesh.free_unowned_(dit, owners, mesh)
         pmesh.shard_params_(dit, specs, mesh, ("model",))
         dit.tp = TP.of(mesh)
+        if self.n_expert > 1:
+            dit.ep = EP.of(mesh, dit.cfg.num_experts)
         if self.fsdp:
             dit.fsdp = FSDP(dit, specs, mesh)
-        return {"dit." + n: s for n, s in specs.items()}
+        return ({"dit." + n: s for n, s in specs.items()},
+                {"dit." + n: o for n, o in owners.items()})
 
-    def _named_trainable(self):
-        return [(f"{k}.{n}", p) for k, m in self.state.trainable().items()
-                for n, p in m.named_parameters()]
+    def _dim_groups(self, spec) -> Dict[int, tuple]:
+        """The (process group, size) of each dim a placement shards."""
+        out = {}
+        for axis in ("model", "data"):
+            d = None if spec is None else pmesh.spec_dim(spec, axis)
+            if d is not None and self.mesh.size(axis) > 1:
+                out[d] = (self.mesh.group(axis), self.mesh.size(axis))
+        return out
 
     def _average_grads(self) -> None:
         """The data-parallel mean of the replicated gradients (FSDP shards
@@ -498,9 +561,9 @@ class Trainer:
         params = self._full_params()
         params["dit"] = self._canonical_dit(params["dit"])
         opt = st.optimizer.state_dict()
-        for key in ("mu", "nu", "acc"):
+        for key in OPT_STATE:
             if key in opt:
-                opt[key] = self._gather_list(opt[key])
+                opt[key] = self._gather_list(opt[key], key)
         payload = {"params": params,
                    "opt_state": opt,
                    "fuse_gemms": self.fuse_gemms,
@@ -524,23 +587,48 @@ class Trainer:
             dist.barrier()
         return path
 
-    def _gather_list(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Whole tensors of per-parameter state (trainable_parameters()
-        order) from every rank's shards."""
-        return [t if spec is None else pmesh.gather_tensor(t, spec, self.mesh)
-                for t, spec in zip(tensors, self._param_specs)]
+    def _state_layout(self, key: str):
+        """(placement, owner, whole shape) of each parameter's optimizer
+        state `key` ("mu", "nu", "acc": the parameter's; adafactor's "v_row"
+        / "v_col": the parameter's without its reduced dim, "v" where not
+        factored; the (1,) placeholders replicated)."""
+        opt = self.state.optimizer
+        out = []
+        for i, (spec, owner, shape) in enumerate(zip(
+                self._param_specs, self._param_owners, self._param_shapes)):
+            if key in ("v_row", "v_col", "v") and opt.factored:
+                d = opt.dims[i]
+                if (d is None) != (key == "v"):
+                    out.append((None, owner, (1,)))
+                    continue
+                if key != "v":
+                    cut = d[1] if key == "v_row" else d[0]
+                    spec = None if spec is None else spec[:cut] + spec[cut + 1:]
+                    shape = shape[:cut] + shape[cut + 1:]
+            out.append((spec, owner, shape))
+        return out
 
-    def _shard_list(self, tensors) -> List[torch.Tensor]:
-        return [t if spec is None else pmesh.shard_tensor(t, spec, self.mesh)
-                for t, spec in zip(tensors, self._param_specs)]
+    def _gather_list(self, tensors: List[torch.Tensor], key: str = "mu") -> List[torch.Tensor]:
+        """Whole tensors of per-parameter state (trainable_parameters()
+        order) from every rank's shards and owners (a collective)."""
+        return [t if spec is None and owner is None else
+                pmesh.gather_tensor(t, spec or (), self.mesh, owner=owner, full_shape=shape)
+                for t, (spec, owner, shape) in zip(tensors, self._state_layout(key))]
+
+    def _shard_list(self, tensors, key: str = "mu") -> List[torch.Tensor]:
+        return [pmesh.shard_tensor(t, spec or (), self.mesh, owner=owner)
+                for t, (spec, owner, _) in zip(tensors, self._state_layout(key))]
 
     def _full_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The trainable modules' state dicts with whole tensors."""
         out = {}
         for k, m in self.state.trainable().items():
-            out[k] = {n: (t if self.specs.get(f"{k}.{n}") is None
-                          else pmesh.gather_tensor(t, self.specs[f"{k}.{n}"], self.mesh))
-                      for n, t in m.state_dict().items()}
+            out[k] = {}
+            for n, t in m.state_dict().items():
+                name = f"{k}.{n}"
+                spec, owner = self.specs.get(name), self.owners.get(name)
+                out[k][n] = (t if spec is None and owner is None else pmesh.gather_tensor(
+                    t, spec or (), self.mesh, owner=owner, full_shape=self._shapes.get(name)))
         return out
 
     def restore_checkpoint(self, path: str) -> None:
@@ -562,16 +650,16 @@ class Trainer:
                              f"{payload.get('fuse_gemms', False)}, this trainer has "
                              f"fuse_gemms={self.fuse_gemms}")
         opt = dict(payload["opt_state"])
-        for key in ("mu", "nu", "acc"):
+        for key in OPT_STATE:
             if key in opt:
-                opt[key] = self._shard_list(opt[key])
+                opt[key] = self._shard_list(opt[key], key)
         st.optimizer.load_state_dict(opt)
         for k, m in mods.items():
             sd = payload["params"][k]
             if k == "dit" and self.fuse_gemms:
                 sd = fuse_dit_state(sd, self.spec.dit.depth)
-            sd = {n: (t if self.specs.get(f"{k}.{n}") is None
-                      else pmesh.shard_tensor(t, self.specs[f"{k}.{n}"], self.mesh))
+            sd = {n: pmesh.shard_tensor(t, self.specs.get(f"{k}.{n}") or (), self.mesh,
+                                        owner=self.owners.get(f"{k}.{n}"))
                   for n, t in sd.items()}
             m.load_state_dict(sd)
         st.step = int(payload["step"])

@@ -12,7 +12,9 @@ of maa3_tpu/train/optim.py).
   first moment in that dtype: the new moment is computed in fp32 from the
   stored one and the update uses it before it is rounded for storage
   (optax's scale_by_adam). `factored` swaps AdamW for optax's adafactor
-  chain as maa3_tpu/train/optim.py:63-71 configures it. `accum_steps` > 1
+  chain as maa3_tpu/train/optim.py:63-71 configures it, over sharded
+  parameters too: factored by the whole shape, with the row and column
+  statistics of a sharded dim summed over the group holding its shards. `accum_steps` > 1
   wraps either in optax.MultiSteps: gradients averaged over k micro-steps,
   the clip applied to the average, parameters unchanged by the other
   micro-steps, and the schedule counting updates;
@@ -22,7 +24,7 @@ of maa3_tpu/train/optim.py).
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,8 +78,14 @@ class Optimizer:
     def __init__(self, params: Iterable[torch.nn.Parameter], schedule: Schedule,
                  grad_clip: float = 1.0, weight_decay: float = 1e-2,
                  mu_dtype: torch.dtype = torch.float32, factored: bool = False,
-                 accum_steps: int = 1, min_dim_size_to_factor: int = 128):
+                 accum_steps: int = 1, min_dim_size_to_factor: int = 128,
+                 full_shapes: Optional[List[Tuple[int, ...]]] = None,
+                 dim_groups: Optional[List[Dict[int, tuple]]] = None):
         self.params: List[torch.nn.Parameter] = list(params)
+        # sharded parameters (train/loop.py): each one's whole shape, and the
+        # (process group, size) of each of its sharded dims
+        self.full_shapes = full_shapes or [tuple(p.shape) for p in self.params]
+        self.dim_groups = dim_groups or [{} for _ in self.params]
         self.schedule = schedule
         self.grad_clip = grad_clip
         self.weight_decay = weight_decay
@@ -94,12 +102,17 @@ class Optimizer:
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in ps]
         self.acc = ([torch.zeros_like(p) for p in ps] if self.accum_steps > 1 else None)
         if factored:
-            self.dims = [factored_dims(p.shape, min_dim_size_to_factor) for p in ps]
+            # factored or not by the whole shape, never a shard's
+            self.dims = [factored_dims(s, min_dim_size_to_factor) for s in self.full_shapes]
             self.v_row, self.v_col, self.v = [], [], []
             for p, d in zip(ps, self.dims):
                 shape = list(p.shape)
                 z = torch.zeros((1,), dtype=p.dtype, device=p.device)
-                if d is None:  # optax keeps (1,) placeholders for the unused ones
+                if not p.numel():  # owned by another stage or expert coordinate
+                    self.v_row.append(p.new_empty((0,)))
+                    self.v_col.append(p.new_empty((0,)))
+                    self.v.append(p.new_empty((0,)))
+                elif d is None:  # optax keeps (1,) placeholders for the unused ones
                     self.v_row.append(z)
                     self.v_col.append(z.clone())
                     self.v.append(torch.zeros_like(p))
@@ -127,7 +140,9 @@ class Optimizer:
         applies update number `count` from the mean of the micro-steps'
         gradients, clipped. Returns the norm of this micro-step's gradients
         (before any clip)."""
-        grads = [p.grad for p in self.params]
+        # a parameter this rank does not use (another stage's block, another
+        # coordinate's expert: empty) has no gradient
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         norm = self.norm_fn(grads)
         if self.acc is not None:  # optax.MultiSteps: a running mean (Welford)
             n = self.mini_step
@@ -175,15 +190,31 @@ class Optimizer:
         torch._foreach_addcdiv_(self.params, mu, denom, value=-lr / (1.0 - b1 ** t))
         self._store_momentum(mu)
 
+    def _mean(self, x: torch.Tensor, dim: int, i: int, param_dim: int,
+              keepdim: bool = False) -> torch.Tensor:
+        """x's mean over dim, which is dim param_dim of parameter i: over the
+        whole dim when the parameter is sharded along it (the shards' sums
+        all-reduced over the group holding them, over the whole size)."""
+        sharded = self.dim_groups[i].get(param_dim)
+        if sharded is None:
+            return x.mean(dim=dim, keepdim=keepdim)
+        s = x.sum(dim=dim, keepdim=keepdim)
+        torch.distributed.all_reduce(s, group=sharded[0])
+        return s / self.full_shapes[i][param_dim]
+
     def _adafactor(self, grads: List[torch.Tensor], lr: float) -> None:
         """optax.adafactor(lr, decay_rate=0.999, momentum=0.9, eps=1e-30,
         weight_decay_rate=wd, no clipping or parameter scale): the factored
         rms scaling with decay 1 - (t+1)^-0.999, then the LR, then the
         non-debiased momentum, then + wd p (after the LR: each update shrinks
-        the parameters by wd whatever the LR)."""
+        the parameters by wd whatever the LR). A sharded parameter's row and
+        column statistics are means over its whole dims (_mean), so the
+        update is one device's."""
         decay = 1.0 - (self.count + 1.0) ** -FACTORED_DECAY
         mu = self._momentum()
         for i, (p, g, d) in enumerate(zip(self.params, grads, self.dims)):
+            if not p.numel():
+                continue
             gsq = g * g + FACTORED_EPS
             if d is None:
                 self.v[i].mul_(decay).add_(gsq, alpha=1.0 - decay)
@@ -191,10 +222,10 @@ class Optimizer:
             else:
                 d1, d0 = d
                 vr, vc = self.v_row[i], self.v_col[i]
-                vr.mul_(decay).add_(gsq.mean(dim=d0), alpha=1.0 - decay)
-                vc.mul_(decay).add_(gsq.mean(dim=d1), alpha=1.0 - decay)
+                vr.mul_(decay).add_(self._mean(gsq, d0, i, d0), alpha=1.0 - decay)
+                vc.mul_(decay).add_(self._mean(gsq, d1, i, d1), alpha=1.0 - decay)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (vr / vr.mean(dim=reduced_d1, keepdim=True)).pow(-0.5)
+                row_factor = (vr / self._mean(vr, reduced_d1, i, d1, keepdim=True)).pow(-0.5)
                 u = g * row_factor.unsqueeze(d0) * vc.pow(-0.5).unsqueeze(d1)
             mu[i].mul_(MOMENTUM).add_(u * lr, alpha=1.0 - MOMENTUM)
             p.sub_(mu[i] + self.weight_decay * p)
@@ -231,13 +262,15 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], base_lr: float = 3.0e-6
                    lr_multiplier: float = 16.0, warm_up_steps: int = 10000,
                    grad_clip: float = 1.0, weight_decay: float = 1e-2,
                    mu_dtype: torch.dtype = torch.float32, factored: bool = False,
-                   accum_steps: int = 1, min_dim_size_to_factor: int = 128) -> Optimizer:
+                   accum_steps: int = 1, min_dim_size_to_factor: int = 128,
+                   full_shapes=None, dim_groups=None) -> Optimizer:
     """lr_multiplier mirrors accumulate_grad_batches * ngpu * batch_size
-    (main.py:786-790)."""
+    (main.py:786-790). full_shapes / dim_groups: see Optimizer (sharded
+    parameters)."""
     return Optimizer(params, lambda_linear_schedule(base_lr * lr_multiplier,
                                                     warm_up_steps),
                      grad_clip, weight_decay, mu_dtype, factored, accum_steps,
-                     min_dim_size_to_factor)
+                     min_dim_size_to_factor, full_shapes, dim_groups)
 
 
 @torch.no_grad()

@@ -1053,3 +1053,161 @@ def test_xxl_width_forward_through_an_nccl_world_of_one(cuda_dev, tmp_path, monk
         dist.destroy_process_group()
     assert dit.tp is None and torch.equal(got, want)
     assert all(torch.equal(a, b) for a, b in zip(got_g, want_g))
+
+
+def _card_rank(rank: int, world: int, init: str, task: str, d: str) -> None:
+    """One of two spawned gloo ranks sharing the card (NCCL puts no two ranks
+    on one device): CARD_TASKS[task]'s result written to d."""
+    import os
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + init, rank=rank,
+                            world_size=world)
+    try:
+        torch.save(CARD_TASKS[task](), os.path.join(d, f"{task}_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _two_card_ranks(d, task: str) -> list:
+    """CARD_TASKS[task] on two spawned ranks; their results. A rank that
+    raises, or a run past 240 s, fails the test. (The card machine may have
+    another package named `tests`, so this file imports no other test
+    module.)"""
+    import os
+    import time
+    import torch.multiprocessing as mp
+    d = str(d)
+    ctx = mp.start_processes(_card_rank, args=(2, os.path.join(d, f"pg_{task}"), task, d),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + 240
+    try:
+        while not ctx.join(timeout=1.0):
+            assert time.monotonic() < deadline, f"{task}: ranks still running after 240 s"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    return [torch.load(os.path.join(d, f"{task}_{r}.pt"), weights_only=False)
+            for r in range(2)]
+
+
+def _pipe_case(mesh=None) -> dict:
+    """A DiT of XL head dim (4 heads of 72) at depth 2, fp32, its training
+    forward at 1248 tokens (K3a) and the gradients of sum(out^2): pipelined
+    over mesh's two stages (n_micro 2), or dit_apply (mesh None); whole
+    outputs and gradients and the K3a / K4b launches."""
+    from maa3_tpu_torch.models.dit import (DiT, DiTConfig, dit_apply, dit_init_,
+                                           unfreeze_zero_init)
+    from maa3_tpu_torch.parallel import mesh as pmesh
+    from maa3_tpu_torch.parallel.pipeline import dit_apply_pipelined
+    dev = torch.device("cuda")
+    with torch.device(dev):
+        dit = DiT(DiTConfig(in_channels=20, context_dim=64, hidden_size=288, depth=2,
+                            num_heads=4))
+    g = torch.Generator(device=dev).manual_seed(0)
+    unfreeze_zero_init(dit_init_(dit, g), g)
+    x = torch.randn(2, 20, 1248, generator=g, device=dev)
+    t = torch.tensor([100, 700], device=dev)
+    c = torch.randn(2, 16, 64, generator=g, device=dev)
+    named = dict(dit.named_parameters())
+    full = {n: tuple(p.shape) for n, p in named.items()}
+    owners = {}
+    if mesh is not None:
+        owners = pmesh.add_pipe_specs(named, 2)
+        pmesh.free_unowned_(dit, owners, mesh)
+    n3, n4 = fa.launches["K3a"], fa.launches["K4b"]
+    with full_fp32():
+        out = (dit_apply(dit, x, t, c, compute_dtype=torch.float32, training=True)
+               if mesh is None else
+               dit_apply_pipelined(dit, x, t, c, mesh, 2, compute_dtype=torch.float32,
+                                   training=True))
+        out.square().sum().backward()
+    torch.cuda.synchronize()
+    grads = {n: pmesh.gather_tensor(torch.zeros_like(p) if p.grad is None else p.grad,
+                                    (), mesh or pmesh.Mesh(), owner=owners.get(n),
+                                    full_shape=full[n]).cpu()
+             for n, p in dit.named_parameters()}
+    return {"out": out.detach().cpu(), "grads": grads,
+            "launches": (fa.launches["K3a"] - n3, fa.launches["K4b"] - n4)}
+
+
+def _pipe_task() -> dict:
+    from maa3_tpu_torch.parallel import mesh as pmesh
+    return _pipe_case(pmesh.make_pipe_mesh(n_pipe=2))
+
+
+def _moe_case(mesh=None) -> dict:
+    """A video MoE (256 wide, 4 experts) at depth 2, fp32, its forward and
+    the gradients of sum(out^2), expert-parallel over mesh (two experts a
+    rank) or on one device."""
+    from maa3_tpu_torch.models.dit import dit_init_, unfreeze_zero_init
+    from maa3_tpu_torch.models.dit_moe import MoEDiT, MoEDiTConfig, moe_dit_apply
+    from maa3_tpu_torch.parallel import mesh as pmesh
+    from maa3_tpu_torch.parallel.tp import EP
+    dev = torch.device("cuda")
+    with torch.device(dev):
+        dit = MoEDiT(MoEDiTConfig(in_channels=20, context_dim=64, hidden_size=256, depth=2,
+                                  num_heads=4, num_experts=4))
+    g = torch.Generator(device=dev).manual_seed(0)
+    unfreeze_zero_init(dit_init_(dit, g), g)
+    x = torch.randn(4, 20, 312, generator=g, device=dev)
+    t = torch.tensor([0, 260, 600, 999], device=dev)
+    c = torch.randn(4, 40, 64, generator=g, device=dev)
+    named = dict(dit.named_parameters())
+    full = {n: tuple(p.shape) for n, p in named.items()}
+    owners = {}
+    if mesh is not None:
+        owners = pmesh.add_ep_specs(named, 2)
+        pmesh.free_unowned_(dit, owners, mesh)
+        dit.ep = EP.of(mesh, 4)
+    with full_fp32():
+        out = moe_dit_apply(dit, x, t, c, compute_dtype=torch.float32, training=True)
+        out.square().sum().backward()
+    grads = {n: pmesh.gather_tensor(torch.zeros_like(p) if p.grad is None else p.grad,
+                                    (), mesh or pmesh.Mesh(), owner=owners.get(n),
+                                    full_shape=full[n]).cpu()
+             for n, p in dit.named_parameters()}
+    return {"out": out.detach().cpu(), "grads": grads}
+
+
+def _moe_task() -> dict:
+    from maa3_tpu_torch.parallel import mesh as pmesh
+    return _moe_case(pmesh.make_moe_mesh(n_expert=2))
+
+
+CARD_TASKS = {"pipe": _pipe_task, "moe": _moe_task}
+
+
+def _close(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-4 * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.cuda
+def test_pipelined_apply_on_two_gloo_ranks_on_the_card(cuda_dev, tmp_path, monkeypatch):
+    """GPipe over two stages (two gloo ranks on the card, n_micro 2) at 1248
+    tokens, fp32: one device's forward and every gradient; each stage runs
+    K3a and the split backward (K4b / K4c: K4a's dq atomics vary in their
+    last bits from run to run) on its block for each of the 3 ticks."""
+    monkeypatch.setenv("MAA3_FLASH_BWD", "split")   # the ranks inherit it
+    one = _pipe_case()
+    assert one["launches"] == (2, 2)
+    for r in _two_card_ranks(tmp_path, "pipe"):
+        assert r["launches"] == (3, 3)
+        _close(r["out"], one["out"])
+        for n, gr in r["grads"].items():
+            _close(gr, one["grads"][n])
+
+
+@pytest.mark.cuda
+def test_expert_parallel_moe_on_two_gloo_ranks_on_the_card(cuda_dev, tmp_path):
+    """The video MoE with two experts a rank (two gloo ranks on the card),
+    fp32: one device's forward and every gradient."""
+    one = _moe_case()
+    for r in _two_card_ranks(tmp_path, "moe"):
+        _close(r["out"], one["out"])
+        for n, gr in r["grads"].items():
+            _close(gr, one["grads"][n])

@@ -162,7 +162,9 @@ def _task_w2(rank: int, d: str) -> dict:
     for name, call in (
             ("mesh", lambda: pmesh.make_mesh(n_model=3)),
             ("fuse", lambda: _train(st, os.path.join(d, "x"), n_model=2, fuse_gemms=True)),
-            ("factored", lambda: _train(st, os.path.join(d, "x"), fsdp=True, factored=True))):
+            ("pipe_mesh", lambda: pmesh.make_pipe_mesh(n_pipe=2, n_model=2)),
+            ("pipe_trainer", lambda: _train(st, os.path.join(d, "x"), n_pipe=2,
+                                            n_model=2))):
         try:
             call()
         except (ValueError, NotImplementedError) as e:
@@ -209,11 +211,13 @@ def _rank_main(rank: int, world: int, init: str, task: str, d: str) -> None:
         dist.destroy_process_group()
 
 
-def _spawn(d: str, task: str, world: int) -> list:
-    """Run TASKS[task] on `world` gloo ranks; their results, by rank. A rank
-    that raises, or a run past TIMEOUT, fails the test."""
+def _spawn(d: str, task: str, world: int, rank_main=None) -> list:
+    """Run rank_main (default: this module's, which runs TASKS[task]) on
+    `world` gloo ranks; their results, by rank. A rank that raises, or a run
+    past TIMEOUT, fails the test."""
     import torch.multiprocessing as mp
-    ctx = mp.start_processes(_rank_main, args=(world, os.path.join(d, f"pg_{task}"), task, d),
+    ctx = mp.start_processes(rank_main or _rank_main,
+                             args=(world, os.path.join(d, f"pg_{task}"), task, d),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + TIMEOUT
     try:
@@ -668,29 +672,26 @@ def test_two_rank_checkpoint_loads_at_world_size_one(ref, w2, tmp_path):
 
 def test_refusals_on_two_ranks(w2):
     """n_model 3 on a world of 2 raises (no fallback to one device);
-    fuse_gemms with n_model > 1 raises, as in JAX; adafactor with sharded
-    parameters raises (its factored statistics would span shards)."""
+    fuse_gemms with n_model > 1 raises, as in JAX; a pipe mesh (and the
+    Trainer's) of n_pipe 2 x n_model 2 on a world of 2 raises."""
     for r in w2:
         got = r["refused"]
         assert "does not divide the world size 2" in got["mesh"]
         assert got["fuse"].startswith("ValueError: fuse_gemms training requires")
-        assert got["factored"].startswith("NotImplementedError: adafactor")
+        for k in ("pipe_mesh", "pipe_trainer"):
+            assert got[k] == ("ValueError: n_pipe=2 x n_model=2 does not divide the "
+                              "world size 2")
 
 
 def test_refusals_on_one_process(ref, tmp_path, capsys):
     """Without a process group, n_model 2 raises in the Trainer and the three
-    CLIs; pipeline and expert parallelism raise naming ROADMAP item 9b;
-    fsdp on one data rank is a no-op that says so; a mesh with an expert
-    dim is refused by shard_serving."""
+    CLIs, and n_pipe 2 / n_expert 2 in the training CLI (no fallback to one
+    device); fsdp on one data rank is a no-op that says so."""
     from maa3_tpu_torch import serve, txt2audio
-    from maa3_tpu_torch.parallel.mesh import Mesh
     from maa3_tpu_torch.train import __main__ as cli
     from maa3_tpu_torch.train.loop import Trainer
     with pytest.raises(ValueError, match="no process group is initialised"):
         Trainer(_port_system(ref["st"]), ckpt_dir=str(tmp_path), n_model=2)
-    for kw in (dict(n_pipe=2), dict(n_micro=4), dict(n_expert=2)):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            Trainer(_port_system(ref["st"]), ckpt_dir=str(tmp_path), **kw)
     tr = Trainer(_port_system(ref["st"]), ckpt_dir=str(tmp_path), fsdp=True)
     assert not tr.fsdp and not tr.sharded
     assert "fsdp: a no-op on a data dim of width 1" in capsys.readouterr().out
@@ -698,8 +699,76 @@ def test_refusals_on_one_process(ref, tmp_path, capsys):
                        (serve.main, ["-b", XL])):
         with pytest.raises(ValueError, match="n_model=2: .* no process group"):
             main(argv + ["--n_model", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        _port_system(ref["st"]).shard_serving(Mesh(dim_names=("data", "model", "expert")))
+    for flag in ("--n_pipe", "--n_expert"):
+        with pytest.raises(ValueError, match=f"{flag[2:]}=2: .* no process group"):
+            cli.main(["-b", XL, flag, "2", "--device", "cpu"])
+
+
+def _port_moe_system():
+    """A tiny port video-MoE system (random weights; no conditioner)."""
+    from maa3_tpu_torch import config as tconfig
+    from maa3_tpu_torch.models import vae1d as tvae
+    from maa3_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+    from maa3_tpu_torch.models.dit_moe import MoEDiT, MoEDiTConfig
+    from maa3_tpu_torch.system import MAA3System
+    cfg = MoEDiTConfig(in_channels=4, context_dim=16, hidden_size=32, depth=2, num_heads=4,
+                       multiple_of=16, num_experts=4)
+    spec = tconfig.ModelSpec(dit=cfg, vae=tvae.VAEConfig(**VAE), mel_dim=4, mel_length=16,
+                             cond_kind="video_feat", backbone_kind="video_moe_dit")
+    voc = BigVGAN(BigVGANConfig(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
+                                upsample_initial_channel=32))
+    return MAA3System(spec, MoEDiT(cfg), tvae.AutoencoderKL(spec.vae), voc, None, 1.0,
+                      compute_dtype=torch.float32)
+
+
+# JAX's refusals of pipeline and expert parallelism (maa3_tpu/train/loop.py:
+# 106-129): the backbone ("text" / "moe") and the Trainer's arguments
+JAX_REFUSALS = {
+    "pipe_fsdp": ("text", dict(n_pipe=2, fsdp=True)),
+    "pipe_fuse_gemms": ("text", dict(n_pipe=2, fuse_gemms=True)),
+    "pipe_seq_parallel": ("text", dict(n_pipe=2, seq_parallel=True)),
+    "pipe_moe": ("moe", dict(n_pipe=2)),
+    "expert_text_dit": ("text", dict(n_expert=2)),
+    "expert_pipe": ("moe", dict(n_expert=2, n_pipe=2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(JAX_REFUSALS))
+def test_pipe_and_expert_refusals_match_jax(ref, tmp_path, case):
+    """Each combination JAX's Trainer refuses, the port's refuses with the
+    same ValueError message (before any mesh is made)."""
+    import jax
+    from maa3_tpu.models import dit as jdit
+    from maa3_tpu.models import vae1d as jvae
+    from maa3_tpu.train.loop import Trainer as JTrainer
+    from maa3_tpu_torch.train.loop import Trainer
+    from tests.test_parallel import _tiny_video_system
+    kind, kw = JAX_REFUSALS[case]
+    if kind == "text":
+        pd = jdit.dit_init(jax.random.PRNGKey(0), jdit.DiTConfig(**DIT, max_len=128))
+        js = _jax_system(pd, jvae.vae_init(jax.random.PRNGKey(2), jvae.VAEConfig(**VAE)))
+        ts = _port_system(ref["st"])
+    else:
+        js, ts = _tiny_video_system(), _port_moe_system()
+    with pytest.raises(ValueError) as want:
+        JTrainer(js, batch_size=8, ckpt_dir=str(tmp_path / "j"), **kw)
+    with pytest.raises(ValueError) as got:
+        Trainer(ts, batch_size=8, ckpt_dir=str(tmp_path / "t"), **kw)
+    assert str(got.value) == str(want.value)
+
+
+def test_n_micro_without_pipe_is_a_no_op(ref, tmp_path, capsys):
+    """n_micro > 1 with n_pipe 1 is JAX's no-op (its pipelined apply runs
+    only for n_pipe > 1): the Trainer says so in one line and steps as
+    without it."""
+    from maa3_tpu_torch.train.loop import Trainer
+    tr = Trainer(_port_system(ref["st"]), ckpt_dir=str(tmp_path), **TRAIN, n_micro=4)
+    assert "n_micro=4: a no-op without n_pipe > 1 (as in JAX)" in capsys.readouterr().out
+    assert not tr.sharded and tr.mesh.shape == {"data": 1, "model": 1}
+    for i, raw in enumerate(ref["st"]["raws"]):
+        tr.train_step(raw, draws=ref["st"]["draws"][i])
+    for n, p in tr.state.dit.named_parameters():
+        _cmp(p, ref["one"]["params"][n], rtol=0, atol=0)
 
 
 def test_train_cli_accepts_jax_command_line():
@@ -715,6 +784,9 @@ def test_train_cli_accepts_jax_command_line():
                           "--seq_parallel", "--multihost", "k=v"])
     assert (opt.n_model, opt.fsdp, opt.seq_parallel, opt.multihost,
             opt.overrides) == (2, True, True, True, ["k=v"])
+    opt = cli.parse_args(["-b", "c.yaml", "-t", "--n_pipe", "2", "--n_micro", "4",
+                          "--n_expert", "2"])
+    assert (opt.n_pipe, opt.n_micro, opt.n_expert) == (2, 4, 2)
 
 
 def test_torchrun_world_that_n_model_does_not_divide():
@@ -837,6 +909,26 @@ def test_add_fsdp_specs_dim_choice_matches_jax():
     got = add_fsdp_specs(tensors, specs, 8)
     for k, (shape, _) in cases.items():
         assert got[f"blocks.0.{k}.weight"] == port(shape, jax_out[k])[1], k
+    # the video MoE, with and without expert parallelism: JAX's stacked
+    # expert leaves (depth, E, in, out) count depth x E times a port expert
+    # tensor against min_size (at 16384 the per-expert tensors are 3072, the
+    # stacks 24576), and with "expert" on E the rule picks among the others
+    from maa3_tpu.models.dit_moe import MoEDiTConfig, moe_dit_init
+    from maa3_tpu.parallel import mesh as jmesh
+    from maa3_tpu_torch.parallel.mesh import dit_param_specs
+    from maa3_tpu_torch.weights import dit_from_jax
+    pm = moe_dit_init(jax.random.PRNGKey(0), MoEDiTConfig(
+        in_channels=4, context_dim=16, hidden_size=32, depth=2, num_heads=2, max_len=16,
+        multiple_of=16, num_experts=4))
+    named = dit_from_jax(_np(pm))
+    for ep in (1, 2):
+        jspecs = jmesh.dit_param_specs(pm)
+        if ep > 1:
+            jspecs = jmesh.add_ep_specs(pm, jspecs, ep)
+        want = _as_port_specs(pm, jadd(pm, jspecs, 2, min_size=16384))
+        got = add_fsdp_specs(named, dit_param_specs(named), 2, min_size=16384)
+        assert got == want
+        assert got["blocks.0.feed_forward.time_experts.0.w1.weight"] == ("model", "data")
 
 
 # -- the CLIs on two ranks ------------------------------------------------------------------

@@ -415,7 +415,7 @@ def test_video_trainer_step_matches_jax(tmp_path):
     assert np.isfinite(float(val)) and abs(float(val) - float(tm["loss"])) > 0
     assert max((p.detach() - s).abs().max().item()
                for p, s in zip(tr.state.trainable_parameters(), start)) > 1e-4
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
+    with pytest.raises(ValueError, match="n_expert=2: .* no process group"):
         Trainer(ts, n_expert=2, ckpt_dir=str(tmp_path))
 
 
