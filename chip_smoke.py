@@ -69,7 +69,10 @@ Phases, each timed on a line of its own:
      MAA3System.from_config (EMA chosen, every tensor as written, vocoder
      folded within 1e-6, the file's scale_factor) and served by AudioServer
      on 127.0.0.1: 8 concurrent requests and 2 of another group, then the 8
-     twice more (each round one launch of 8, the same bytes both times),
+     twice more (each round one launch of 8, the same bytes both times; each
+     launch's rows logged in arrival order and in the order the batcher
+     runs them, by captions and seed: cuDNN's bf16 vocoder convolutions
+     round a row by its place in the batch),
      every response a 16 kHz wav of 131,072 samples, no error, K1 72 / K2 37
      launches per batch vocode, no thread left after shutdown; p50 latency
      and audio seconds per second at batch 8; then the XL ODE at batch 8 and
@@ -149,10 +152,14 @@ Phases, each timed on a line of its own:
      their wavs, manifest and VAE mels, reference mels by mel_spec; then
      train_melclf (VGGishish, 20 steps over phase 12's mels with labels,
      --norm, --val_tsv), predict_melclf on its file, cal_fd_score with that
-     classifier (--norm_stats; batch statistics, as JAX evaluates its own)
-     and with a random Melception, cal_clap_score with random towers, and
-     structurize_captions: ms per classifier step, embeddings per second
-     per backbone, ms per CLAP-scored clip, the host's FD time, peak memory.
+     classifier (--norm_stats; batch statistics, as JAX evaluates its own;
+     in a process of its own on the host, --device cpu and 4 BLAS threads,
+     so that scipy's sqrtm of the 4096-d product runs beside phases 16-18
+     while the card stays this process's; phases 16 and 17 log whether it
+     still runs, phase 18 waits for it) and with a random Melception,
+     cal_clap_score with random towers, and structurize_captions: ms per
+     classifier step, embeddings per second per backbone, ms per
+     CLAP-scored clip, the host's FD time, peak memory.
  16. XXL through the parallel entry points (maa3_tpu_torch/parallel): an
      NCCL process group of world size 1 in this process (a FileStore under
      build/) and its 1 x 1 ("data", "model") DeviceMesh: (a) the XXL system
@@ -193,6 +200,17 @@ Phases, each timed on a line of its own:
      bf16 three timed 10 s clips (latent, decode, vocode through K1 / K2
      72 / 37, "video2audio_expert_parallel_per_vocode") and three timed
      steps, the expert bytes each rank holds.
+ 18. AudioLDM (the legacy 2-D UNet, DDIM / PLMS, 2-D VAE and HiFi-GAN) at
+     JAX's default configs, fp32 under full_fp32 (no TF32): the defaults'
+     80-mel vocoder must be refused (ValueError); with the 64-mel vocoder a
+     JAX caller passes too (BigVGAN 1536, lrelu: neither K1 nor K2 launches)
+     and the zero-init leaves drawn small, (a) batch 2, CFG 3.0, 4 DDIM
+     steps (eta 0) and 4 PLMS steps: latent, mel and wav on the card against
+     the CPU (1e-3 x max(1, |ref|)); (b) batch 4, CFG 3.0, 200 DDIM steps
+     timed once beside phase 15's FD process (its state logged), then,
+     after waiting for that process and checking its FD, alone, and alone
+     with n_candidate_gen_per_text 2: ms per step, seconds per clip, peak
+     GiB.
 Kernel, plain and library times are per call over 10 calls queued back to
 back (time_ms). Then the `kernels` JSON line, the card line, and the result
 line. Any failure exits non-zero without the result line; without a CUDA
@@ -1332,6 +1350,20 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
         def hist():
             return dict(server.batcher.stats()["batch_histogram"])
 
+        launched = []  # each launch's rows: (arrival order, the order run)
+        real_process, real_captions = server.batcher._process, system.captions
+
+        def logged_process(batch):
+            arrival = [r.prompt for r in batch]
+            real_process(batch)
+            launched[-1] = (arrival, launched[-1])
+
+        def logged_captions(ori, struct):
+            if any(ori):  # not the bucket's empty unconditional captions
+                launched.append([o for o in ori if o])
+            return real_captions(ori, struct)
+
+        server.batcher._process, system.captions = logged_process, logged_captions
         k1.launches = k2.launches = 0  # count exactly the requests below
         for bs in (bodies + other, bodies, bodies):
             h0 = hist()
@@ -1363,6 +1395,12 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
             f"the concurrent requests coalesced: {hists[0]}")
     require(hists[1] == {8: 1} and hists[2] == {8: 1},
             f"the 8 concurrent requests ran as one launch of 8: {hists[1:3]}")
+    index = {p: i for i, p in enumerate(SERVE_PROMPTS)}
+    for n, (arrival, run) in enumerate(launched[-3:-1]):
+        log(f"serve: launch of 8 in round {n + 2}: rows by arrival "
+            f"{[index[p] for p in arrival]}, as run {[index[p] for p in run]}")
+    require(launched[-3][1] == launched[-2][1],
+            "the two launches of the same 8 requests run their rows in one order")
     same = [rounds[1][0][i][1] == rounds[2][0][i][1] for i in range(8)]
     require(all(same), f"a repeated {{prompt, seed}} in the same bucket gives the same "
                        f"bytes: {same}")
@@ -2587,14 +2625,12 @@ def eval_flow(torch, system_mod, config_path, k1, k2, scorer, mel_tsv, card):
     (--norm_stats) and a random Melception, cal_clap_score with random
     towers, structurize_captions; every file under build/. Logs ms per
     CLAP-scored clip, embeddings per second per backbone, ms per classifier
-    step and peak memory. Returns the K1 / K2 launches of the generation."""
+    step and peak memory. Returns the K1 / K2 launches of the generation and
+    start_fd's handle of the VGGishish's FD, which main() finishes."""
     import io
     import numpy as np
-    from maa3_tpu_torch import (cal_clap_score, cal_fd_score, mel_spec, predict_melclf,
-                                structurize_captions, train_melclf)
+    from maa3_tpu_torch import mel_spec, predict_melclf, train_melclf
     from maa3_tpu_torch.data.datasets import read_tsv
-    from maa3_tpu_torch.eval.classifier import embed, new_classifier
-    from maa3_tpu_torch.pipeline import full_fp32
     d = os.path.join(ROOT, "build", "chip_smoke_eval")
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
@@ -2638,24 +2674,41 @@ def eval_flow(torch, system_mod, config_path, k1, k2, scorer, mel_tsv, card):
     require(np.isfinite([v for v in pred.values()]).all(), "predict_melclf: finite")
     log(f"eval flow: predict_melclf {s:.2f} s: {json.dumps(pred)}")
 
-    for backbone, extra in (("vggishish", ["--clf_ckpt", res["ckpt"], "--norm_stats",
-                                           stats[0]]),
-                            ("melception", [])):
-        fd, s, _ = quiet(cal_fd_score.main, [
-            "--gen_dir", os.path.join(d, "gen_mels"), "--ref_dir", os.path.join(d, "ref_mels"),
-            "--backbone", backbone, "--device", "cuda", *extra])
-        require(np.isfinite([fd["fd"], fd["kl"]]).all() and fd["n_gen"] == fd["n_ref"]
-                == EVAL_CLIPS, f"cal_fd_score {backbone}: {fd}")
+    dirs = ["--gen_dir", os.path.join(d, "gen_mels"), "--ref_dir", os.path.join(d, "ref_mels")]
+    fd_dirs = [*dirs, "--device", "cuda"]
+    # the VGGishish's FD (scipy's sqrtm of a 4096-d product on the host, 3-6
+    # minutes) runs in a process of its own beside phases 16-18, all of it
+    # on the host (--device cpu) so that the card and its memory stay this
+    # process's; phase 18 waits for it (finish_fd) between its timings
+    vgg = start_fd([*dirs, "--device", "cpu", "--backbone", "vggishish", "--clf_ckpt",
+                    res["ckpt"], "--norm_stats", stats[0]],
+                   os.path.join(d, "cal_fd_score_vggishish.log"))
+    try:
+        _eval_flow_rest(torch, d, tsv, fd_dirs, quiet, scorer, card)
+    except BaseException:
+        stop(vgg[0])
+        raise
+    return counts, vgg
+
+
+def _eval_flow_rest(torch, d, tsv, fd_dirs, quiet, scorer, card):
+    """Phase 15 (b) after the VGGishish's FD started: the Melception's FD,
+    the warm embedding rates, cal_clap_score and structurize_captions."""
+    import numpy as np
+    from maa3_tpu_torch import cal_clap_score, cal_fd_score, structurize_captions
+    from maa3_tpu_torch.data.datasets import read_tsv
+    from maa3_tpu_torch.eval.classifier import embed, new_classifier
+    from maa3_tpu_torch.pipeline import full_fp32
+    fd, s, _ = quiet(cal_fd_score.main, [*fd_dirs, "--backbone", "melception"])
+    check_fd("melception", fd, s)
+    for backbone in ("vggishish", "melception"):
         model = new_classifier(backbone, 309).to("cuda").eval()
         mel16 = torch.randn(16, 80, 624, device="cuda") - 4.0
         with torch.no_grad(), full_fp32():
             embed(model, mel16)
             warm = [_sync_ms(torch, lambda: embed(model, mel16))[1] for _ in range(3)]
         del model
-        log(f"eval flow ({card}): cal_fd_score {backbone}: fd {fd['fd']}, kl {fd['kl']}; "
-            f"{s:.2f} s in all, {2 * EVAL_CLIPS} mels embedded in {fd['embed_s']:.3f} s "
-            f"({2 * EVAL_CLIPS / fd['embed_s']:.1f} per s, the process's first batches), "
-            f"FD on the host {fd['fd_s']:.2f} s; warm batch 16: "
+        log(f"eval flow ({card}): {backbone} warm batch 16: "
             f"{', '.join(f'{t:.2f}' for t in warm)} ms, "
             f"{16e3 / min(warm):.1f} embeddings per s")
 
@@ -2681,7 +2734,60 @@ def eval_flow(torch, system_mod, config_path, k1, k2, scorer, mel_tsv, card):
         f"peak memory after the generation {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+
+
+def stop(proc) -> None:
+    """End a process chip_smoke started, if it still runs."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def start_fd(argv, out_path: str):
+    """python -m maa3_tpu_torch.cal_fd_score argv in a process of its own
+    (4 BLAS threads), its output to out_path; returns (process, out_path,
+    start time)."""
+    threads = {k: "4" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")}
+    with open(out_path, "w") as out:
+        p = subprocess.Popen([sys.executable, "-m", "maa3_tpu_torch.cal_fd_score", *argv],
+                             cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+                             env=dict(os.environ, **threads))
+    return p, out_path, time.perf_counter()
+
+
+def check_fd(backbone: str, fd: dict, s: float) -> None:
+    import numpy as np
+    require(np.isfinite([fd["fd"], fd["kl"]]).all() and fd["n_gen"] == fd["n_ref"]
+            == EVAL_CLIPS, f"cal_fd_score {backbone}: {fd}")
+    log(f"eval flow: cal_fd_score {backbone}: fd {fd['fd']}, kl {fd['kl']}; "
+        f"{s:.2f} s in all, {2 * EVAL_CLIPS} mels embedded in {fd['embed_s']:.3f} s "
+        f"({2 * EVAL_CLIPS / fd['embed_s']:.1f} per s, the process's first batches), "
+        f"FD on the host {fd['fd_s']:.2f} s")
+
+
+def fd_state(started) -> str:
+    return "running on the host" if started[0].poll() is None else "ended"
+
+
+def finish_fd(started) -> None:
+    """Wait for start_fd's process, then check and log its result as
+    check_fd does."""
+    import ast
+    p, out_path, t = started
+    p.wait(timeout=1200)
+    with open(out_path) as f:
+        out = f.read()
+    lines = out.splitlines()
+    result = [ln for ln in lines if ln.startswith("{'fd'")]
+    timing = [re.search(r"embedded in ([0-9.]+) s, FD over \d+ dims in ([0-9.]+) s", ln)
+              for ln in lines]
+    timing = [m for m in timing if m]
+    require(p.returncode == 0 and result and timing,
+            f"cal_fd_score vggishish exit {p.returncode}: {out[-2000:]}")
+    fd = dict(ast.literal_eval(result[-1]), embed_s=float(timing[-1].group(1)),
+              fd_s=float(timing[-1].group(2)))
+    check_fd("vggishish (its own process on the host, beside phases 16-18)", fd,
+             time.perf_counter() - t)
 
 
 # -- phase 16: XXL on the card through the parallel entry points -------------------
@@ -3280,6 +3386,125 @@ def parallel_phase(torch, system_mod, full_fp32, card, xl_peak: float) -> dict:
             "ep_vocode": ep[0]["clips"][-1][1]}
 
 
+# -- phase 18: AudioLDM (the legacy 2-D UNet, DDIM / PLMS, 2-D VAE, HiFi-GAN) --------
+AUDIOLDM_CHECK = (2, 4, 3.0)     # batch, DDIM / PLMS steps, CFG scale: card vs CPU
+AUDIOLDM_TIME = (4, 200, 3.0)    # batch, DDIM steps (JAX's default), CFG scale: timed
+
+
+def _audioldm_nonzero(torch, pipe, seed: int):
+    """The UNet's zero-init leaves (each ResBlock's conv2, each transformer's
+    proj_out, conv_out) drawn N(0, 0.02), so that every path contributes."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in pipe.unet.parameters():
+            if not p.any():
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+
+
+def _audioldm_stages(torch, pipe, cond, x_T, scale, steps, plms):
+    """(latent, mel, wav) of pipe.generate_sample's stages from x_T; the
+    unconditional embedding zeros, as generate_sample makes it."""
+    from maa3_tpu_torch.diffusion.ddpm_loss import film_pool
+    film_c = film_pool(cond)
+    z = pipe.sample(x_T, film_c, torch.zeros_like(film_c), scale, steps, plms)
+    mel = pipe.decode(z)
+    return z, mel, pipe.vocode(mel)
+
+
+def _audioldm_timed(torch, gpu, cond, n, steps, scale, card, label: str = ""):
+    """One timed generate_sample (batch of cond, n candidates each) and the
+    sampler alone from its x_T: ms per step, s per clip, peak GiB."""
+    b = cond.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x_T = torch.randn((b * n, 4, gpu.latent_f, gpu.latent_t), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    wav, mel = gpu.generate_sample(cond, ddim_steps=steps, n_candidate_gen_per_text=n,
+                                   unconditional_guidance_scale=scale, x_T=x_T)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t
+    require(wav.shape == (b, 65536) and mel.shape == (b, 64, 256)
+            and bool(torch.isfinite(wav).all()), f"AudioLDM clips {tuple(wav.shape)}")
+    t = time.perf_counter()
+    film = torch.zeros(b * n, 512, device="cuda")
+    gpu.sample(x_T, film, film, scale, steps)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / steps
+    out = dict(step_ms=step_ms, s_per_clip=total / b,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"AudioLDM batch {b}, n_candidate_gen_per_text {n} ({2 * b * n} UNet rows a step "
+        f"with CFG), {steps} DDIM steps, fp32{label}: {step_ms:.2f} ms per step, "
+        f"{total / b:.3f} s per clip ({total:.2f} s for {b}), peak "
+        f"{out['peak_gib']:.2f} GiB; {card}")
+    return out
+
+
+def audioldm_phase(torch, k1, k2, card, fd):
+    """Phase 18. Batch 4 is timed once with start_fd's process `fd` still
+    on the host (if it is), then, after finish_fd waits for it, alone with
+    each candidate count. Returns the timings alone."""
+    import copy
+    from maa3_tpu_torch.models.unet2d import UNet2DConfig
+    from maa3_tpu_torch.models.vae2d import VAE2DConfig
+    from maa3_tpu_torch.pipeline_audioldm import AudioLDMPipeline, hifigan_config
+    t0 = time.perf_counter()
+    try:
+        AudioLDMPipeline.random_init(torch.Generator(device="cuda").manual_seed(18))
+        raise RuntimeError("chip_smoke check failed: AudioLDM's default configs built")
+    except ValueError as e:
+        log(f"AudioLDM: JAX's default configs refused: {e}")
+    voc_cfg = dataclasses.replace(hifigan_config(), num_mels=64)
+    cpu = AudioLDMPipeline.random_init(torch.Generator().manual_seed(18),
+                                       UNet2DConfig(film_dim=512), VAE2DConfig(), voc_cfg,
+                                       device="cpu")
+    _audioldm_nonzero(torch, cpu, 19)
+    gpu = AudioLDMPipeline(*(copy.deepcopy(m).cuda() for m in (cpu.unet, cpu.vae, cpu.vocoder)),
+                           cpu.schedule)
+    counts = {k: sum(p.numel() for p in getattr(cpu, k).parameters()) / 1e6
+              for k in ("unet", "vae", "vocoder")}
+    log(f"AudioLDM: UNet2D / VAE2D / HiFi-GAN (BigVGAN 1536, lrelu, 64 mels) "
+        f"{counts['unet']:.1f} / {counts['vae']:.1f} / {counts['vocoder']:.1f} M parameters")
+    b, steps, scale = AUDIOLDM_CHECK
+    g = torch.Generator().manual_seed(20)
+    cond = torch.randn(b, 8, 512, generator=g)
+    x_T = torch.randn(b, 4, gpu.latent_f, gpu.latent_t, generator=g)
+    k1.launches = k2.launches = 0
+    for plms in (False, True):
+        t = time.perf_counter()
+        want = _audioldm_stages(torch, cpu, cond, x_T, scale, steps, plms)
+        cpu_s = time.perf_counter() - t
+        got = _audioldm_stages(torch, gpu, cond.cuda(), x_T.cuda(), scale, steps, plms)
+        errs = []
+        for name, a, w in zip(("latent", "mel", "wav"), got, want):
+            err = (a.cpu() - w).abs().max().item() / max(1.0, w.abs().max().item())
+            require(bool(torch.isfinite(a).all()) and a.shape == w.shape and err <= 1e-3,
+                    f"AudioLDM {'PLMS' if plms else 'DDIM'} {name} {tuple(a.shape)}: "
+                    f"card vs CPU {err:.3e} of max(1, |ref|)")
+            errs.append(f"{name} {tuple(a.shape)} {err:.2e}")
+        log(f"AudioLDM {'PLMS' if plms else 'DDIM'} batch {b}, {steps} steps, CFG {scale}: "
+            f"card vs CPU (of max(1, |ref|)) " + ", ".join(errs) + f"; CPU {cpu_s:.2f} s")
+    require((k1.launches, k2.launches) == (0, 0),
+            f"AudioLDM's lrelu vocoder launches neither K1 nor K2: {k1.launches, k2.launches}")
+    del cpu
+    b, steps, scale = AUDIOLDM_TIME
+    cond = torch.randn(b, 8, 512, generator=g).cuda()
+    gpu.generate_sample(cond, torch.Generator(device="cuda").manual_seed(0), ddim_steps=2,
+                        unconditional_guidance_scale=scale)  # warm-up
+    before = fd_state(fd)
+    _audioldm_timed(torch, gpu, cond, 1, steps, scale, card, ", beside the FD process")
+    log(f"AudioLDM: the VGGishish FD process was {before} when that timing began and "
+        f"{fd_state(fd)} when it ended")
+    finish_fd(fd)
+    out = {n: _audioldm_timed(torch, gpu, cond, n, steps, scale, card, ", alone")
+           for n in (1, 2)}
+    del gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 18: done, {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3459,16 +3684,22 @@ def main() -> int:
     scorer = eval_small_reference(torch, full_fp32)
     log(f"eval reference: done, {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
-    eval_counts = eval_flow(torch, system_mod, config_path, k1, k2, scorer, tsv, card)
+    eval_counts, vgg_fd = eval_flow(torch, system_mod, config_path, k1, k2, scorer, tsv, card)
     del scorer
     log(f"eval flow: done, {time.perf_counter() - t:.2f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
-    t = time.perf_counter()
-    xxl_serving, xxl_training = xxl_phase(torch, system_mod, k1, k2, fa, card, full_fp32)
-    log(f"XXL: done, {time.perf_counter() - t:.2f} s")
-    par = parallel_phase(torch, system_mod, full_fp32, card, xl_peak)
+    try:
+        log(f"XXL: the VGGishish FD process {fd_state(vgg_fd)}")
+        t = time.perf_counter()
+        xxl_serving, xxl_training = xxl_phase(torch, system_mod, k1, k2, fa, card, full_fp32)
+        log(f"XXL: done, {time.perf_counter() - t:.2f} s")
+        log(f"phase 17: the VGGishish FD process {fd_state(vgg_fd)}")
+        par = parallel_phase(torch, system_mod, full_fp32, card, xl_peak)
+        audioldm_phase(torch, k1, k2, card, vgg_fd)
+    finally:
+        stop(vgg_fd[0])
 
     kernels = []
     # launches, ms and the bound: phase 5's batch-4 XL vocode (bf16), as in

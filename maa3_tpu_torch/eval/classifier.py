@@ -7,13 +7,13 @@ Files: a reference state dict (.pt / .pth / .ckpt, optionally under
 `model` or `state_dict`; running BN statistics used when present) or a
 file of train_melclf ({"model", "backbone", "conv_layers",
 "num_classes", "classes"}; no running statistics, so evaluated with batch
-statistics as JAX evaluates its own trained classifiers). The JAX CLIs'
-Orbax directories are not read (the card machine has no Orbax).
+statistics as JAX evaluates its own trained classifiers). A JAX CLI's
+Orbax directory exits with a message naming orbax_to_torch.py, which
+converts it to a train_melclf file where JAX is installed.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import torch
@@ -44,14 +44,13 @@ def load_classifier(path: str, backbone: str, num_classes: int,
     """The classifier of a train_melclf file or a reference state dict;
     num_classes and small shape a reference VGGishish (a train_melclf file
     carries its own)."""
-    from maa3_tpu_torch.torch_import import (load_module_state, melception_from_torch,
-                                             melclf_from_torch, read_checkpoint,
-                                             unwrap_state_dict)
-    if os.path.isdir(path):
-        raise SystemExit(f"{path} is a directory: the port reads torch files (a "
-                         "reference state dict or a train_melclf .pt), not Orbax "
-                         "checkpoints")
-    ckpt = read_checkpoint(path)
+    from maa3_tpu_torch.torch_import import (OrbaxDirectory, load_module_state,
+                                             melception_from_torch, melclf_from_torch,
+                                             read_checkpoint, unwrap_state_dict)
+    try:
+        ckpt = read_checkpoint(path)
+    except OrbaxDirectory as e:
+        raise SystemExit(str(e)) from None
     if isinstance(ckpt, dict) and "backbone" in ckpt:
         if ckpt["backbone"] != backbone:
             raise ValueError(f"{path} holds a {ckpt['backbone']} classifier, "

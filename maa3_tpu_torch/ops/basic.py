@@ -117,13 +117,15 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
-    """GroupNorm for (B, C, T) with fp32 statistics over (C//G, T)."""
-    b, c, t = x.shape
-    xf = x.float().reshape(b, num_groups, (c // num_groups) * t)
+    """GroupNorm for (B, C, ...) (a 1-D (B, C, T) or a 2-D (B, C, H, W)
+    signal) with fp32 statistics over each group's channels and positions."""
+    b, c = x.shape[:2]
+    xf = x.float().reshape(b, num_groups, -1)
     mean = xf.mean(-1, keepdim=True)
     var = (xf - mean).pow(2).mean(-1, keepdim=True)
-    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, c, t)
-    y = y * weight.float()[None, :, None] + bias.float()[None, :, None]
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    bshape = (1, c) + (1,) * (x.dim() - 2)
+    y = y * weight.float().reshape(bshape) + bias.float().reshape(bshape)
     return y.to(x.dtype)
 
 

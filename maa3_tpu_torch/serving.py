@@ -11,7 +11,12 @@ maa3_tpu/serving.py).
 - **reproducible requests**: each row's initial noise is drawn from numpy
   with the request's seed (else the server's seed and a counter), so a
   {prompt, seed} gives its audio whatever it is batched with, up to the
-  GEMMs' batch-size-dependent rounding;
+  GEMMs' batch-size-dependent rounding; a batch's rows are ordered by
+  (prompt, structured caption, seed), not by arrival, because on the card
+  cuDNN's bf16 vocoder convolutions round a row differently at another
+  position in the batch (2 of 8 rows moved 2^-10 at BigVGAN's 768-channel
+  stage), so the same requests batched together give the same bytes in
+  whatever order they arrive;
 - `AudioServer.shutdown` stops the HTTP loop, answers queued requests with
   503, and joins the batcher, HTTP and handler threads: no thread is left;
 - **tensor-parallel serving** (system.shard_serving over several ranks):
@@ -83,6 +88,11 @@ class _Pending:
 
     def group_key(self):
         return (self.steps, round(self.scale, 6), self.latent_len)
+
+
+def _row_key(req: _Pending):
+    """A batch row's place: by its captions and seed, not its arrival."""
+    return (req.prompt, req.struct, req.seed is None, req.seed or 0)
 
 
 def _bucket(n: int, ceiling: int) -> int:
@@ -305,7 +315,7 @@ class Batcher(threading.Thread):
         return torch.from_numpy(np.stack(rows)).to(self.system.device)
 
     def _process(self, batch) -> None:
-        batch = [r for r in batch if not r.abandoned]
+        batch = sorted((r for r in batch if not r.abandoned), key=_row_key)
         if not batch:
             return
         try:

@@ -20,6 +20,7 @@ the file allows it) until they are copied into the modules.
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import torch
@@ -28,15 +29,26 @@ from torch import nn
 State = Dict[str, torch.Tensor]
 
 
-def read_checkpoint(path: str):
+class OrbaxDirectory(ValueError):
+    """A directory given as a checkpoint: an Orbax checkpoint of the JAX
+    package, which the port does not read."""
+
+
+def read_checkpoint(path: str, weights_only: bool = False):
     """torch.load of a .ckpt / .pt file onto the CPU, memory-mapped where the
     file's format allows it. Lightning files pickle more than tensors
-    (hyper-parameters), so this unpickles with weights_only=False, as the
-    reference's loaders do: load only files you trust."""
+    (hyper-parameters), so by default this unpickles with weights_only=False,
+    as the reference's loaders do: load only files you trust. A directory
+    raises OrbaxDirectory, naming the converter that makes it a file."""
+    if os.path.isdir(path):
+        raise OrbaxDirectory(
+            f"{path} is a directory: an Orbax checkpoint of the JAX package. Convert "
+            f"it where JAX is installed with `python orbax_to_torch.py {path} OUT.pt` "
+            f"(-b CONFIG ... for a Trainer checkpoint) and pass OUT.pt")
     try:
-        return torch.load(path, map_location="cpu", weights_only=False, mmap=True)
+        return torch.load(path, map_location="cpu", weights_only=weights_only, mmap=True)
     except RuntimeError:  # a file in the legacy (non-zip) format cannot be mapped
-        return torch.load(path, map_location="cpu", weights_only=False)
+        return torch.load(path, map_location="cpu", weights_only=weights_only)
 
 
 def unwrap_state_dict(ckpt) -> State:

@@ -48,8 +48,10 @@ GPipe (each stage holds depth / S blocks; the world reshapes to (data, S,
 n_model)), --n_expert E expert parallelism of the video MoE (the world
 reshapes to (data, n_model, E)).
 
-Not in the port: Orbax checkpoints (--vae_ckpt reads the port's own
-files); see ROADMAP.md.
+-r and --vae_ckpt read the port's own files; a JAX run's Orbax directory
+raises a ValueError naming orbax_to_torch.py, which converts it (a Trainer
+checkpoint for -r, a scripts/train_vae.py one for --vae_ckpt) where JAX is
+installed.
 """
 
 from __future__ import annotations

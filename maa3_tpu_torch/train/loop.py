@@ -56,8 +56,10 @@ device or over a mesh of torch.distributed ranks (parallel/mesh.py):
 Each step's random draws come from a generator seeded with (seed, step), so a
 run resumed from a checkpoint draws what the uninterrupted run would have.
 
-Checkpoints are `torch.save` files of the port's own layout: the JAX
-package's Orbax checkpoints cannot be read here, nor these there. The file
+Checkpoints are `torch.save` files of the port's own layout; a JAX
+Trainer's Orbax directory becomes one through orbax_to_torch.py (run where
+JAX is installed), and restore_checkpoint given a directory raises a
+ValueError naming it. The file
 is the same at every world size: every rank gathers the whole state (the
 shards over the data and the model groups, every stage's blocks and every
 coordinate's experts) and rank 0 writes it;
@@ -86,6 +88,7 @@ from maa3_tpu_torch.parallel import mesh as pmesh
 from maa3_tpu_torch.parallel.fsdp import FSDP, average_grads
 from maa3_tpu_torch.parallel.pipeline import dit_apply_pipelined
 from maa3_tpu_torch.parallel.tp import EP, TP
+from maa3_tpu_torch.torch_import import read_checkpoint
 from maa3_tpu_torch.train.optim import make_optimizer
 from maa3_tpu_torch.train.step import (create_train_state, make_eval_step,
                                        make_train_step, sample_latent)
@@ -639,7 +642,7 @@ class Trainer:
         without a `frozen` section keeps the current VAE; EMA shadows are
         restored when both the file and the trainer have them."""
         st = self.state
-        payload = torch.load(path, map_location="cpu", weights_only=True)
+        payload = read_checkpoint(path, weights_only=True)
         mods = st.trainable()
         if set(payload["params"]) != set(mods):
             raise ValueError(

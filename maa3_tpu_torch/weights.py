@@ -4,12 +4,16 @@
 numpy arrays: dense weights (in, out), DiT blocks stacked along a leading
 depth axis) into state dicts with the reference checkpoints' torch keys,
 which the port's modules carry (the vocoder's weight norm is already
-folded on the JAX side).
+folded on the JAX side); the legacy 2-D UNet and the noisy classifier
+keep the JAX tree's names. The `*_checkpoint_from_jax` functions turn the
+JAX package's checkpoints, restored to numpy by orbax_to_torch.py, into
+the payloads the port's own writers save (the Trainer's .pt, train_vae's,
+train_melclf's and the vocoder trainer's files).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -132,13 +136,84 @@ def vae_from_jax(p: dict) -> State:
     for lvl, lp in enumerate(d["up"]):
         for i, bp in enumerate(lp["block"]):
             _resblock(sd, f"decoder.up.{lvl}.block.{i}", bp)
-        for i, ap in enumerate(lp["attn"]):
+        for i, ap in enumerate(lp.get("attn", ())):  # the 2-D decoder has none
             _attnblock(sd, f"decoder.up.{lvl}.attn.{i}", ap)
         if "upsample" in lp:
             _conv(sd, f"decoder.up.{lvl}.upsample.conv", lp["upsample"])
     _vec(sd, "decoder.norm_out", d["norm_out"])
     _conv(sd, "decoder.conv_out", d["conv_out"])
     return sd
+
+
+def vae2d_from_jax(p: dict) -> State:
+    """The 2-D KL or VQ autoencoder (models/vae2d.py): vae_from_jax's keys
+    and, for VQ, the codebook as quantize.embedding.weight."""
+    sd = vae_from_jax(p)
+    if "codebook" in p:
+        sd["quantize.embedding.weight"] = _t(p["codebook"])
+    return sd
+
+
+def _unet_res(sd: State, name: str, p: dict) -> None:
+    for nm in ("norm1", "norm2"):
+        _vec(sd, f"{name}.{nm}", p[nm])
+    for nm in ("conv1", "conv2", "skip"):
+        if nm in p:
+            _conv(sd, f"{name}.{nm}", p[nm])
+    _lin(sd, name + ".temb", p["temb"])
+
+
+def _unet_st(sd: State, name: str, p: dict) -> None:
+    _vec(sd, name + ".norm", p["norm"])
+    _conv(sd, name + ".proj_in", p["proj_in"])
+    _conv(sd, name + ".proj_out", p["proj_out"])
+    for j, bp in enumerate(p["blocks"]):
+        for nm, v in bp.items():
+            (_vec if nm.startswith("ln") else _lin)(sd, f"{name}.blocks.{j}.{nm}", v)
+
+
+def unet2d_from_jax(p: dict) -> State:
+    """The legacy 2-D UNet (models/unet2d.py), keys as the JAX tree's."""
+    sd: State = {}
+    for nm in ("temb1", "temb2", "film_emb"):
+        if nm in p:
+            _lin(sd, nm, p[nm])
+    _conv(sd, "conv_in", p["conv_in"])
+    for side, move in (("down", "down"), ("up", "up")):
+        for lvl, lp in enumerate(p[side]):
+            pre = f"{side}.{lvl}."
+            for i, rp in enumerate(lp["res"]):
+                _unet_res(sd, f"{pre}res.{i}", rp)
+            for i, ap in enumerate(a for a in lp["attn"] if a is not None):
+                _unet_st(sd, f"{pre}attn.{i}", ap)
+            if move in lp:
+                _conv(sd, pre + move, lp[move])
+    _unet_res(sd, "mid.res1", p["mid"]["res1"])
+    _unet_st(sd, "mid.attn", p["mid"]["attn"])
+    _unet_res(sd, "mid.res2", p["mid"]["res2"])
+    _vec(sd, "norm_out", p["norm_out"])
+    _conv(sd, "conv_out", p["conv_out"])
+    return sd
+
+
+def noisy_clf_from_jax(p: dict) -> State:
+    """The noisy-latent classifier (diffusion/classifier_guidance.py)."""
+    sd: State = {}
+    for nm in ("temb1", "temb2", "head"):
+        _lin(sd, nm, p[nm])
+    _conv(sd, "conv_in", p["conv_in"])
+    for i, bp in enumerate(p["blocks"]):
+        _conv(sd, f"blocks.{i}.conv1", bp["conv1"])
+        _conv(sd, f"blocks.{i}.conv2", bp["conv2"])
+        _lin(sd, f"blocks.{i}.film", bp["film"])
+    return sd
+
+
+def audioldm_from_jax(p: dict) -> Dict[str, State]:
+    """AudioLDMPipeline.params {unet, vae, vocoder} -> the state dicts of
+    the port's pipeline modules."""
+    return {"unet": unet2d_from_jax(p["unet"]), "vae": vae2d_from_jax(p["vae"]),
+            "vocoder": bigvgan_from_jax(p["vocoder"])}
 
 
 def _snake(sd: State, name: str, p: dict) -> None:
@@ -394,3 +469,115 @@ def lpaps_from_jax(p: dict, conv_layers) -> State:
     for k, w in enumerate(p["lins"]):
         sd[f"lin{k}.model.1.weight"] = _t(np.asarray(w).reshape(1, -1, 1, 1))
     return sd
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints of the JAX package (Orbax directories restored to numpy trees
+# by orbax_to_torch.py) -> the port's own checkpoint files
+# ---------------------------------------------------------------------------
+
+def unfuse_dit_np(p: dict, n_heads: int, n_kv_heads=None) -> dict:
+    """A JAX DiT tree in the fused training layout (wqkv, w13) in the
+    canonical names (maa3_tpu/utils/nprand.py:73, on numpy arrays)."""
+    blocks = dict(p["blocks"])
+    att = dict(blocks["attention"])
+    if "wqkv" in att:
+        w = np.asarray(att.pop("wqkv")["w"])
+        n_kv = n_heads if n_kv_heads is None else n_kv_heads
+        hd = w.shape[-2] // n_heads
+        wq, wk, wv = np.split(w, [n_heads * hd, (n_heads + n_kv) * hd], axis=-1)
+        att.update(wq={"w": wq}, wk={"w": wk}, wv={"w": wv})
+    ffn = dict(blocks["feed_forward"])
+    if "w13" in ffn:
+        w1, w3 = np.split(np.asarray(ffn.pop("w13")["w"]), 2, axis=-1)
+        ffn.update(w1={"w": w1}, w3={"w": w3})
+    blocks.update(attention=att, feed_forward=ffn)
+    return dict(p, blocks=blocks)
+
+
+def trainer_checkpoint_from_jax(tree: dict, dit: torch.nn.Module,
+                                cond: Optional[torch.nn.Module], cond_kind: str,
+                                fuse_gemms: bool, accum_steps: int,
+                                mu_dtype: torch.dtype) -> dict:
+    """The payload the port's Trainer.save_checkpoint writes
+    (train/loop.py), from a JAX Trainer checkpoint restored to numpy:
+    tree = {params: {dit, cond?}, ema_params?, frozen?: {vae}, step,
+    scale_factor, opt: {count, mu, nu, mini_step?, acc?}} (the moment trees
+    with the params' structure; fused when fuse_gemms). `dit` and `cond`
+    are the port's modules of the same configs (on any device, "meta"
+    will do): their parameter order orders the EMA shadows (canonical) and
+    the optimizer's lists (the training layout: fused when fuse_gemms, as
+    the port's writer keeps them)."""
+    from maa3_tpu_torch.models.dit import fuse_dit_gemms, fuse_dit_state
+    cfg = dit.cfg
+    train = {"dit": dit} | ({"cond": cond} if cond is not None else {})
+    if set(tree["params"]) != set(train):
+        raise ValueError(f"the checkpoint trains {sorted(tree['params'])}, the configs "
+                         f"{sorted(train)} (cond_stage_trainable differs)")
+    order = {k: [n for n, _ in m.named_parameters()] for k, m in train.items()}
+    fused_order = ([n for n, _ in fuse_dit_gemms(dit).named_parameters()]
+                   if fuse_gemms else order["dit"])
+
+    def states(t: dict) -> Dict[str, State]:
+        """{dit, cond?} JAX trees -> canonical port state dicts."""
+        d = unfuse_dit_np(t["dit"], cfg.num_heads, cfg.n_kv_heads) if fuse_gemms else t["dit"]
+        out = {"dit": dit_from_jax(d)}
+        if "cond" in t:
+            full = COND_FROM_JAX[cond_kind](t["cond"])
+            out["cond"] = {n: full[n] for n in cond.state_dict()}
+        return out
+
+    def canonical_list(t: dict) -> List[torch.Tensor]:
+        sd = states(t)
+        return [sd[k][n] for k in train for n in order[k]]
+
+    def training_list(t: dict, dtype=torch.float32) -> List[torch.Tensor]:
+        sd = states(t)
+        d = fuse_dit_state(sd["dit"], cfg.depth) if fuse_gemms else sd["dit"]
+        out = [d[n] for n in fused_order] + [sd["cond"][n] for n in order.get("cond", ())]
+        return [x.to(dtype) for x in out]
+
+    opt = tree["opt"]
+    opt_state = {"count": int(opt["count"]), "mini_step": int(opt.get("mini_step", 0)),
+                 "mu": training_list(opt["mu"], mu_dtype), "nu": training_list(opt["nu"]),
+                 "kind": "adamw", "mu_dtype": str(mu_dtype).replace("torch.", ""),
+                 "accum_steps": accum_steps,
+                 "n_params": len(fused_order) + len(order.get("cond", ()))}
+    if accum_steps > 1:
+        opt_state["acc"] = training_list(opt["acc"])
+    payload = {"params": states(tree["params"]), "opt_state": opt_state,
+               "fuse_gemms": fuse_gemms, "step": int(tree["step"]),
+               "scale_factor": float(tree["scale_factor"])}
+    if "frozen" in tree:
+        payload["frozen"] = {"vae": vae_from_jax(tree["frozen"]["vae"])}
+    if "ema_params" in tree:
+        payload["ema_params"] = canonical_list(tree["ema_params"])
+    return payload
+
+
+def vae_gan_checkpoint_from_jax(tree: dict) -> dict:
+    """scripts/train_vae.py's {vae, disc, logvar} -> the port's train_vae
+    file (train/vae_gan.py vae_gan_checkpoint)."""
+    return {"vae": vae_from_jax(tree["vae"]), "disc": nlayer_disc_from_jax(tree["disc"]),
+            "logvar": _t(tree["logvar"])}
+
+
+def vocoder_checkpoint_from_jax(tree: dict) -> dict:
+    """scripts/train_vocoder.py's {generator} -> the port's {generator}."""
+    return {"generator": bigvgan_from_jax(tree["generator"])}
+
+
+def melclf_checkpoint_from_jax(params: dict, backbone: str, conv_layers=None,
+                               classes=None) -> dict:
+    """scripts/train_melclf.py's {params} -> the port's train_melclf file
+    (eval/classifier.py checkpoint): the VGGishish of `conv_layers` or the
+    Melception, its class count read from the head."""
+    if backbone == "melception":
+        sd = melception_from_jax(params)
+        conv = None
+    else:
+        sd = melclf_from_jax(params, conv_layers)
+        conv = list(conv_layers)
+    head = "fc.weight" if backbone == "melception" else "classifier.4.weight"
+    return {"model": sd, "backbone": backbone, "conv_layers": conv,
+            "num_classes": int(sd[head].shape[0]), "classes": classes}

@@ -681,6 +681,80 @@ def test_amp2_and_lrelu_vocoders_match_cpu(cuda_dev, resblock, activation, want)
 
 
 @pytest.mark.cuda
+def test_served_batch_gives_the_same_bytes_in_any_arrival_order(cuda_dev):
+    """The full-width text-to-music model served in bf16 (chip_smoke.py phase
+    11's, random weights): the same 8 requests batched once in arrival
+    order and once permuted give each request the same bytes. cuDNN's bf16
+    convolutions at the vocoder's 768-channel stage round a row by its
+    place in the batch, so the batcher runs the rows ordered by captions and
+    seed, not by arrival."""
+    import os
+    from maa3_tpu_torch.serving import Batcher, ServeConfig, _Pending
+    from maa3_tpu_torch.system import MAA3System
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    system = MAA3System.from_config([os.path.join(root, "configs", "txt2music-cfm-cfg.yaml")],
+                                    seed=11, device="cuda", compute_dtype=torch.bfloat16,
+                                    unfreeze=True)
+    batcher = Batcher(system, ServeConfig(max_batch=8))
+    prompts = [f"a piece for instrument number {i}" for i in range(8)]
+
+    def served(order):
+        reqs = [_Pending(prompt=prompts[i], struct=f"<{prompts[i]}& all>", steps=4,
+                         scale=5.0, latent_len=system.spec.mel_length, seed=100 + i)
+                for i in order]
+        batcher._process(reqs)
+        assert all(r.error is None for r in reqs), [r.error for r in reqs]
+        return {r.prompt: r.wav for r in reqs}
+
+    first, moved = served(range(8)), served([3, 0, 6, 1, 7, 2, 5, 4])
+    assert all(np.array_equal(first[p], moved[p]) for p in prompts)
+
+
+@pytest.mark.cuda
+def test_audioldm_on_the_card_matches_cpu(cuda_dev):
+    """A small AudioLDM pipeline (2-D UNet with FiLM, 2-D VAE, lrelu
+    vocoder) on the card against the CPU, fp32 under full_fp32, DDIM and
+    PLMS with CFG: latent, mel and wav at 1e-3 x max(1, |ref|); the lrelu
+    vocoder launches neither K1 nor K2."""
+    import copy
+    from maa3_tpu_torch.diffusion.ddpm_loss import film_pool
+    from maa3_tpu_torch.models.bigvgan import BigVGANConfig
+    from maa3_tpu_torch.models.unet2d import UNet2DConfig
+    from maa3_tpu_torch.models.vae2d import VAE2DConfig
+    from maa3_tpu_torch.pipeline_audioldm import AudioLDMPipeline
+    gen = torch.Generator().manual_seed(6)
+    cpu = AudioLDMPipeline.random_init(
+        gen, UNet2DConfig(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                          attention_levels=(1,), num_heads=2, film_dim=24),
+        VAE2DConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1),
+        BigVGANConfig(num_mels=8, upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
+                      upsample_initial_channel=64, resblock_kernel_sizes=(3,),
+                      resblock_dilation_sizes=((1, 3, 5),), activation="lrelu"),
+        device="cpu", latent_f=4, latent_t=16)
+    with torch.no_grad():
+        for p in cpu.unet.parameters():
+            if not p.any():  # the zero-init leaves, so that every path contributes
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+    gpu = AudioLDMPipeline(*(copy.deepcopy(m).to(cuda_dev) for m in
+                             (cpu.unet, cpu.vae, cpu.vocoder)),
+                           cpu.schedule, latent_f=4, latent_t=16)
+    film = film_pool(torch.randn(2, 5, 24, generator=gen))
+    x_T = torch.randn(2, 4, 4, 16, generator=gen)
+    n1, n2 = k1.launches, k2.launches
+    for plms in (False, True):
+        outs = []
+        for pipe, dev in ((gpu, cuda_dev), (cpu, torch.device("cpu"))):
+            z = pipe.sample(x_T.to(dev), film.to(dev), torch.zeros_like(film).to(dev), 3.0,
+                            ddim_steps=4, use_plms=plms)
+            mel = pipe.decode(z)
+            outs.append((z, mel, pipe.vocode(mel)))
+        for g, c in zip(*outs):
+            assert g.shape == c.shape and torch.isfinite(g).all()
+            assert (g.cpu() - c).abs().max().item() <= 1e-3 * max(1.0, c.abs().max().item())
+    assert (k1.launches, k2.launches) == (n1, n2)
+
+
+@pytest.mark.cuda
 def test_lightning_checkpoint_on_the_card_matches_cpu(cuda_dev, tmp_path):
     """A small Lightning checkpoint (EMA section, weight-normed vocoder in
     both namings) loaded with device="cuda" serves what the same files give

@@ -1,5 +1,7 @@
 """Import hygiene of the port: maa3_tpu_torch and chip_smoke.py import no
-JAX, nothing of the JAX package, no PyYAML, transformers or tokenizers;
+JAX, no Orbax, nothing of the JAX package, no PyYAML, transformers or
+tokenizers; orbax_to_torch.py, the one file of the port that imports JAX
+and Orbax, takes nothing from maa3_tpu_torch that imports them;
 the port's YAML reader agrees with yaml.safe_load on every config; and
 chip_smoke.py fails, printing no result, where there is no GPU or no repo."""
 
@@ -19,7 +21,8 @@ from maa3_tpu_torch.config import load_yaml
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "flax", "maa3_tpu", "yaml", "transformers", "tokenizers")
+BLOCKED = ("jax", "jaxlib", "flax", "orbax", "maa3_tpu", "yaml", "transformers",
+           "tokenizers")
 
 
 def _port_sources():
@@ -27,7 +30,7 @@ def _port_sources():
 
 
 def test_sources_reference_no_jax_package():
-    pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|yaml|transformers|"
+    pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|orbax|yaml|transformers|"
                      r"tokenizers|maa3_tpu)\b|\bmaa3_tpu\.", re.M)
     bad = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
            for p in _port_sources() for m in pat.finditer(p.read_text())]
@@ -95,6 +98,46 @@ def test_serving_modules_are_among_the_checked_sources(module):
     mel extraction CLIs, and the evaluation CLIs are among the sources the
     two tests above read and import with JAX blocked."""
     assert ROOT / "maa3_tpu_torch" / f"{module}.py" in _port_sources()
+
+
+@pytest.mark.parametrize("module", ["diffusion/schedules", "diffusion/ddim",
+                                    "diffusion/ddpm_loss", "diffusion/transport",
+                                    "diffusion/classifier_guidance", "models/vae2d",
+                                    "models/unet2d", "pipeline_audioldm"])
+def test_legacy_modules_are_among_the_checked_sources(module):
+    """The legacy models and samplers are among the sources the two tests
+    above read and import with JAX blocked."""
+    assert ROOT / "maa3_tpu_torch" / f"{module}.py" in _port_sources()
+
+
+def test_converter_takes_nothing_that_imports_jax(tmp_path):
+    """Every maa3_tpu_torch module orbax_to_torch.py imports (at the top or
+    inside a function) imports with JAX, Orbax and the JAX package blocked."""
+    import ast
+    tree = ast.parse((ROOT / "orbax_to_torch.py").read_text())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and (node.module or "").startswith("maa3_tpu_torch"):
+            for a in node.names:  # `from pkg import module`, or a name of a module
+                sub = f"{node.module}.{a.name}"
+                mods.add(sub if (ROOT / (sub.replace(".", "/") + ".py")).exists()
+                         else node.module)
+        elif isinstance(node, ast.Import):
+            mods |= {a.name for a in node.names if a.name.startswith("maa3_tpu_torch")}
+    assert {"maa3_tpu_torch.weights", "maa3_tpu_torch.system",
+            "maa3_tpu_torch.models.t5"} <= mods, mods
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        for m in {sorted(mods)!r}:
+            importlib.import_module(m)
+        print("OK")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=tmp_path, env=dict(os.environ, PYTHONPATH=""))
+    assert out.returncode == 0 and out.stdout.strip() == "OK", out.stderr[-3000:]
 
 
 @pytest.mark.parametrize("module", ["__init__", "mesh", "tp", "fsdp"])
