@@ -24,6 +24,10 @@ the world split into world / N data ranks); rank 0 serves HTTP and the
 other ranks sample each batch in lockstep (serving.follow):
 
     torchrun --nproc_per_node 2 -m maa3_tpu_torch.serve --n_model 2 ...
+
+--trace_out PATH turns the program's spans on (maa3_tpu_torch/trace.py)
+from start-up and writes them at shutdown to PATH as JSON lines (a rank
+above 0 writes PATH.rank<k>).
 """
 
 from __future__ import annotations
@@ -70,14 +74,23 @@ def parse_args(argv=None):
     p.add_argument("--n_model", type=int, default=1,
                    help="tensor-parallel serving over n_model GPUs (under torchrun)")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--trace_out", type=str, default="",
+                   help="write the program's spans as JSON lines here at shutdown")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     opt = parse_args(argv)
     from maa3_tpu_torch.parallel.mesh import distributed
+    from maa3_tpu_torch import trace
     with distributed(opt.device) as device:
-        _serve(opt, device)
+        if opt.trace_out:
+            trace.enable(device)
+        try:
+            _serve(opt, device)
+        finally:
+            if opt.trace_out:
+                trace.dump(opt.trace_out)
 
 
 def _serve(opt, device):

@@ -29,13 +29,24 @@ Endpoints: POST /generate {"prompt", "seed"?, "steps"?, "scale"?,
 (or JSON with the wav in base64), 400 for a malformed field or one outside
 ServeConfig's bounds (Batcher.check), 500 when the
 batch failed (counted in /stats "errors"), 503 on a queue timeout or at
-shutdown; GET /healthz (ok, device, stats); GET /stats.
+shutdown; GET /healthz (ok, device, stats); GET /stats (Batcher.stats).
+
+With tracing on (maa3_tpu_torch/trace.py) the server records, on the
+batcher thread, `serve.collect` (the wait for a first request and the batch
+window) and `serve.batch` (rows, bucket, padded) with its children
+`serve.encode`, `serve.noise`, `serve.ode`, `serve.decode`, `serve.vocode`
+(the four with device time) and `serve.deliver`; per request `serve.queue`
+(from its arrival at `Batcher.submit` to the start of the batch that takes
+it: request id, batch = the id of that `serve.batch`), and on the handler
+thread `serve.request` with its child `serve.reply` (the wav's bytes and
+their write); `serve.warmup` per warmed bucket.
 """
 
 from __future__ import annotations
 
 import base64
 import io
+import itertools
 import json
 import threading
 import time
@@ -49,9 +60,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from maa3_tpu_torch import trace
 from maa3_tpu_torch.system import check_limits
 
 MAX_STEPS = 1000  # a request's ODE steps: at most the model's timestep count
+_request_ids = itertools.count(1)
 
 
 @dataclass
@@ -80,8 +93,12 @@ class _Pending:
     wav: Optional[np.ndarray] = None
     error: Optional[str] = None
     status: int = 500              # the HTTP status of an error
-    t_in: float = field(default_factory=time.perf_counter)
-    latency_s: float = 0.0
+    id: int = field(default_factory=lambda: next(_request_ids))
+    # perf_counter_ns of the arrival at Batcher.submit (of the request's
+    # creation for a warm-up row), and the submitting thread's name
+    t_in_ns: int = field(default_factory=time.perf_counter_ns)
+    thread: Optional[str] = None
+    latency_s: float = 0.0         # from the arrival to the batch's wavs
     # set by the handler when the client stopped waiting (queue timeout):
     # the batcher drops abandoned requests instead of generating for nobody
     abandoned: bool = False
@@ -177,6 +194,8 @@ class Batcher(threading.Thread):
         self.errors = 0
         self.audio_seconds = 0.0
         self.batch_hist: dict = {}
+        self.padded_rows = 0            # bucket - rows, over the batches served
+        self.abandoned = 0              # dropped: the client's wait timed out
         self._latencies: deque = deque(maxlen=256)
         self._lock = threading.Lock()
         self._submit_lock = threading.Lock()
@@ -184,6 +203,8 @@ class Batcher(threading.Thread):
     # -- public ------------------------------------------------------------
 
     def submit(self, req: _Pending) -> None:
+        req.t_in_ns = time.perf_counter_ns()
+        req.thread = threading.current_thread().name
         with self._submit_lock:
             if self._stop_event.is_set():
                 self._refuse(req)
@@ -206,6 +227,12 @@ class Batcher(threading.Thread):
         check_limits(self.system.spec, self.system.device, req.latent_len)
 
     def stats(self) -> dict:
+        """Counters since start: requests served, failed (errors) and
+        abandoned; seconds of audio; the batch histogram (real rows ->
+        batches) and the padding rows those batches ran (bucket - rows);
+        latency_p50_s / latency_p95_s over the last 256 requests served,
+        each from its arrival at submit to its batch's wavs (before the
+        reply is encoded and written)."""
         with self._lock:
             lat = sorted(self._latencies)
             return {
@@ -214,6 +241,8 @@ class Batcher(threading.Thread):
                 "errors": self.errors,
                 "audio_seconds": round(self.audio_seconds, 1),
                 "batch_histogram": dict(self.batch_hist),
+                "padded_rows": self.padded_rows,
+                "abandoned": self.abandoned,
                 "latency_p50_s": round(lat[len(lat) // 2], 4) if lat else None,
                 "latency_p95_s":
                     round(lat[int(len(lat) * 0.95)], 4) if lat else None,
@@ -228,7 +257,8 @@ class Batcher(threading.Thread):
                               scale=self.cfg.default_scale,
                               latent_len=self.system.spec.mel_length, seed=0)
                      for _ in range(min(b, self.cfg.max_batch))]
-            self._process(batch)
+            with trace.span("serve.warmup", bucket=len(batch)):
+                self._process(batch)
 
     # -- worker loop -------------------------------------------------------
 
@@ -236,7 +266,8 @@ class Batcher(threading.Thread):
         if self.system.device.type == "cuda":
             torch.cuda.set_device(self.system.device)
         while not self._stop_event.is_set():
-            batch = self._collect()
+            with trace.span("serve.collect"):
+                batch = self._collect()
             if batch:
                 self._process(batch)
         self._drain()
@@ -269,10 +300,13 @@ class Batcher(threading.Thread):
                 req = self.queue.get(timeout=timeout)
                 if not req.abandoned:
                     return req
+                self._count_abandoned(1)
 
         if self._holdover is not None and not self._holdover.abandoned:
             first, self._holdover = self._holdover, None
         else:
+            if self._holdover is not None:
+                self._count_abandoned(1)
             self._holdover = None
             try:
                 first = next_req(0.2)
@@ -295,6 +329,10 @@ class Batcher(threading.Thread):
                 break
         return batch
 
+    def _count_abandoned(self, n: int) -> None:
+        with self._lock:
+            self.abandoned += n
+
     def _uncond(self, bucket: int):
         if bucket not in self._uc_cache:
             self._uc_cache[bucket] = self.system.get_learned_conditioning(
@@ -315,36 +353,57 @@ class Batcher(threading.Thread):
         return torch.from_numpy(np.stack(rows)).to(self.system.device)
 
     def _process(self, batch) -> None:
-        batch = sorted((r for r in batch if not r.abandoned), key=_row_key)
+        kept = [r for r in batch if not r.abandoned]
+        if len(kept) < len(batch):
+            self._count_abandoned(len(batch) - len(kept))
+        batch = sorted(kept, key=_row_key)
         if not batch:
             return
+        bucket = _bucket(len(batch), self.cfg.max_batch)
+        with trace.span("serve.batch", rows=len(batch), bucket=bucket,
+                        padded=bucket - len(batch)) as bid:
+            if bid is not None:
+                for r in batch:
+                    if r.thread is not None:  # came through submit
+                        trace.add("serve.queue", r.t_in_ns, thread=r.thread,
+                                  request=r.id, batch=bid)
+            self._run_batch(batch, bucket)
+
+    def _run_batch(self, batch, bucket: int) -> None:
         try:
             first = batch[0]
-            bucket = _bucket(len(batch), self.cfg.max_batch)
             pad = [""] * (bucket - len(batch))
             prompts = [r.prompt for r in batch] + pad
             structs = [r.struct for r in batch] + pad
-            c = self.system.get_learned_conditioning(self.system.captions(prompts, structs))
-            x0 = self._noise(batch, bucket, first.latent_len)
-            if self.lockstep is not None:
-                self.lockstep.announce({"prompts": prompts, "structs": structs,
-                                        "x0": x0.cpu().numpy(), "scale": first.scale,
-                                        "steps": first.steps})
-            z = self.system.sample_cfg(c, first.scale, self._uncond(bucket),
-                                       timesteps=first.steps, x0=x0)
-            wavs = self.system.vocode(self.system.decode_first_stage(z))
-            now = time.perf_counter()
-            with self._lock:
-                self.served += len(batch)
-                self.audio_seconds += (wavs.shape[-1] / self.cfg.sample_rate
-                                       * len(batch))
-                self.batch_hist[len(batch)] = self.batch_hist.get(len(batch), 0) + 1
-            for i, r in enumerate(batch):
-                r.wav = wavs[i]
-                r.latency_s = now - r.t_in
+            with trace.span("serve.encode", device_time=True):
+                c = self.system.get_learned_conditioning(self.system.captions(prompts, structs))
+                uc = self._uncond(bucket)
+            with trace.span("serve.noise"):
+                x0 = self._noise(batch, bucket, first.latent_len)
+                if self.lockstep is not None:
+                    self.lockstep.announce({"prompts": prompts, "structs": structs,
+                                            "x0": x0.cpu().numpy(), "scale": first.scale,
+                                            "steps": first.steps})
+            with trace.span("serve.ode", device_time=True):
+                z = self.system.sample_cfg(c, first.scale, uc, timesteps=first.steps, x0=x0)
+            with trace.span("serve.decode", device_time=True):
+                mel = self.system.decode_first_stage(z)
+            with trace.span("serve.vocode", device_time=True):
+                wavs = self.system.vocode(mel)
+            with trace.span("serve.deliver"):
+                now = time.perf_counter_ns()
                 with self._lock:
-                    self._latencies.append(r.latency_s)
-                r.event.set()
+                    self.served += len(batch)
+                    self.audio_seconds += (wavs.shape[-1] / self.cfg.sample_rate
+                                           * len(batch))
+                    self.batch_hist[len(batch)] = self.batch_hist.get(len(batch), 0) + 1
+                    self.padded_rows += bucket - len(batch)
+                for i, r in enumerate(batch):
+                    r.wav = wavs[i]
+                    r.latency_s = (now - r.t_in_ns) / 1e9
+                    with self._lock:
+                        self._latencies.append(r.latency_s)
+                    r.event.set()
         except Exception as e:  # report to the waiting clients, keep serving
             with self._lock:
                 self.errors += len(batch)
@@ -389,6 +448,11 @@ def _make_handler(batcher: Batcher):
                 self._send_json(404, {"error": "unknown path"})
 
         def do_POST(self):
+            rid = next(_request_ids)
+            with trace.span("serve.request", request=rid):
+                self._post(rid)
+
+        def _post(self, rid: int):
             if self.path != "/generate":
                 self._send_json(404, {"error": "unknown path"})
                 return
@@ -404,7 +468,7 @@ def _make_handler(batcher: Batcher):
                     scale=float(body.get("scale", cfg.default_scale)),
                     latent_len=int(body.get("latent_len",
                                             batcher.system.spec.mel_length)),
-                    seed=(int(body["seed"]) if "seed" in body else None))
+                    seed=(int(body["seed"]) if "seed" in body else None), id=rid)
                 batcher.check(req)
             except (ValueError, KeyError, TypeError, AttributeError) as e:
                 self._send_json(400, {"error": f"bad request: {e!r}"})
@@ -418,20 +482,21 @@ def _make_handler(batcher: Batcher):
             if req.error is not None:
                 self._send_json(req.status, {"error": req.error})
                 return
-            data = wav_bytes(req.wav, cfg.sample_rate)
-            meta = {"latency_s": round(req.latency_s, 4),
-                    "audio_seconds": req.wav.shape[-1] / cfg.sample_rate,
-                    "sample_rate": cfg.sample_rate}
-            if body.get("format") == "json":
-                self._send_json(200, {"wav_base64": base64.b64encode(data).decode(),
-                                      **meta})
-            else:
-                self.send_response(200)
-                self.send_header("Content-Type", "audio/wav")
-                self.send_header("Content-Length", str(len(data)))
-                self.send_header("X-Latency-S", str(meta["latency_s"]))
-                self.end_headers()
-                self.wfile.write(data)
+            with trace.span("serve.reply"):
+                data = wav_bytes(req.wav, cfg.sample_rate)
+                meta = {"latency_s": round(req.latency_s, 4),
+                        "audio_seconds": req.wav.shape[-1] / cfg.sample_rate,
+                        "sample_rate": cfg.sample_rate}
+                if body.get("format") == "json":
+                    self._send_json(200, {"wav_base64": base64.b64encode(data).decode(),
+                                          **meta})
+                else:
+                    self.send_response(200)
+                    self.send_header("Content-Type", "audio/wav")
+                    self.send_header("Content-Length", str(len(data)))
+                    self.send_header("X-Latency-S", str(meta["latency_s"]))
+                    self.end_headers()
+                    self.wfile.write(data)
 
     return Handler
 

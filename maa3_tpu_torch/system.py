@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from maa3_tpu_torch import config as config_mod
-from maa3_tpu_torch import torch_import
+from maa3_tpu_torch import torch_import, trace
 from maa3_tpu_torch.config import ModelSpec
 from maa3_tpu_torch.data.tokenizers import load_tokenizer
 from maa3_tpu_torch.diffusion import cfm
@@ -396,23 +396,28 @@ class MAA3System:
             return self.dit
         key = (_versions(self.dit), self.serve_quant, id(self._smooth_stats), id(mesh))
         if self._serving_dit is None or self._serving_key != key:
-            if self.serve_quant:
-                group, skip_w2, _, smooth = _parse_quant_mode(self.serve_quant)
-                if smooth and self._smooth_stats is None:
-                    raise RuntimeError(
-                        "serve_quant 'int8:smooth' needs activation stats - call "
-                        "system.calibrate_smooth(cond, uncond) once before sampling")
-                s = quant_serving_copy(self.dit, group, skip_w2,
-                                       self._smooth_stats if smooth else None)
-            else:  # bf16; or fp32 under TP / EP: the fused layout, fp32 weights
-                s = serving_copy(self.dit, self.compute_dtype)
-            s.cfg = self._serving_cfg()
-            if tp or ep:
-                from maa3_tpu_torch.parallel.tp import EP, TP, shard_serving_dit_
-                shard_serving_dit_(s, TP.of(mesh),
-                                   EP.of(mesh, s.cfg.num_experts) if ep else None)
-            self._serving_dit, self._serving_key = s, key
+            with trace.span("serve.serving_copy"):
+                self._serving_dit = self._build_serving_dit(tp, ep, mesh)
+            self._serving_key = key
         return self._serving_dit
+
+    def _build_serving_dit(self, tp: bool, ep: bool, mesh) -> nn.Module:
+        if self.serve_quant:
+            group, skip_w2, _, smooth = _parse_quant_mode(self.serve_quant)
+            if smooth and self._smooth_stats is None:
+                raise RuntimeError(
+                    "serve_quant 'int8:smooth' needs activation stats - call "
+                    "system.calibrate_smooth(cond, uncond) once before sampling")
+            s = quant_serving_copy(self.dit, group, skip_w2,
+                                   self._smooth_stats if smooth else None)
+        else:  # bf16; or fp32 under TP / EP: the fused layout, fp32 weights
+            s = serving_copy(self.dit, self.compute_dtype)
+        s.cfg = self._serving_cfg()
+        if tp or ep:
+            from maa3_tpu_torch.parallel.tp import EP, TP, shard_serving_dit_
+            shard_serving_dit_(s, TP.of(mesh),
+                               EP.of(mesh, s.cfg.num_experts) if ep else None)
+        return s
 
     def velocity_fn(self, dit: nn.Module):
         """velocity(x, t_int, context) of `dit` in the compute dtype, as the

@@ -52,6 +52,11 @@ reshapes to (data, n_model, E)).
 raises a ValueError naming orbax_to_torch.py, which converts it (a Trainer
 checkpoint for -r, a scripts/train_vae.py one for --vae_ckpt) where JAX is
 installed.
+
+--trace_out PATH turns the program's spans on (maa3_tpu_torch/trace.py:
+each step's loader wait, host-to-device copies, VAE encode, conditioner,
+forward, backward and optimizer) and writes them at the end of training to
+PATH as JSON lines (a rank above 0 writes PATH.rank<k>).
 """
 
 from __future__ import annotations
@@ -120,6 +125,8 @@ def parse_args(argv=None):
     p.add_argument("--multihost", action="store_true",
                    help="initialise from the launcher's environment across nodes")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--trace_out", type=str, default="",
+                   help="write the program's spans as JSON lines here at the end")
     p.add_argument("overrides", nargs="*", default=[], help="key.sub=value")
     return p.parse_args(argv)
 
@@ -161,8 +168,15 @@ def load_vae_ckpt(vae: torch.nn.Module, path: str) -> None:
 def main(argv=None):
     opt = parse_args(argv)
     from maa3_tpu_torch.parallel.mesh import distributed
+    from maa3_tpu_torch import trace
     with distributed(opt.device, opt.multihost) as device:
-        return _train(opt, device)
+        if opt.trace_out:
+            trace.enable(device)
+        try:
+            return _train(opt, device)
+        finally:
+            if opt.trace_out:
+                trace.dump(opt.trace_out)
 
 
 def _train(opt, device):

@@ -49,6 +49,10 @@ device or over a mesh of torch.distributed ranks (parallel/mesh.py):
   imports;
 - `fit(audio_logger=)` writes generated samples every N steps
   (train/audio_logger.py);
+- with tracing on (maa3_tpu_torch/trace.py), `train.step` per iteration of
+  `fit` (the step number), holding `train.loader_wait` (the loader's next),
+  `train.prepare` (the host-to-device copies and tokens, and the first
+  step's std rescale) and the step's own spans (train/step.py);
 - checkpoints every `ckpt_every` steps (the newest `keep_last_k` kept), a
   `crash` checkpoint when a step raises, tagged saves (`last`, `usr1`), and
   `restore_checkpoint`.
@@ -81,6 +85,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from maa3_tpu_torch import trace
 from maa3_tpu_torch.models.clap import clap_flan_encode_batch, video_feat_encoder_apply
 from maa3_tpu_torch.models.dit import fuse_dit_gemms, fuse_dit_state, unfuse_dit_gemms
 from maa3_tpu_torch.models.dit_moe import moe_dit_apply
@@ -408,12 +413,13 @@ class Trainer:
         data rank takes its rows); a `crash` checkpoint is saved if the step
         raises. draws replaces the generator's noise of the global batch
         (tests)."""
-        gen = self._generator(seed)
-        raw, rows = self._local_rows(raw)
-        if draws is not None and rows is not None:
-            draws = {k: v[rows[0]:rows[1]] for k, v in draws.items()}
-        batch = self.prepare_batch(raw)
-        self.maybe_rescale_by_std(batch, gen, rows)
+        with trace.span("train.prepare"):
+            gen = self._generator(seed)
+            raw, rows = self._local_rows(raw)
+            if draws is not None and rows is not None:
+                draws = {k: v[rows[0]:rows[1]] for k, v in draws.items()}
+            batch = self.prepare_batch(raw)
+            self.maybe_rescale_by_std(batch, gen, rows)
         try:
             metrics = self._train_step(self.state, batch, gen, draws, rows)
         except Exception:
@@ -436,28 +442,34 @@ class Trainer:
         last: Dict[str, float] = {}
         if max_steps <= 0:
             return last
-        for raw in loader:
-            metrics = self.train_step(raw, seed)
-            step = self.state.step
-            done = step - step0 >= max_steps
-            if step % self.log_every == 0 or done:
-                last = {k: float(v) for k, v in metrics.items()}
-                last["step"] = step
-                last["steps_per_sec"] = (step - step0) / max(time.time() - t_start, 1e-9)
-                if self.device.type == "cuda":
-                    last["peak_memory_gib"] = torch.cuda.max_memory_allocated(
-                        self.device) / 2 ** 30
-                self._log(last)
-            if self.ckpt_every and step % self.ckpt_every == 0:
-                self.save_checkpoint()
-            if audio_logger is not None and audio_logger.should_log(step):
-                self.sync_system_params()
-                caps = sample_captions or _caps_from_batch(raw)
-                if caps and self.is_main:
-                    audio_logger.log_samples(self.system, step, caps,
-                                             self._generator(seed))
-            if done:  # before drawing another batch from the loader
-                break
+        feed = iter(loader)
+        while True:
+            with trace.span("train.step", step=self.state.step + 1):
+                with trace.span("train.loader_wait"):
+                    raw = next(feed, None)
+                if raw is None:
+                    break
+                metrics = self.train_step(raw, seed)
+                step = self.state.step
+                done = step - step0 >= max_steps
+                if step % self.log_every == 0 or done:
+                    last = {k: float(v) for k, v in metrics.items()}
+                    last["step"] = step
+                    last["steps_per_sec"] = (step - step0) / max(time.time() - t_start, 1e-9)
+                    if self.device.type == "cuda":
+                        last["peak_memory_gib"] = torch.cuda.max_memory_allocated(
+                            self.device) / 2 ** 30
+                    self._log(last)
+                if self.ckpt_every and step % self.ckpt_every == 0:
+                    self.save_checkpoint()
+                if audio_logger is not None and audio_logger.should_log(step):
+                    self.sync_system_params()
+                    caps = sample_captions or _caps_from_batch(raw)
+                    if caps and self.is_main:
+                        audio_logger.log_samples(self.system, step, caps,
+                                                 self._generator(seed))
+                if done:  # before drawing another batch from the loader
+                    break
         return last
 
     def sync_system_params(self) -> None:

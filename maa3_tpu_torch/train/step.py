@@ -24,6 +24,13 @@ MoE DiT, whose conditioner encodes the batch's `video_feat`.
 Random draws (posterior noise, timesteps, flow noise) come from a
 torch.Generator, or from `draws` ({"noise", "t_int", "x0"}) so that a test
 can replay another implementation's draws.
+
+With tracing on (maa3_tpu_torch/trace.py) the step records, each with its
+device time, `train.vae_encode` (the posterior sample), `train.cond` (the
+trainable conditioner's encode), `train.forward` (the CFM loss through the
+DiT), `train.backward` (with the data-parallel gradient average) and
+`train.optimizer` (clip, update, EMA); the validation loss records the
+first three.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch import nn
 
+from maa3_tpu_torch import trace
 from maa3_tpu_torch.diffusion import cfm
 from maa3_tpu_torch.models.dit import dit_apply
 from maa3_tpu_torch.models.vae1d import AutoencoderKL, gaussian_sample, vae_encode_moments
@@ -99,8 +107,9 @@ def _loss(state: TrainState, batch: dict, generator, draws, compute_dtype,
           num_timesteps, conditioner: Optional[Conditioner], apply_fn=None,
           rows=None):
     draws = dict(draws or {})
-    z = sample_latent(state.vae, batch, generator, draws.get("noise"),
-                      rows) * state.scale_factor
+    with trace.span("train.vae_encode", device_time=True):
+        z = sample_latent(state.vae, batch, generator, draws.get("noise"),
+                          rows) * state.scale_factor
     if rows is not None:  # the timesteps, then the flow noise, as cfm_loss draws them
         if "t_int" not in draws:
             draws["t_int"] = _rows_of(rows, generator, functools.partial(
@@ -111,7 +120,7 @@ def _loss(state: TrainState, batch: dict, generator, draws, compute_dtype,
     if "context" in batch:
         context = batch["context"]
     else:
-        with full_fp32():
+        with trace.span("train.cond", device_time=True), full_fp32():
             context = conditioner(state.cond, batch)
 
     def velocity(x, t_int, c):
@@ -120,9 +129,10 @@ def _loss(state: TrainState, batch: dict, generator, draws, compute_dtype,
         return dit_apply(state.dit, x, t_int, c, compute_dtype=compute_dtype,
                          training=True)
 
-    return cfm.cfm_loss(velocity, z, context, generator,
-                        num_timesteps=num_timesteps, t_int=draws.get("t_int"),
-                        x0=draws.get("x0"))
+    with trace.span("train.forward", device_time=True):
+        return cfm.cfm_loss(velocity, z, context, generator,
+                            num_timesteps=num_timesteps, t_int=draws.get("t_int"),
+                            x0=draws.get("x0"))
 
 
 def make_train_step(num_timesteps: int = 1000, ema_decay: float = 0.9999,
@@ -142,12 +152,14 @@ def make_train_step(num_timesteps: int = 1000, ema_decay: float = 0.9999,
         state.optimizer.zero_grad()
         loss, aux = _loss(state, batch, generator, draws, compute_dtype,
                           num_timesteps, conditioner, apply_fn, rows)
-        loss.backward()
-        if grad_sync is not None:
-            grad_sync()
-        grad_norm = state.optimizer.step()
-        if state.ema is not None:
-            ema_update(state.ema, state.trainable_parameters(), ema_decay, state.step)
+        with trace.span("train.backward", device_time=True):
+            loss.backward()
+            if grad_sync is not None:
+                grad_sync()
+        with trace.span("train.optimizer", device_time=True):
+            grad_norm = state.optimizer.step()
+            if state.ema is not None:
+                ema_update(state.ema, state.trainable_parameters(), ema_decay, state.step)
         state.step += 1
         return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()},
                 "grad_norm": grad_norm}

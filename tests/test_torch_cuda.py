@@ -15,6 +15,8 @@ backward (K4b's dk and dv, K4c's dq) has no atomics and must be the same bits
 on every run.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1285,3 +1287,37 @@ def test_expert_parallel_moe_on_two_gloo_ranks_on_the_card(cuda_dev, tmp_path):
         _close(r["out"], one["out"])
         for n, gr in r["grads"].items():
             _close(gr, one["grads"][n])
+
+
+@pytest.mark.cuda
+def test_a_kernel_launched_in_a_span_lies_within_it_on_the_profilers_clock(cuda_dev):
+    """maa3_tpu_torch/trace.py's clock pair puts a span on torch.profiler's
+    clock on the card: a GEMM launched and waited for inside the span starts
+    and ends within the span mapped onto the clock of the profiler's CUDA
+    events (5 ms of host sleep on either side: the mapping holds to better
+    than 4 ms), and the span's device time covers the GEMM's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from maa3_tpu_torch import trace
+    x = torch.randn(4096, 4096, device=cuda_dev)
+    x @ x
+    torch.cuda.synchronize()
+    trace.enable(cuda_dev)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with trace.span("outer", device_time=True):
+                time.sleep(0.005)
+                x @ x
+                torch.cuda.synchronize()
+                time.sleep(0.005)
+        d = trace.drain()
+    finally:
+        trace.disable()
+    (s,) = d["spans"]
+    c = d["clock"]
+    lo, hi = (t - c["perf_ns"] + c["unix_ns"] for t in (s["start_ns"], s["end_ns"]))
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type().name == "CUDA" and not e.is_user_annotation()]
+    gemm = max(kernels, key=lambda e: e.end_ns() - e.start_ns())
+    assert lo + 4e6 < gemm.start_ns() < gemm.end_ns() < hi - 4e6
+    assert s["device_ms"] >= (gemm.end_ns() - gemm.start_ns()) / 1e6

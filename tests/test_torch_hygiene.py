@@ -92,7 +92,7 @@ def test_imports_and_cpu_path_with_blocked_modules(tmp_path):
 @pytest.mark.parametrize("module", ["torch_import", "serving", "serve", "train_vae",
                                     "train_vocoder", "mel_spec", "cal_clap_score",
                                     "cal_fd_score", "train_melclf", "predict_melclf",
-                                    "structurize_captions"])
+                                    "structurize_captions", "trace"])
 def test_serving_modules_are_among_the_checked_sources(module):
     """The checkpoint import, the server and its CLI, the GAN training and
     mel extraction CLIs, and the evaluation CLIs are among the sources the
