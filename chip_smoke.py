@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (maa3_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile | --xxl-batch-probe]
+    python3 chip_smoke.py [--profile | --xxl-batch-probe | --attn-crossover]
 
 Phases, each timed on a line of its own:
   1. environment: card name and power limit (nvidia-smi), torch, nvcc;
@@ -29,6 +29,7 @@ Phases, each timed on a line of its own:
      made nonzero) turns 4 prompts into 10 s of 16 kHz audio each: CLAP+FLAN
      conditioning -> planned 25-step CFG ODE (bf16, fp32 residual) -> fp32
      VAE decode -> bf16 BigVGAN, with the kernel launch counts of the run
+     (K3a 2 x 28 x 24: self- and cross-attention, each block, each step)
      (--profile adds one run under torch.profiler: device busy share and
      the kernels that take the most device time);
   6. flash kernels: K3a / K3b (forward), K4a (fused backward) and K4b / K4c
@@ -41,7 +42,17 @@ Phases, each timed on a line of its own:
      o and lse, K4b's dk and dv and K4c's dq the same bits over two launches;
      then the long-Lq timing at (1, 16, 14336, 72) bf16: the K3b forward
      against SDPA's forward, K4a against K4b + K4c against SDPA's backward,
-     all held to the plain versions two heads at a time;
+     all held to the plain versions two heads at a time; then the serving
+     DiT's attention on the card's route (bf16, latent 312): K3a against
+     its plain version at XL's closed-loop shape (32 dual rows x 16 heads of
+     72) and XXL's (8 dual rows x 32 heads of 48), self and the 154-token
+     context, and at phase 5's shape (8 dual rows, XL) the card's time
+     (torch.profiler) of K3a, self and cross, of the layout copies the
+     planned step makes for it, and of the dense `_sdpa` it replaces.
+     --attn-crossover instead times K3a against `_sdpa` as the planned step
+     calls each at 2-32 dual rows over latent lengths 39-624, self and
+     cross, alone (no result line): whether flash still wins at every
+     length, as models/dit.py card_attention_route assumes;
   7. small training on the card against the CPU: two fp32 steps of a small
      DiT with flash attention forced on, same weights and draws; then two
      Trainer steps that also train a small conditioner with
@@ -74,9 +85,11 @@ Phases, each timed on a line of its own:
      runs them, by captions and seed: cuDNN's bf16 vocoder convolutions
      round a row by its place in the batch),
      every response a 16 kHz wav of 131,072 samples, no error, K1 72 / K2 37
-     launches per batch vocode, no thread left after shutdown; p50 latency
-     and audio seconds per second at batch 8; then the XL ODE at batch 8 and
-     16 with MAA3_ODE_CHUNK 0 and 8; then an AMPBlock2 and an lrelu vocoder
+     launches per batch vocode, K3a 2 x 16 x 24 per 25-step batch over
+     rounds 2-3 and the request alone, no thread left after shutdown; p50
+     latency and audio seconds per second at batch 8; then the XL ODE at
+     batch 8 and 16 with MAA3_ODE_CHUNK 0 and 8 (K3a 2 x 28 x 24 per
+     sub-batch ODE); then an AMPBlock2 and an lrelu vocoder
      at BigVGAN 1536 width on the card against the CPU (fp32, 1e-3; AMP2
      reaches K1 and K2, lrelu neither). --profile leaves it unprofiled.
  12. the remaining trainer options at XL width (random weights from the
@@ -94,7 +107,8 @@ Phases, each timed on a line of its own:
      over 2 batches, the audio logger at update 2 on 4 captions (25 steps):
      parameters unchanged by the first micro-step of each update and moved
      by the second, K3a 56 / K4a 28 per micro-step, finite validation
-     losses, 4 16 kHz wavs, K1 72 / K2 37 in the logger's vocode, no thread
+     losses, 4 16 kHz wavs, K1 72 / K2 37 in the logger's vocode and K3a
+     2 x 28 x 24 in its ODE, no thread
      left once the loader is closed; ms per update, tokens per second, peak,
      the host's wait on the loader; (c) cached latents: encode_latents over
      the manifest with the XL VAE, then the frozen-conditioner 6 x 1248 step
@@ -130,7 +144,8 @@ Phases, each timed on a line of its own:
      prompts x 10 s, 25 steps, guidance 5.0) in bf16 and in int8, int8:g128,
      int8:now2, int8:smooth (after calibrate_smooth) and int8:voc from the
      same weights and noise: end-to-end and ODE ms, the latent's relative L2
-     to bf16, _int_mm launches per request, K1 / K2 72 / 37 in every mode;
+     to bf16, _int_mm launches per request, K1 / K2 72 / 37 and K3a
+     2 x 28 x 24 in every mode;
      then the ODE alone at batch 16, bf16 and int8 (--profile adds one of
      each under torch.profiler); (c) python -m
      maa3_tpu_torch.video2audio at the video config's full width (MoE DiT
@@ -148,7 +163,8 @@ Phases, each timed on a line of its own:
      624) with running BN statistics and without, the Melception's logits,
      features and aux, LPAPS; (b) the eval flow, every file under
      build/chip_smoke_eval/ (the norm statistics too): phase 5's XL system
-     generates 8 clips of 10 s (2 x batch 4; K1 / K2 counted as "eval"),
+     generates 8 clips of 10 s (2 x batch 4; K1 / K2 and K3a counted as
+     "eval"),
      their wavs, manifest and VAE mels, reference mels by mel_spec; then
      train_melclf (VGGishish, 20 steps over phase 12's mels with labels,
      --norm, --val_tsv), predict_melclf on its file, cal_fd_score with that
@@ -166,10 +182,11 @@ Phases, each timed on a line of its own:
      as configs/txt2audio-cfm-cfg-XXL.yaml writes it (DiT 1536 x 32 x 32
      heads of 48, 1.47 B; random weights from the seed, gates made nonzero)
      serves 4 prompts x 10 s, 25 steps, guidance 5.0, bf16 through
-     shard_serving: end-to-end and ODE ms, peak memory, K1 / K2 72 / 37
-     ("xxl_serve"); a depth-2 model of XXL width in fp32 sampled with
-     shard_serving and without it: the same bits; (b) the YAML's training
-     (trainable conditioner) through Trainer(n_model=1, fsdp=True), a no-op
+     shard_serving: end-to-end and ODE ms, peak memory, K1 / K2 72 / 37,
+     K3a 2 x 32 x 24 ("xxl_serve"); a depth-2 model of XXL width in fp32
+     sampled with shard_serving and without it: the same bits; (b) the
+     YAML's training (trainable conditioner) through Trainer(n_model=1,
+     fsdp=True), a no-op
      FSDP at data width 1, batch XXL_TRAIN at latent 1248 (the flash route),
      bf16: one warm and three timed steps, K3a / K4a 32 / 32 per step at
      (8, 32, 1248, 48) ("xxl_train"; phase 6 holds that shape to its plain
@@ -248,6 +265,7 @@ PEAK_BW, PEAK_FP32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 ACT_OPS, ACT_OPS_SIN_AS_ONE = 96, 56
 
 B, LATENT = 4, 312                       # 4 prompts, 10 s clips
+XL_DEPTH = 28                            # configs/txt2audio-cfm-cfg-XL.yaml's DiT
 K1_STAGES = [(768, 2496), (384, 9984), (192, 19968), (96, 39936)]
 K2_STAGES = [(48, 79872), (24, 159744)]
 # phase 11's served music vocode (batch 8, mel 512 -> 131,072 samples): its
@@ -269,6 +287,18 @@ XXL_FLASH = (XXL_TRAIN[0], 32, XXL_TRAIN[1], 48)
 FLASH_SHAPES = [(6, 16, 1248, 72, False, None), (2, 16, 2048, 72, False, None),
                 (4, 16, 312, 72, False, None), (3, 4, 1000, 24, True, None),
                 (4, 16, 312, 72, False, 64), XXL_FLASH + (False, None)]
+# the serving DiT's attention on the card's route, a 154-token context:
+# the shapes held to the plain versions (B, H, L, D): XL's closed loop (16
+# requests, 32 dual rows, 16 heads of 72) and phase 16's XXL (4 prompts, 8
+# dual rows, 32 heads of 48); phase 5's shape, timed; dual rows x latent
+# lengths of --attn-crossover
+SERVE_EULER_STEPS = 24     # a 25-point grid
+SERVE_ATTN_SHAPES = {"xl_closed_loop": (32, 16, 312, 72), "xxl": (8, 32, 312, 48)}
+SERVE_STEP_ATTN = (2 * B, 16, LATENT, 72)
+CONTEXT_LEN = 154
+SERVE_ROWS = (2, 4, 8, 16, 32)
+SERVE_LENS = (39, 78, 117, 156, 234, 312, 468, 624)
+
 # long-Lq timing: the first 256-multiple of query rows past the JAX
 # package's split point for head dim 72 in bf16 (~13.8k rows, where the fused
 # body's fp32 dq block outgrows its 10 MiB VMEM budget)
@@ -621,8 +651,18 @@ def profile_run(torch, run, ref_ms) -> None:
                 f"{e.count:6d}x {name.group(1)}")
 
 
+def serve_k3a(depth: int, odes: int = 1) -> int:
+    """K3a launches of `odes` 25-step CFG ODEs on the card's serving route:
+    self- and cross-attention in each of `depth` blocks at each Euler
+    step."""
+    return 2 * depth * SERVE_EULER_STEPS * odes
+
+
 def main_path(torch, system_mod, config_path, k1, k2, profile=False):
-    """Phase 5: the XL main path; returns (stage times, launch counts)."""
+    """Phase 5: the XL main path; returns (stage times, K1 / K2 launch
+    counts, K3a launches of the ODE: the planned step's self- and
+    cross-attention in every block at every Euler step)."""
+    from maa3_tpu_torch.ops import flash_attention as fa
     t = time.perf_counter()
     system = system_mod.MAA3System.from_config(
         [config_path], seed=0, compute_dtype=torch.bfloat16, device="cuda",
@@ -652,6 +692,7 @@ def main_path(torch, system_mod, config_path, k1, k2, profile=False):
         if counted:  # count exactly this run's launches
             k1.launches = 0
             k2.launches = 0
+            fa.launches["K3a"] = 0
         s0 = time.perf_counter()
         c = stage("encode", lambda: system.get_learned_conditioning(prompts))
         uc = stage("encode_uncond", lambda: system.get_learned_conditioning(empty))
@@ -667,6 +708,7 @@ def main_path(torch, system_mod, config_path, k1, k2, profile=False):
     run(False)  # warm-up: cuBLAS/cuDNN handles, the serving copy, caches
     torch.cuda.reset_peak_memory_stats()
     c, z, mel, wav, times, counts = run(True)
+    k3a = fa.launches["K3a"]
     import numpy as np
     log(f"main path: context {tuple(c.shape)} latent {tuple(z.shape)} "
         f"mel {tuple(mel.shape)} wav {wav.shape}; peak memory "
@@ -679,11 +721,14 @@ def main_path(torch, system_mod, config_path, k1, k2, profile=False):
     require(0 < np.abs(wav).max() <= 1.0, "wav in [-1, 1] and not silent")
     for k, v in times.items():
         log(f"main path stage {k}: {v * 1e3:.2f} ms")
-    log(f"main path launches: K1 {counts[0]}, K2 {counts[1]} (expect {K1_K2_PER_VOCODE})")
+    want_k3a = serve_k3a(system.spec.dit.depth)
+    log(f"main path launches: K1 {counts[0]}, K2 {counts[1]} (expect {K1_K2_PER_VOCODE}), "
+        f"K3a {k3a} (expect {want_k3a}: self and cross in each block at each Euler step)")
     require(counts == K1_K2_PER_VOCODE, f"launch counts {counts} == {K1_K2_PER_VOCODE}")
+    require(k3a == want_k3a, f"the ODE's K3a launches {k3a} == {want_k3a}")
     if profile:
         profile_run(torch, run, times["end_to_end"] * 1e3)
-    return times, counts
+    return times, counts, k3a
 
 
 def check_flash(torch, fa, full_fp32, shapes=FLASH_SHAPES):
@@ -828,6 +873,142 @@ def check_flash(torch, fa, full_fp32, shapes=FLASH_SHAPES):
     bad = [r for r in rows if not all(e <= lim for e, lim in r["errs"].values())]
     require(not bad, f"flash kernels agree with their plain versions: {bad}")
     return rows
+
+
+def profiled_ms(torch, fn, calls: int = 20) -> float:
+    """The card's time per call of fn, in ms: the device time of every kernel
+    that `calls` calls launch, as torch.profiler records it (after one warm
+    call), over `calls`."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False))
+    require(us > 0, "the profiler records the card's kernels")
+    return us / 1e3 / calls
+
+
+def serve_attention(torch, fa, full_fp32):
+    """Phase 6, the serving DiT's attention on the card's route (bf16, a
+    CONTEXT_LEN-token context): K3a against its plain version at each
+    SERVE_ATTN_SHAPES shape, self and cross; then, at phase 5's shape
+    (SERVE_STEP_ATTN), the card's time (profiled_ms) of K3a alone, self and
+    cross, of the layout copies the planned step makes for them (q, and the
+    self-attention's k and v, to contiguous (B, H, L, D)), and of the dense
+    `_sdpa` the route replaces, self and cross. Returns those times, per
+    call."""
+    from maa3_tpu_torch.ops.attention import _sdpa
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf = torch.bfloat16
+    for what, (b, h, n, d) in SERVE_ATTN_SHAPES.items():
+        scale = d ** -0.5
+        q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev).to(bf) for _ in range(3))
+        yk, yv = (torch.randn(b, h, CONTEXT_LEN, d, generator=g, device=dev).to(bf)
+                  for _ in range(2))
+        for kind, kk, vv in (("self", k, v), ("cross", yk, yv)):
+            n0 = fa.launches["K3a"]
+            o = fa.flash_attention(q, kk, vv, scale=scale)
+            torch.cuda.synchronize()
+            require(fa.launches["K3a"] == n0 + 1, f"{what} serving {kind} attention runs K3a")
+            with full_fp32():
+                o_ref, _ = fa.flash_fwd_plain(q, kk, vv, None, scale, "direct")
+            err = (o.float() - o_ref.float()).abs().max().item()
+            lim = TOL_BF16 * max(1.0, o_ref.abs().max().item())
+            require(err <= lim, f"K3a {what} serving {kind} {(b, h, n, d)} x Lk "
+                    f"{kk.shape[2]}: {err:.3e} <= {lim:.3e}")
+            log(f"serving attention ({what}) {kind} {(b, h, n, d)} x Lk {kk.shape[2]}: "
+                f"K3a vs plain {err:.3e} (limit {lim:.3e})")
+        del q, k, v, yk, yv, o, o_ref
+    b, h, n, d = SERVE_STEP_ATTN
+    scale = d ** -0.5
+    # as the planned step holds them: (B, L, H, D) projections, the context
+    # K/V head-major and contiguous from the plan
+    q, k, v = (torch.randn(b, n, h, d, generator=g, device=dev).to(bf) for _ in range(3))
+    yk, yv = (torch.randn(b, h, CONTEXT_LEN, d, generator=g, device=dev).to(bf)
+              for _ in range(2))
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms = {"k3a_self": profiled_ms(torch, lambda: fa.flash_attention(qh, kh, vh, scale=scale)),
+          "k3a_cross": profiled_ms(torch, lambda: fa.flash_attention(qh, yk, yv, scale=scale)),
+          "layout": profiled_ms(torch, lambda: [t.transpose(1, 2).contiguous()
+                                               for t in (q, k, v)]),
+          "dense_self": profiled_ms(torch, lambda: _sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                                         v.transpose(1, 2), scale, None)),
+          "dense_cross": profiled_ms(torch, lambda: _sdpa(q.transpose(1, 2), yk, yv, scale,
+                                                          None))}
+    log(f"serving attention at phase 5's {SERVE_STEP_ATTN} x Lk {n} / {CONTEXT_LEN}, "
+        f"card ms per call (profiler): K3a self {ms['k3a_self']:.4f}, cross "
+        f"{ms['k3a_cross']:.4f}, layout copies {ms['layout']:.4f}; dense self "
+        f"{ms['dense_self']:.4f}, cross {ms['dense_cross']:.4f}")
+    del q, k, v, yk, yv, qh, kh, vh
+    torch.cuda.empty_cache()
+    return ms
+
+
+def attn_crossover(torch, fa):
+    """chip_smoke.py --attn-crossover: K3a against `_sdpa` as
+    ops/attention.py calls each in the planned step (flash: q copied to
+    (B, H, L, D) once, k and v of self-attention too, the context already
+    head-major; dense: views), bf16, 16 heads of 72, over SERVE_ROWS x
+    SERVE_LENS, self, cross and both: whether flash still wins at every
+    length, as models/dit.py card_attention_route assumes."""
+    from maa3_tpu_torch.ops.attention import _sdpa
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    h, d = SERVE_STEP_ATTN[1], SERVE_STEP_ATTN[3]
+    scale = d ** -0.5
+    bf = torch.bfloat16
+    ms = {}
+    for rows in SERVE_ROWS:
+        for n_tok in SERVE_LENS:
+            q, k, v = (torch.randn(rows, n_tok, h, d, generator=g, device=dev).to(bf)
+                       for _ in range(3))
+            yk, yv = (torch.randn(rows, h, CONTEXT_LEN, d, generator=g, device=dev).to(bf)
+                      for _ in range(2))
+
+            def self_flash():
+                return fa.flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2),
+                                          v.transpose(1, 2), scale=scale)
+
+            def cross_flash():
+                return fa.flash_attention(q.transpose(1, 2).contiguous(), yk, yv, scale=scale)
+
+            def both_flash():
+                qc = q.transpose(1, 2).contiguous()
+                return (fa.flash_attention(qc, k.transpose(1, 2), v.transpose(1, 2),
+                                           scale=scale),
+                        fa.flash_attention(qc, yk, yv, scale=scale))
+
+            def self_dense():
+                return _sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale,
+                             None)
+
+            def cross_dense():
+                return _sdpa(q.transpose(1, 2), yk, yv, scale, None)
+
+            def both_dense():
+                return self_dense(), cross_dense()
+
+            ms[rows, n_tok] = {nm: time_ms(fn) for nm, fn in (
+                ("self_flash", self_flash), ("self_dense", self_dense),
+                ("cross_flash", cross_flash), ("cross_dense", cross_dense),
+                ("both_flash", both_flash), ("both_dense", both_dense))}
+            m = ms[rows, n_tok]
+            log(f"serving attention {rows:2d} rows x L {n_tok:3d}: self flash "
+                f"{m['self_flash']:.4f} / dense {m['self_dense']:.4f} ms, cross flash "
+                f"{m['cross_flash']:.4f} / dense {m['cross_dense']:.4f} ms, both "
+                f"{m['both_flash']:.4f} / {m['both_dense']:.4f} ms "
+                f"({m['both_dense'] / m['both_flash']:.2f}x)")
+            del q, k, v, yk, yv
+    losses = [(r, n_tok, kind) for (r, n_tok), m in ms.items() for kind in ("self", "cross")
+              if m[f"{kind}_flash"] > m[f"{kind}_dense"]]
+    log(f"serving attention crossover: the card's route takes flash at every length, "
+        f"which {'NO LONGER holds: flash slower at ' + str(losses) if losses else 'still holds'}"
+        f" (rows {SERVE_ROWS}, lengths {SERVE_LENS})")
 
 
 def long_lq(torch, fa, full_fp32):
@@ -1303,6 +1484,7 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
     import threading
     import numpy as np
     from maa3_tpu_torch.models.clap import FLAN
+    from maa3_tpu_torch.ops import flash_attention as fa
     from maa3_tpu_torch.serving import AudioServer, ServeConfig
     root = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
@@ -1365,7 +1547,9 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
 
         server.batcher._process, system.captions = logged_process, logged_captions
         k1.launches = k2.launches = 0  # count exactly the requests below
-        for bs in (bodies + other, bodies, bodies):
+        for n, bs in enumerate((bodies + other, bodies, bodies)):
+            if n == 1:  # K3a: rounds 2-3 and the request alone, 25 steps a batch
+                fa.launches["K3a"] = 0
             h0 = hist()
             rounds.append(_round(server.port, bs))
             h1 = hist()
@@ -1374,7 +1558,7 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
         alone = _http(server.port, bodies[0])
         h1 = hist()
         hists.append({n: h1[n] - h0.get(n, 0) for n in h1 if h1[n] != h0.get(n, 0)})
-        launches = (k1.launches, k2.launches)
+        launches, k3a = (k1.launches, k2.launches), fa.launches["K3a"]
         stats = server.batcher.stats()
     finally:
         server.shutdown()
@@ -1406,6 +1590,9 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
                        f"bytes: {same}")
     require(launches == (K1_K2_PER_VOCODE[0] * n_batches, K1_K2_PER_VOCODE[1] * n_batches),
             f"K1 / K2 launches {launches} over {n_batches} batch vocodes")
+    want_k3a = serve_k3a(system.dit.cfg.depth, sum(sum(h.values()) for h in hists[1:]))
+    require(k3a == want_k3a, f"serve: K3a launches {k3a} == {want_k3a} over rounds 2-3 and "
+            f"the request alone")
     diff = np.abs(_pcm(alone[1])[1].astype(np.int32)
                   - _pcm(rounds[1][0][0][1])[1].astype(np.int32)).max()
     lat = sorted(r[2] for rs, _ in rounds[1:] for r in rs)
@@ -1417,8 +1604,9 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
     log(f"serve: batch 8 of 8.19 s clips: p50 latency {p50 * 1e3:.1f} ms, round walls "
         f"{[round(w * 1e3, 1) for w in walls]} ms, {rate:.2f} s of audio per s; "
         f"launches per batch vocode K1 {launches[0] // n_batches}, "
-        f"K2 {launches[1] // n_batches} ({n_batches} batches)")
-    out.update(p50_ms=p50 * 1e3, audio_s_per_s=rate, launches=launches,
+        f"K2 {launches[1] // n_batches} ({n_batches} batches); K3a {k3a} over rounds 2-3 "
+        f"and the request alone")
+    out.update(p50_ms=p50 * 1e3, audio_s_per_s=rate, launches=launches, k3a=k3a,
                n_batches=n_batches, alone_diff=int(diff), counts=counts)
     del system, server
     gc.collect()
@@ -1429,7 +1617,9 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
 def ode_chunk_probe(torch, system_mod, config_path):
     """Phase 11: the XL serving ODE (25 steps, latent 312, bf16) at batch 8
     and 16 with MAA3_ODE_CHUNK 0 and 8 in turns (0, 8, 0, 8 after one warm
-    call per batch); returns {(batch, chunk): [ms, ms]}."""
+    call per batch), each call's K3a launches those of its sub-batch ODEs;
+    returns {(batch, chunk): [ms, ms]}."""
+    from maa3_tpu_torch.ops import flash_attention as fa
     system = system_mod.MAA3System.from_config(
         [config_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
     g = torch.Generator(device="cuda").manual_seed(21)
@@ -1442,10 +1632,14 @@ def ode_chunk_probe(torch, system_mod, config_path):
             zs = {}
             for i, chunk in enumerate((8, 0, 8, 0, 8)):
                 os.environ["MAA3_ODE_CHUNK"] = str(chunk)
+                n0 = fa.launches["K3a"]
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 zs[chunk] = system.sample_cfg(c, 5.0, uc, x0=x0, timesteps=25)
                 torch.cuda.synchronize()
+                want = serve_k3a(XL_DEPTH, b // chunk if chunk and b > chunk else 1)
+                require(fa.launches["K3a"] - n0 == want, f"ODE chunk: batch {b} chunk {chunk}: "
+                        f"K3a launches {fa.launches['K3a'] - n0} == {want}")
                 if i:  # the first call warms up
                     ms.setdefault((b, chunk), []).append((time.perf_counter() - t) * 1e3)
             dz = (zs[8] - zs[0]).abs().max().item()
@@ -1698,13 +1892,15 @@ def recipe_run(torch, system_mod, config_path, fa, k1, k2, tsv):
     waits, steps, vals, logged = [], [], [], []
     real_log = logger.log_samples
 
-    def log_samples(*a, **kw):  # time the logger and count its vocode's launches
+    def log_samples(*a, **kw):  # time the logger and count its launches
         k1.launches = k2.launches = 0
+        flash0 = dict(fa.launches)
         torch.cuda.synchronize()
         s = time.perf_counter()
         out = real_log(*a, **kw)
         torch.cuda.synchronize()
-        logged.append((out, (time.perf_counter() - s) * 1e3, (k1.launches, k2.launches)))
+        logged.append((out, (time.perf_counter() - s) * 1e3, (k1.launches, k2.launches),
+                       {n: fa.launches[n] - flash0[n] for n in FLASH_KERNELS}))
         return out
 
     logger.log_samples = log_samples
@@ -1724,10 +1920,13 @@ def recipe_run(torch, system_mod, config_path, fa, k1, k2, tsv):
             m = trainer.fit(feed, max_steps=1, audio_logger=logger,
                             sample_captions=LOGGER_CAPTIONS)
             torch.cuda.synchronize()
-            # the step's time without the audio logger's, timed on its own
+            # the step's time and launches without the audio logger's (its
+            # sampling runs the serving route), each counted on its own
             ms = (time.perf_counter() - s) * 1e3 - sum(x[1] for x in logged[n_logged:])
             moved = max((a - b).abs().max().item() for a, b in zip(params(), before))
-            steps.append((ms, dict(fa.launches), m, moved))
+            counts = {n: fa.launches[n] - sum(x[3][n] for x in logged[n_logged:])
+                      for n in FLASH_KERNELS}
+            steps.append((ms, counts, m, moved))
             require(np.isfinite(m["loss"]), f"recipe micro-step {i + 1}: finite loss")
             require((moved > 0) == ((i + 1) % r["accum_steps"] == 0),
                     f"recipe micro-step {i + 1}: parameters moved {moved:.3e} only on "
@@ -1777,17 +1976,20 @@ def check_recipe(steps, vals, logged, waits, peak):
             f"batches, {v['ms']:.1f} ms")
     require(len(vals) == r["micro_steps"] // r["val_every"], "recipe: every validation ran")
     require(len(logged) == 1, f"recipe: the audio logger ran once ({len(logged)})")
-    out, ms, counts = logged[0]
+    out, ms, counts, flash = logged[0]
     wavs = sorted(f for f in os.listdir(out) if f.endswith(".wav"))
     log(f"recipe: audio logger at micro-step {r['audio_log_every']}: {len(wavs)} wavs in "
-        f"{ms:.1f} ms, K1 {counts[0]}, K2 {counts[1]}")
+        f"{ms:.1f} ms, K1 {counts[0]}, K2 {counts[1]}, flash {flash}")
     require(wavs == [f"{i:02d}.wav" for i in range(4)], f"recipe: 4 wavs ({wavs})")
     for w in wavs:
         rate, pcm = wavfile.read(os.path.join(out, w))
         require(rate == 16000 and pcm.dtype == np.int16 and pcm.size > 0
                 and np.abs(pcm).max() > 0, f"recipe: {w} a 16 kHz int16 wav, not silent")
     require(counts == K1_K2_PER_VOCODE, f"recipe: K1 / K2 per vocode {counts}")
-    return {"per_update": per_update, "logger_counts": counts,
+    want = {n: serve_k3a(XL_DEPTH) if n == "K3a" else 0 for n in FLASH_KERNELS}
+    require(flash == want, f"recipe: the audio logger's 25-step ODE runs the serving "
+            f"route, flash launches {flash} == {want}")
+    return {"per_update": per_update, "logger_counts": counts + (flash["K3a"],),
             "micro_step_counts": steps[-1][1]}
 
 
@@ -2327,9 +2529,9 @@ def int8_serving(torch, system_mod, config_path, k1, k2, card, profile=False):
     """Phase 14 (b): the XL system of phase 5 in bf16 and each int8 mode from
     the same weights and noise; then the ODE alone at batch 16, bf16 and
     int8 (with profile, one more of each under torch.profiler). Returns
-    {mode: (K1, K2) launches per request}."""
+    {mode: (K1, K2, K3a) launches per request}."""
     import numpy as np
-    from maa3_tpu_torch.ops import quant
+    from maa3_tpu_torch.ops import flash_attention as fa, quant
     system = system_mod.MAA3System.from_config(
         [config_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
     caps = ["a dog barks in the distance", "rain falls on a tin roof",
@@ -2360,15 +2562,16 @@ def int8_serving(torch, system_mod, config_path, k1, k2, card, profile=False):
             log(f"int8 serving: calibrate_smooth (one 25-step ODE with stats) {ms:.1f} ms")
         _, ms = _sync_ms(torch, system.serving_dit)
         request()  # warm-up: the serving copies, cuBLAS handles
-        k1.launches = k2.launches = 0
+        k1.launches = k2.launches = fa.launches["K3a"] = 0
         n_mm = quant.int_mm_calls
         z, wav, times = request()
-        counts[mode] = (k1.launches, k2.launches)
+        counts[mode] = (k1.launches, k2.launches, fa.launches["K3a"])
         require(torch.isfinite(z).all() and np.isfinite(wav).all()
                 and wav.shape == (B, 159744) and 0 < np.abs(wav).max() <= 1.0,
                 f"int8 serving {mode}: outputs")
-        require(counts[mode] == K1_K2_PER_VOCODE,
-                f"int8 serving {mode}: K1/K2 {counts[mode]} == {K1_K2_PER_VOCODE}")
+        require(counts[mode] == K1_K2_PER_VOCODE + (serve_k3a(XL_DEPTH),),
+                f"int8 serving {mode}: K1/K2/K3a {counts[mode]} == {K1_K2_PER_VOCODE} + "
+                f"{serve_k3a(XL_DEPTH)}")
         out[mode] = z.float()
         rel = (z.float() - out[None]).norm().item() / out[None].norm().item()
         mm = quant.int_mm_calls - n_mm
@@ -2376,7 +2579,7 @@ def int8_serving(torch, system_mod, config_path, k1, k2, card, profile=False):
         log(f"int8 serving ({card}) mode {mode or 'bf16'}: end to end "
             f"{times['end_to_end']:.2f} ms, ODE {times['ode']:.2f} ms, latent rel L2 vs "
             f"bf16 {rel:.3e}, _int_mm launches per request {mm}, K1 {counts[mode][0]} "
-            f"K2 {counts[mode][1]}, serving copy built in {ms:.0f} ms")
+            f"K2 {counts[mode][1]} K3a {counts[mode][2]}, serving copy built in {ms:.0f} ms")
     c16, uc16 = c.repeat(4, 1, 1), uc.repeat(4, 1, 1)
     x16 = torch.randn(16, 20, LATENT, generator=torch.Generator(device="cuda").manual_seed(1),
                       device="cuda")
@@ -2577,15 +2780,17 @@ def eval_generate(torch, system_mod, config_path, k1, k2, d):
     """Phase 15 (b) 1-2: phase 5's XL system turns EVAL_CAPTIONS into 8 clips
     of 10 s (2 x batch 4); their int16 wavs <name>_0.wav, the manifest
     (name, ori_cap, audio_path) and the VAE's mels under d. Returns the
-    manifest and the K1 / K2 launches of the two vocodes."""
+    manifest and the K1 / K2 launches of the two vocodes and the K3a
+    launches of the two ODEs."""
     import numpy as np
     from scipy.io import wavfile
+    from maa3_tpu_torch.ops import flash_attention as fa
     system = system_mod.MAA3System.from_config(
         [config_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
     for sub in ("wavs", "gen_mels"):
         os.makedirs(os.path.join(d, sub), exist_ok=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    k1.launches = k2.launches = 0
+    k1.launches = k2.launches = fa.launches["K3a"] = 0
     lines = ["name\tori_cap\taudio_path"]
     t = time.perf_counter()
     for b in range(0, EVAL_CLIPS, B):
@@ -2604,11 +2809,12 @@ def eval_generate(torch, system_mod, config_path, k1, k2, d):
             wavfile.write(path, 16000, (np.clip(w, -1, 1) * 32767).astype(np.int16))
             lines.append(f"{name}\t{caps[i]}\t{path}")
     torch.cuda.synchronize()
-    counts = (k1.launches, k2.launches)
-    require(counts == tuple(2 * n for n in K1_K2_PER_VOCODE),
-            f"eval generation: K1/K2 {counts} over 2 vocodes")
+    counts = (k1.launches, k2.launches, fa.launches["K3a"])
+    want = tuple(2 * n for n in K1_K2_PER_VOCODE) + (serve_k3a(XL_DEPTH, 2),)
+    require(counts == want, f"eval generation: K1/K2/K3a {counts} == {want} over 2 vocodes "
+            f"and 2 ODEs")
     log(f"eval flow: {EVAL_CLIPS} clips of 10 s generated in "
-        f"{time.perf_counter() - t:.2f} s (2 x batch {B}, 25 steps), K1 / K2 {counts}")
+        f"{time.perf_counter() - t:.2f} s (2 x batch {B}, 25 steps), K1 / K2 / K3a {counts}")
     tsv = os.path.join(d, "clips.tsv")
     with open(tsv, "w") as f:
         f.write("\n".join(lines) + "\n")
@@ -2815,8 +3021,10 @@ def nccl_world_of_one(torch) -> str:
 def xxl_serve(torch, system_mod, xxl_path, k1, k2, card, mesh):
     """Phase 16 (a): the XXL system as its YAML writes it (random weights from
     the seed, zero-init gates made nonzero), served through shard_serving on
-    the 1 x 1 mesh in bf16: 4 prompts x 10 s, 25 steps, guidance 5.0."""
+    the 1 x 1 mesh in bf16: 4 prompts x 10 s, 25 steps, guidance 5.0, with
+    the K1 / K2 launches of its vocode and the K3a launches of its ODE."""
     import numpy as np
+    from maa3_tpu_torch.ops import flash_attention as fa
     t = time.perf_counter()
     system = system_mod.MAA3System.from_config(
         [xxl_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
@@ -2848,19 +3056,23 @@ def xxl_serve(torch, system_mod, xxl_path, k1, k2, card, mesh):
     run()  # warm-up: the serving copy, cuBLAS / cuDNN handles
     torch.cuda.reset_peak_memory_stats()
     k1.launches = k2.launches = 0
+    fa.launches["K3a"] = 0
     z, wav, e2e, ode = run()
-    counts = (k1.launches, k2.launches)
+    counts, k3a = (k1.launches, k2.launches), fa.launches["K3a"]
+    want_k3a = serve_k3a(system.dit.cfg.depth)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     require(tuple(z.shape) == (B, 20, LATENT) and bool(torch.isfinite(z).all())
             and wav.shape == (B, 159744) and np.isfinite(wav).all()
             and 0 < np.abs(wav).max() <= 1.0, "XXL serve: finite outputs of the shapes")
     require(counts == K1_K2_PER_VOCODE, f"XXL serve: K1 / K2 {counts} == {K1_K2_PER_VOCODE}")
+    require(k3a == want_k3a, f"XXL serve: the ODE's K3a launches {k3a} == {want_k3a}")
     log(f"XXL serve (4 x 10 s, 25 steps, bf16, 1 x 1 mesh over NCCL): end to end "
-        f"{e2e:.1f} ms, ODE {ode:.1f} ms, peak {peak:.2f} GiB, K1 / K2 {counts}; {card}")
+        f"{e2e:.1f} ms, ODE {ode:.1f} ms, peak {peak:.2f} GiB, K1 / K2 {counts}, K3a {k3a}; "
+        f"{card}")
     del system
     gc.collect()
     torch.cuda.empty_cache()
-    return {"e2e_ms": e2e, "ode_ms": ode, "peak_gib": peak, "counts": counts}
+    return {"e2e_ms": e2e, "ode_ms": ode, "peak_gib": peak, "counts": counts, "k3a": k3a}
 
 
 def xxl_depth2_check(torch, system_mod, xxl_path, mesh, full_fp32):
@@ -3550,6 +3762,12 @@ def main() -> int:
     from maa3_tpu_torch.ops import pallas_aa_snake as k1, pallas_amp as k2
     from maa3_tpu_torch.pipeline import full_fp32
 
+    if "--attn-crossover" in sys.argv[1:]:
+        from maa3_tpu_torch.ops import flash_attention as fa
+        attn_crossover(torch, fa)
+        log("serving attention crossover: done (no result line)")
+        return 3
+
     if "--xxl-batch-probe" in sys.argv[1:]:
         # the head-dim-48 flash check and the XXL step at several batches;
         # no result line
@@ -3568,14 +3786,17 @@ def main() -> int:
     log(f"reference: small system agrees, {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
-    times, counts = main_path(torch, system_mod, config_path, k1, k2,
-                              profile="--profile" in sys.argv[1:])
+    times, counts, serve_ode_k3a = main_path(torch, system_mod, config_path, k1, k2,
+                                             profile="--profile" in sys.argv[1:])
     log(f"main path: done, {time.perf_counter() - t:.2f} s")
 
     from maa3_tpu_torch.ops import flash_attention as fa
     t = time.perf_counter()
     frows = check_flash(torch, fa, full_fp32)
     log(f"flash kernels: {len(frows)} checks passed, {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    serve_attn = serve_attention(torch, fa, full_fp32)
+    log(f"serving attention: done, {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     long_ms = long_lq(torch, fa, full_fp32)
     log(f"long-Lq: auto runs K4a at every length, which "
@@ -3772,6 +3993,18 @@ def main() -> int:
                                  "pipe_stage_step_xl_depth4_fp32":
                                      par["pipe_check"].get(name[:3], 0),
                                  "pipe_stage_step_xl": par["pipe_xl"].get(name[:3], 0)}}
+        if name[:3] == "K3a":  # the serving ODEs; phase 5's Euler step, profiled
+            m = serve_attn
+            entry["launches_by_path"].update(
+                xl_serving_ode=serve_ode_k3a, xxl_serving_ode=xxl_serving["k3a"],
+                music_server_3_batches=serve["k3a"], audio_logger=recipe["logger_counts"][2],
+                eval=eval_counts[2],
+                **{f"xl_serving_{mode}_ode": c[2] for mode, c in int8_counts.items() if mode})
+            entry["xl_serving_step"] = {
+                "shape": SERVE_STEP_ATTN, "launches": 2 * XL_DEPTH,
+                "ms": XL_DEPTH * (m["k3a_self"] + m["k3a_cross"]),
+                "layout_ms": XL_DEPTH * m["layout"],
+                "dense_ms": XL_DEPTH * (m["dense_self"] + m["dense_cross"])}
         if xxl_n:  # phase 16's XXL step at head dim 48: per step, bf16
             x = next(r for r in mine if r["shape"] == XXL_FLASH)
             entry["xxl_train"] = {k: x[k] * xxl_n for k in ("ms", "plain_ms", "bound_ms",

@@ -7,13 +7,17 @@ x (B, C, T) latents -> proj_in -> depth x [RoPE self-attn + gated cross-attn
 Blocks are an nn.ModuleList with the reference's state-dict keys
 (blocks.{i}.attention.wq.weight, ...). `dit_apply(training=True)` is the
 training forward: self-attention goes through the flash kernels from 1248
-tokens (`DiTConfig.flash_for_len`), and `remat` recomputes each block in the
-backward (torch.utils.checkpoint) under one of JAX's five `remat_policy`s
-(selective activation checkpointing, `remat_policy_fn`). `fuse_dit_gemms` /
-`unfuse_dit_gemms` move a DiT to and from the fused training layout (wqkv
-and w13 as parameters). `dit_sample_plan` /
-`dit_apply_planned` hoist the per-step adaLN modulations and the static
-cross-attention K/V out of the ODE loop, with the same ops as `dit_apply`.
+tokens (`DiTConfig.flash_for_len`, JAX's rule; cross-attention stays dense),
+and `remat` recomputes each block in the backward (torch.utils.checkpoint)
+under one of JAX's five `remat_policy`s (selective activation
+checkpointing, `remat_policy_fn`). `fuse_dit_gemms` / `unfuse_dit_gemms`
+move a DiT to and from the fused training layout (wqkv and w13 as
+parameters). `dit_sample_plan` / `dit_apply_planned` hoist the per-step
+adaLN modulations and the static cross-attention K/V (head-major, the
+layout the flash kernels read) out of the ODE loop, with the same ops as
+`dit_apply`. On the card in bf16 without autograd, the planned step sends
+self- and cross-attention to the flash forward (K3a) at every length
+(`card_attention_route`); elsewhere it follows JAX's rule.
 `serving_copy` makes the bf16 serving weights: every matmul weight rounded
 to bf16, wq/wk/wv and w1/w3 fused (JAX's cast_matmul_weights +
 fuse_dit_gemms).
@@ -35,6 +39,7 @@ from maa3_tpu_torch.ops.attention import Attention, attention_apply, context_kv
 from maa3_tpu_torch.ops.basic import (RMSNorm, TimestepEmbedder, checkpoint_names,
                                       layer_norm, linear, modulate, rms_norm, silu)
 from maa3_tpu_torch.ops.ffn import FeedForward, feed_forward_apply
+from maa3_tpu_torch.ops.flash_attention import MAX_HEAD_DIM
 from maa3_tpu_torch.ops.rope import precompute_rope
 from maa3_tpu_torch.parallel.fsdp import gathered
 
@@ -98,8 +103,10 @@ class DiTConfig:
         return self.hidden_size // self.num_heads
 
     def flash_for_len(self, seq_len: int, training: bool = False) -> bool:
-        """The JAX rule (maa3_tpu/models/dit.py:103-106): training from 1248
-        tokens, inference only above 4096."""
+        """The JAX rule (maa3_tpu/models/dit.py:103-106) for self-attention:
+        training from 1248 tokens, inference only above 4096 (a TPU
+        measurement). The planned serving step on the card routes by
+        `card_attention_route` instead."""
         if self.use_flash is not None:
             return self.use_flash
         return seq_len >= 1248 if training else seq_len > 4096
@@ -110,6 +117,21 @@ class DiTConfig:
         if self.use_flash is not None:
             return self
         return dataclasses.replace(self, use_flash=self.flash_for_len(seq_len, training))
+
+
+def card_attention_route(device_type: str, dtype: Optional[torch.dtype],
+                         grad_enabled: bool, head_dim: int, y_masked: bool) -> tuple:
+    """(self, cross): whether the planned serving step sends its self- and
+    cross-attention to the flash forward (K3a). Only on a CUDA device, in
+    bf16, without autograd and at head dims the kernels take; cross-attention
+    only without a context mask (K3a gives a fully masked row 0, the dense
+    path the mean of v, and finding such rows would cost a host sync). No
+    length threshold: on an H100 K3a beat the dense path at every latent
+    length from 39 to 624 at 2-32 dual rows, self and cross (chip_smoke.py
+    --attn-crossover, bf16, 16 heads of 72; PERF.md)."""
+    on = (device_type == "cuda" and dtype == torch.bfloat16 and not grad_enabled
+          and head_dim <= MAX_HEAD_DIM)
+    return on, on and not y_masked
 
 
 class TransformerBlock(nn.Module):
@@ -330,10 +352,13 @@ def _reduces(lin: nn.Module) -> bool:
 
 def _block_apply(blk: TransformerBlock, cfg: DiTConfig, x, cos, sin, mod,
                  y=None, y_kv=None, x_mask=None, y_mask=None,
-                 compute_dtype=None, return_stats: bool = False, tp=None):
+                 compute_dtype=None, return_stats: bool = False, tp=None,
+                 route: Optional[tuple] = None):
     """TransformerBlock.forward with the (B, 6H) modulation given.
     return_stats: also {attn_in, ffn_in, ffn_prod}, the per-channel amax of
     the three quantized-GEMM inputs (maa3_tpu/models/dit.py:376-419).
+    route: (self, cross) flash flags; default JAX's rule for self-attention
+    and dense cross-attention.
     tp: the block's weights are this rank's shards (parallel/tp.py); the
     attention and the FFN run between tp.enter and tp.exit, and x is this
     rank's sequence shard under sequence parallelism."""
@@ -347,12 +372,14 @@ def _block_apply(blk: TransformerBlock, cfg: DiTConfig, x, cos, sin, mod,
     if tp is not None:
         w_attn, w_ffn = tp.on_stream(w_attn), tp.on_stream(w_ffn)
     x_attn_in = modulate(rms_norm(w_attn, x, cfg.norm_eps), shift_msa, scale_msa)
-    seq = x.shape[1] * (tp.size if tp is not None and tp.seq_parallel else 1)
+    if route is None:
+        seq = x.shape[1] * (tp.size if tp is not None and tp.seq_parallel else 1)
+        route = (cfg.flash_for_len(seq), False)
     h_attn = attention_apply(
         blk.attention, x_attn_in if tp is None else tp.enter(x_attn_in),
         cos, sin, y=y, y_kv=y_kv, x_mask=x_mask, y_mask=y_mask,
         n_heads=cfg.num_heads, n_kv_heads=cfg.n_kv_heads,
-        compute_dtype=compute_dtype, use_flash=cfg.flash_for_len(seq),
+        compute_dtype=compute_dtype, use_flash=route[0], cross_flash=route[1],
         fp32_scores=cfg.fp32_scores, tp=tp)
     if tp is not None and not _reduces(blk.attention.wo):
         h_attn = tp.exit(h_attn)
@@ -458,7 +485,9 @@ def dit_sample_plan(dit: DiT, t_ints: torch.Tensor, context: torch.Tensor,
 
     t_ints: (S,) integer timesteps; context: (B, Ly, ctx) (for CFG the dual
     batch [uc; c]). Returns {"mods": (S, depth, B, 6H) fp32,
-    "final": (S, B, 2H) fp32, "yk"/"yv": per-block (B, Ly, kv) lists}.
+    "final": (S, B, 2H) fp32, "yk"/"yv": per-block lists of contiguous
+    head-major (B, n_kv, Ly, head_dim), the flash kernels' layout, so no
+    step transposes them}.
     """
     cfg = dit.cfg
     t_emb = dit.t_embedder(t_ints)                               # (S, H)
@@ -479,8 +508,8 @@ def dit_sample_plan(dit: DiT, t_ints: torch.Tensor, context: torch.Tensor,
         yn = yf * blk.attention_y_norm.weight.to(context.dtype)
         k, v = context_kv(blk.attention, yn.to(compute_dtype or yn.dtype),
                           compute_dtype, getattr(dit, "tp", None))
-        yk.append(k)
-        yv.append(v)
+        yk.append(k.contiguous())
+        yv.append(v.contiguous())
     return {"mods": mods, "final": final, "yk": yk, "yv": yv}
 
 
@@ -491,18 +520,27 @@ def dit_apply_planned(dit: DiT, x: torch.Tensor, mods: torch.Tensor,
                       compute_dtype: Optional[torch.dtype] = torch.bfloat16,
                       return_stats: bool = False):
     """dit_apply for one step of a plan (mods: (depth, B, 6H),
-    final_mod: (B, 2H), yk/yv: per-block (B, Ly, kv)). return_stats: also
-    {"attn_in", "ffn_in": (depth, H), "ffn_prod": (depth, H')}, the
-    per-block, per-channel amax of the quantized-GEMM inputs."""
+    final_mod: (B, 2H), yk/yv: per-block (B, n_kv, Ly, head_dim)). Self-
+    and cross-attention run on the flash forward where
+    `card_attention_route` says so (a config's use_flash still decides
+    self-attention), else self-attention by JAX's rule and cross-attention
+    dense. return_stats: also {"attn_in", "ffn_in": (depth, H), "ffn_prod":
+    (depth, H')}, the per-block, per-channel amax of the quantized-GEMM
+    inputs."""
     cfg = dit.cfg
     tp = getattr(dit, "tp", None)
+    card_self, card_cross = card_attention_route(
+        x.device.type, compute_dtype or x.dtype, torch.is_grad_enabled(), cfg.head_dim,
+        y_mask is not None)
+    route = (cfg.use_flash if cfg.use_flash is not None
+             else card_self or cfg.flash_for_len(x.shape[-1]), card_cross)
     h, cos, sin = _embed(dit, x, compute_dtype)
     stats = []
     for i, blk in enumerate(dit.blocks):
         h = _block_apply(blk, cfg, h, cos, sin, mods[i], y_kv=(yk[i], yv[i]),
                          x_mask=x_mask, y_mask=y_mask,
                          compute_dtype=compute_dtype, return_stats=return_stats,
-                         tp=tp and tp.with_seq_parallel(False))
+                         tp=tp and tp.with_seq_parallel(False), route=route)
         if return_stats:
             h, st = h
             stats.append(st)

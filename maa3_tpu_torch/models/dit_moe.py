@@ -345,8 +345,9 @@ def moe_dit_sample_plan(dit: MoEDiT, t_ints: torch.Tensor, context: torch.Tensor
                         compute_dtype: Optional[torch.dtype] = torch.bfloat16) -> dict:
     """t_ints (S,) model timesteps; context (B, Lv, ctx) video features (the
     dual batch [uc; c] for CFG). Returns {"mods": (S, depth, B, 6H),
-    "final": (S, B, 2H), "yk"/"yv": per-block (B, Lv, kv), "freq_sliced":
-    per-block stacks, "tidx": the time expert of each step (ints)}
+    "final": (S, B, 2H), "yk"/"yv": per-block (B, n_kv, Lv, head_dim),
+    "freq_sliced": per-block stacks, "tidx": the time expert of each step
+    (ints)}
     (maa3_tpu/models/dit_moe.py:302). Under tp / ep the K/V are this rank's
     heads and the stacks its experts' shards."""
     cfg = dit.cfg

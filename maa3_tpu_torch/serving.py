@@ -34,8 +34,10 @@ shutdown; GET /healthz (ok, device, stats); GET /stats (Batcher.stats).
 With tracing on (maa3_tpu_torch/trace.py) the server records, on the
 batcher thread, `serve.collect` (the wait for a first request and the batch
 window) and `serve.batch` (rows, bucket, padded) with its children
-`serve.encode`, `serve.noise`, `serve.ode`, `serve.decode`, `serve.vocode`
-(the four with device time) and `serve.deliver`; per request `serve.queue`
+`serve.encode`, `serve.noise`, `serve.ode` (with the batch's DiT attention
+calls by route, `attn_flash` and `attn_dense`: ops/attention.py `calls`),
+`serve.decode`, `serve.vocode` (the four with device time) and
+`serve.deliver`; per request `serve.queue`
 (from its arrival at `Batcher.submit` to the start of the batch that takes
 it: request id, batch = the id of that `serve.batch`), and on the handler
 thread `serve.request` with its child `serve.reply` (the wav's bytes and
@@ -61,6 +63,7 @@ import numpy as np
 import torch
 
 from maa3_tpu_torch import trace
+from maa3_tpu_torch.ops import attention
 from maa3_tpu_torch.system import check_limits
 
 MAX_STEPS = 1000  # a request's ODE steps: at most the model's timestep count
@@ -385,7 +388,9 @@ class Batcher(threading.Thread):
                                             "x0": x0.cpu().numpy(), "scale": first.scale,
                                             "steps": first.steps})
             with trace.span("serve.ode", device_time=True):
+                calls = dict(attention.calls)
                 z = self.system.sample_cfg(c, first.scale, uc, timesteps=first.steps, x0=x0)
+                trace.annotate(**attention.route_counts(calls))
             with trace.span("serve.decode", device_time=True):
                 mel = self.system.decode_first_stage(z)
             with trace.span("serve.vocode", device_time=True):

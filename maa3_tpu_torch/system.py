@@ -98,7 +98,10 @@ def check_limits(spec: ModelSpec, device, latent_len: Optional[int] = None) -> N
     """Refuse, before any launch, a config whose serving route the card's
     kernels cannot run: a DiT head dim above the flash kernels' MAX_HEAD_DIM
     where the DiT sends self-attention to flash at latent_len (default: the
-    config's latent length; models/dit.py resolve_flash)."""
+    config's latent length; models/dit.py resolve_flash). The card's own
+    serving route (models/dit.py card_attention_route) takes flash only at
+    head dims up to MAX_HEAD_DIM and runs wider heads dense, so it adds
+    nothing to refuse."""
     cfg = spec.dit
     n = spec.mel_length if latent_len is None else latent_len
     if (torch.device(device).type == "cuda" and cfg.head_dim > MAX_HEAD_DIM

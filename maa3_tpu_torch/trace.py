@@ -8,9 +8,10 @@ Off by default. `enable(device)` turns tracing on for the process; then
 records the span's name, its id, the id of the span open around it on the
 same thread (its parent), the thread's name, its start and end on the
 host's `time.perf_counter_ns()` clock and its attributes (request and batch
-ids, rows, bucket, step). With `device_time=True` on a CUDA device it also
-records a CUDA event pair on the current stream, read only at `drain()`:
-the device time between the two points of the stream.
+ids, rows, bucket, step; `annotate(**attrs)` adds more to the innermost open
+span, such as counts known only at its end). With `device_time=True` on a
+CUDA device it also records a CUDA event pair on the current stream, read
+only at `drain()`: the device time between the two points of the stream.
 
 Spans go to a bounded deque (the newest CAPACITY are kept) and nothing is
 written while the program runs. `drain()` returns and forgets them, with
@@ -127,6 +128,14 @@ def span(name: str, device_time: bool = False, **attrs):
     if not _on:
         return _OFF
     return _Span(name, device_time, attrs)
+
+
+def annotate(**attrs) -> None:
+    """Add attributes to the innermost span open on this thread (nothing
+    when tracing is off or no span is open)."""
+    stack = _stack() if _on else None
+    if stack:
+        stack[-1].attrs.update(attrs)
 
 
 def add(name: str, start_ns: int, thread: Optional[str] = None, **attrs) -> Optional[int]:

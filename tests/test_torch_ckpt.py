@@ -452,16 +452,16 @@ def test_vocoder_config_from_dict_matches_jax():
 
 @pytest.mark.parametrize("fp32_scores", [False, True])
 def test_sdpa_bf16_scores_match_jax(fp32_scores):
-    """_sdpa in bf16, the logits stored in bf16 or (fp32_scores) in fp32,
-    with a key mask: bf16 outputs, so rtol = atol = 2^-7 (one bf16 step of
-    a value near 1)."""
+    """_sdpa in bf16 (head-major here, (B, L, H, D) in JAX), the logits
+    stored in bf16 or (fp32_scores) in fp32, with a key mask: bf16
+    outputs, so rtol = atol = 2^-7 (one bf16 step of a value near 1)."""
     rng = np.random.RandomState(6)
     q, k, v = (rng.randn(2, 24, 4, 16).astype(np.float32) * 2 for _ in range(3))
     mask = np.arange(24)[None] < np.array([[24], [13]])
     want = jattn._sdpa(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), 0.25,
                        jnp.asarray(mask), fp32_scores=fp32_scores)
-    got = tattn._sdpa(*(torch.tensor(a).bfloat16() for a in (q, k, v)), 0.25,
-                      torch.tensor(mask), fp32_scores=fp32_scores)
+    got = tattn._sdpa(*(torch.tensor(a).bfloat16().transpose(1, 2) for a in (q, k, v)),
+                      0.25, torch.tensor(mask), fp32_scores=fp32_scores).transpose(1, 2)
     assert got.dtype == torch.bfloat16
     _cmp(got, np.asarray(want, np.float32), rtol=2 ** -7, atol=2 ** -7)
 

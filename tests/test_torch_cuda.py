@@ -1321,3 +1321,65 @@ def test_a_kernel_launched_in_a_span_lies_within_it_on_the_profilers_clock(cuda_
     gemm = max(kernels, key=lambda e: e.end_ns() - e.start_ns())
     assert lo + 4e6 < gemm.start_ns() < gemm.end_ns() < hi - 4e6
     assert s["device_ms"] >= (gemm.end_ns() - gemm.start_ns()) / 1e6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lk", [312, 154])
+@pytest.mark.parametrize("rows,heads,head_dim", [(32, 16, 72), (8, 32, 48)], ids=["xl", "xxl"])
+def test_flash_forward_at_the_serving_shapes_matches_plain(cuda_dev, rows, heads, head_dim,
+                                                           lk):
+    """K3a at the serving attention of latent 312: XL's closed loop (32 dual
+    rows x 16 heads of 72) and XXL's 4 prompts (8 dual rows x 32 heads of
+    48), self-attention (Lk 312) and the cross-attention over the CLAP +
+    FLAN-T5 context (Lk 154)."""
+    q, k, v, _, _ = _flash_inputs(rows, heads, 312, lk, head_dim, torch.bfloat16, cuda_dev,
+                                  False, seed=5)
+    n = fa.launches["K3a"]
+    _fwd_matches_plain(q, k, v, None, "direct")
+    assert fa.launches["K3a"] == n + 1
+
+
+@pytest.mark.cuda
+def test_planned_step_on_flash_matches_the_dense_route(cuda_dev, monkeypatch):
+    """A depth-2 DiT at XL width (1152, 16 heads of 72, a 154-token context
+    of 1024) as the bf16 serving copy, one planned step at 16 rows: the card's
+    route (K3a for self- and cross-attention, 4 launches) against the dense
+    route forced on the same copy, both held to the copy's step in fp32
+    (dense fp32 scores): the flash route's relative L2 gap may not exceed
+    the dense route's by more than a quarter, and the two routes lie within
+    1 % of each other."""
+    from maa3_tpu_torch.models import dit as tdit
+    cfg = tdit.DiTConfig(in_channels=20, context_dim=1024, hidden_size=1152, depth=2,
+                         num_heads=16, fp32_residual=True)
+    g = torch.Generator().manual_seed(8)
+    dit = tdit.unfreeze_zero_init(tdit.dit_init_(tdit.DiT(cfg), g), g)
+    card = tdit.serving_copy(dit.to(cuda_dev), torch.bfloat16)
+    x = torch.randn(16, 20, 312, generator=g).to(cuda_dev)
+    ctx = torch.randn(16, 154, 1024, generator=g).to(cuda_dev)
+    t = torch.tensor([0, 400], device=cuda_dev)
+
+    def step(dtype):
+        plan = tdit.dit_sample_plan(card, t, ctx, compute_dtype=dtype)
+        with torch.no_grad():
+            return tdit.dit_apply_planned(card, x, plan["mods"][1], plan["final"][1],
+                                          plan["yk"], plan["yv"], compute_dtype=dtype)
+
+    n = fa.launches["K3a"]
+    flash = step(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fa.launches["K3a"] == n + 4
+    with full_fp32():
+        ref = step(torch.float32)
+    monkeypatch.setattr(tdit, "card_attention_route", lambda *a: (False, False))
+    dense = step(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fa.launches["K3a"] == n + 4
+
+    def gap(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    g_flash, g_dense, g_routes = gap(flash, ref), gap(dense, ref), gap(flash, dense)
+    print(f"planned step, 16 rows: flash vs fp32 {g_flash:.3e}, dense vs fp32 "
+          f"{g_dense:.3e}, flash vs dense {g_routes:.3e}")
+    assert torch.isfinite(flash).all() and ref.float().abs().max().item() > 0.1
+    assert g_flash <= 1.25 * g_dense and g_routes <= 1e-2

@@ -80,9 +80,9 @@ def test_dit_planned_matches_jax():
                               context_mask=torch.tensor(mask), compute_dtype=torch.float32)
     _cmp(tp["mods"], jp["mods"])
     _cmp(tp["final"], jp["final"])
-    for d in range(2):
-        _cmp(tp["yk"][d], jp["yk"][d])
-        _cmp(tp["yv"][d], jp["yv"][d])
+    for d in range(2):  # the port's plan is head-major (B, H, Ly, D)
+        _cmp(tp["yk"][d].transpose(1, 2).flatten(2), jp["yk"][d])
+        _cmp(tp["yv"][d].transpose(1, 2).flatten(2), jp["yv"][d])
     want = jdit.dit_apply_planned(p, jcfg, jnp.asarray(x), jp["mods"][1], jp["final"][1],
                                   jp["yk"], jp["yv"], y_mask=jnp.asarray(mask),
                                   compute_dtype=jnp.float32)

@@ -114,6 +114,8 @@ def test_a_served_batch_tiles_the_batcher_thread(system):
     kids = _children(spans, b)
     assert [k["name"] for k in kids] == BATCH_CHILDREN
     _in_order(b, kids)
+    # one Euler step of 2 through a block's dense self- and cross-attention (CPU)
+    assert kids[2]["attrs"] == {"attn_flash": 0, "attn_dense": 2}
     collect = max((s for s in spans
                    if s["name"] == "serve.collect" and s["end_ns"] <= b["start_ns"]),
                   key=lambda s: s["end_ns"])
@@ -276,6 +278,31 @@ def test_program_leaves_out_the_waits_over_the_profilers_pauses():
            "program": {"clock": {"unix_ns": 0, "perf_ns": 0}, "spans": spans}}
     assert _program.holes(rec["program"], "maa3-batcher") == [(600_000, 2_600_000)]
     assert _program.window_queue_ms(rec, closed=False) == pytest.approx([0.05, 0.3])
+
+
+def test_attn_flash_share_reads_the_served_batches_ode_counts():
+    """attn_flash_share.lat over every served batch's serve.ode counts,
+    .tput over the batches that ended in the closed loop's window; None
+    from spans without the counts (a program before them)."""
+    from benchmark import harness
+    bench = harness.Bench()
+    lat, tput = (bench.reader(f"attn_flash_share.{k}") for k in ("lat", "tput"))
+    spans = [_sp(1, "serve.collect", 0, 100), _sp(2, "serve.batch", 100, 500),
+             _sp(3, "serve.ode", 150, 450, 2, attn_flash=56, attn_dense=0),
+             _sp(4, "serve.collect", 500, 600), _sp(5, "serve.batch", 600, 900),
+             _sp(6, "serve.ode", 650, 850, 5, attn_flash=28, attn_dense=28),
+             _sp(7, "serve.warmup", 0, 90, thread="main"),
+             _sp(8, "serve.ode", 10, 80, 7, thread="main", attn_flash=0, attn_dense=56)]
+
+    def rec(spans, window_s=1.0):
+        return {"kind": "serve", "window_s": window_s,
+                "program": {"clock": {"unix_ns": 0, "perf_ns": 0}, "spans": spans}}
+
+    assert lat(rec(spans)) == pytest.approx(100 * 84 / 112)
+    assert tput(rec(spans)) == pytest.approx(50.0)  # the second batch alone
+    bare = [dict(s, attrs={}) if s["name"] == "serve.ode" else s for s in spans]
+    assert lat(rec(bare)) is None and tput(rec(bare)) is None
+    assert lat({"kind": "serve", "window_s": 1.0, "program": None}) is None
 
 
 @pytest.mark.parametrize("cli", ["serve", "train"])
