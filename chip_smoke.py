@@ -29,7 +29,9 @@ Phases, each timed on a line of its own:
      made nonzero) turns 4 prompts into 10 s of 16 kHz audio each: CLAP+FLAN
      conditioning -> planned 25-step CFG ODE (bf16, fp32 residual) -> fp32
      VAE decode -> bf16 BigVGAN, with the kernel launch counts of the run
-     (K3a 2 x 28 x 24: self- and cross-attention, each block, each step)
+     (K3a 2 x 28 x 24: self- and cross-attention, each block, each step;
+     K5 2 x 28 x 24 and K6 28 x 24: the fused block's two norm sites and
+     its RoPE)
      (--profile adds one run under torch.profiler: device busy share and
      the kernels that take the most device time);
   6. flash kernels: K3a / K3b (forward), K4a (fused backward) and K4b / K4c
@@ -48,7 +50,10 @@ Phases, each timed on a line of its own:
      72) and XXL's (8 dual rows x 32 heads of 48), self and the 154-token
      context, and at phase 5's shape (8 dual rows, XL) the card's time
      (torch.profiler) of K3a, self and cross, of the layout copies the
-     planned step makes for it, and of the dense `_sdpa` it replaces.
+     planned step makes for it, and of the dense `_sdpa` it replaces; then
+     the fused DiT block's K5 (each variant: with the branch and without, a
+     bf16 and an fp32 x) and K6 against their plain versions at 32 dual rows
+     x 312, XL and XXL widths, timed beside their bounds.
      --attn-crossover instead times K3a against `_sdpa` as the planned step
      calls each at 2-32 dual rows over latent lengths 39-624, self and
      cross, alone (no result line): whether flash still wins at every
@@ -85,11 +90,12 @@ Phases, each timed on a line of its own:
      runs them, by captions and seed: cuDNN's bf16 vocoder convolutions
      round a row by its place in the batch),
      every response a 16 kHz wav of 131,072 samples, no error, K1 72 / K2 37
-     launches per batch vocode, K3a 2 x 16 x 24 per 25-step batch over
+     launches per batch vocode, K3a 2 x 16 x 24, K5 2 x 16 x 24 and K6
+     16 x 24 per 25-step batch over
      rounds 2-3 and the request alone, no thread left after shutdown; p50
      latency and audio seconds per second at batch 8; then the XL ODE at
-     batch 8 and 16 with MAA3_ODE_CHUNK 0 and 8 (K3a 2 x 28 x 24 per
-     sub-batch ODE); then an AMPBlock2 and an lrelu vocoder
+     batch 8 and 16 with MAA3_ODE_CHUNK 0 and 8 (K3a and K5 2 x 28 x 24,
+     K6 28 x 24 per sub-batch ODE); then an AMPBlock2 and an lrelu vocoder
      at BigVGAN 1536 width on the card against the CPU (fp32, 1e-3; AMP2
      reaches K1 and K2, lrelu neither). --profile leaves it unprofiled.
  12. the remaining trainer options at XL width (random weights from the
@@ -106,9 +112,9 @@ Phases, each timed on a line of its own:
      loader behind 2 PrefetchLoader threads, validation every 2 micro-steps
      over 2 batches, the audio logger at update 2 on 4 captions (25 steps):
      parameters unchanged by the first micro-step of each update and moved
-     by the second, K3a 56 / K4a 28 per micro-step, finite validation
-     losses, 4 16 kHz wavs, K1 72 / K2 37 in the logger's vocode and K3a
-     2 x 28 x 24 in its ODE, no thread
+     by the second, K3a 56 / K4a 28 and no K5 / K6 per micro-step, finite
+     validation losses, 4 16 kHz wavs, K1 72 / K2 37 in the logger's vocode
+     and K3a / K5 / K6 as phase 5's in its ODE, no thread
      left once the loader is closed; ms per update, tokens per second, peak,
      the host's wait on the loader; (c) cached latents: encode_latents over
      the manifest with the XL VAE, then the frozen-conditioner 6 x 1248 step
@@ -144,8 +150,8 @@ Phases, each timed on a line of its own:
      prompts x 10 s, 25 steps, guidance 5.0) in bf16 and in int8, int8:g128,
      int8:now2, int8:smooth (after calibrate_smooth) and int8:voc from the
      same weights and noise: end-to-end and ODE ms, the latent's relative L2
-     to bf16, _int_mm launches per request, K1 / K2 72 / 37 and K3a
-     2 x 28 x 24 in every mode;
+     to bf16, _int_mm launches per request, K1 / K2 72 / 37 and K3a / K5 /
+     K6 as phase 5's in every mode;
      then the ODE alone at batch 16, bf16 and int8 (--profile adds one of
      each under torch.profiler); (c) python -m
      maa3_tpu_torch.video2audio at the video config's full width (MoE DiT
@@ -163,8 +169,8 @@ Phases, each timed on a line of its own:
      624) with running BN statistics and without, the Melception's logits,
      features and aux, LPAPS; (b) the eval flow, every file under
      build/chip_smoke_eval/ (the norm statistics too): phase 5's XL system
-     generates 8 clips of 10 s (2 x batch 4; K1 / K2 and K3a counted as
-     "eval"),
+     generates 8 clips of 10 s (2 x batch 4; K1 / K2, K3a, K5 and K6
+     counted as "eval"),
      their wavs, manifest and VAE mels, reference mels by mel_spec; then
      train_melclf (VGGishish, 20 steps over phase 12's mels with labels,
      --norm, --val_tsv), predict_melclf on its file, cal_fd_score with that
@@ -183,7 +189,7 @@ Phases, each timed on a line of its own:
      heads of 48, 1.47 B; random weights from the seed, gates made nonzero)
      serves 4 prompts x 10 s, 25 steps, guidance 5.0, bf16 through
      shard_serving: end-to-end and ODE ms, peak memory, K1 / K2 72 / 37,
-     K3a 2 x 32 x 24 ("xxl_serve"); a depth-2 model of XXL width in fp32
+     K3a and K5 2 x 32 x 24, K6 32 x 24 ("xxl_serve"); a depth-2 model of XXL width in fp32
      sampled with shard_serving and without it: the same bits; (b) the
      YAML's training (trainable conditioner) through Trainer(n_model=1,
      fsdp=True), a no-op
@@ -644,8 +650,9 @@ def profile_run(torch, run, ref_ms) -> None:
         log(f"profile: {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.key[:90]}")
     for e in sorted(evts, key=lambda e: e.key):  # the port's own kernels, each
-        name = re.match(r"void (?:maa3_flash::)?\(anonymous namespace\)::"
-                        r"((?:flash|conv_snake|aa_snake)_\w*kernel<[^>]*>)", e.key)
+        name = re.match(r"void (?:maa3_(?:flash|dit)::)?\(anonymous namespace\)::"
+                        r"((?:flash|conv_snake|aa_snake|residual_norm|rope)_\w*kernel<[^>]*>)",
+                        e.key)
         if name:
             log(f"profile: port kernel {e.self_device_time_total / 1e3:9.2f} ms "
                 f"{e.count:6d}x {name.group(1)}")
@@ -658,10 +665,25 @@ def serve_k3a(depth: int, odes: int = 1) -> int:
     return 2 * depth * SERVE_EULER_STEPS * odes
 
 
+def serve_dit(depth: int, odes: int = 1) -> dict:
+    """K5 / K6 launches of `odes` 25-step CFG ODEs on the fused block route
+    (models/dit.py `fused_block_route`): K5 at each block's entry and middle,
+    K6 once a block, at each Euler step."""
+    n = depth * SERVE_EULER_STEPS * odes
+    return {"K5": 2 * n, "K6": n}
+
+
+def dit_launches(fu, since: dict) -> dict:
+    """K5 / K6 launches since `since` (a copy of ops/dit_fused.launches)."""
+    return {k: fu.launches[k] - since[k] for k in ("K5", "K6")}
+
+
 def main_path(torch, system_mod, config_path, k1, k2, profile=False):
     """Phase 5: the XL main path; returns (stage times, K1 / K2 launch
     counts, K3a launches of the ODE: the planned step's self- and
-    cross-attention in every block at every Euler step)."""
+    cross-attention in every block at every Euler step, and its K5 / K6
+    launches: the fused block's two norm sites and its RoPE)."""
+    from maa3_tpu_torch.ops import dit_fused as fu
     from maa3_tpu_torch.ops import flash_attention as fa
     t = time.perf_counter()
     system = system_mod.MAA3System.from_config(
@@ -693,6 +715,7 @@ def main_path(torch, system_mod, config_path, k1, k2, profile=False):
             k1.launches = 0
             k2.launches = 0
             fa.launches["K3a"] = 0
+            fu.launches.update(K5=0, K6=0)
         s0 = time.perf_counter()
         c = stage("encode", lambda: system.get_learned_conditioning(prompts))
         uc = stage("encode_uncond", lambda: system.get_learned_conditioning(empty))
@@ -708,7 +731,7 @@ def main_path(torch, system_mod, config_path, k1, k2, profile=False):
     run(False)  # warm-up: cuBLAS/cuDNN handles, the serving copy, caches
     torch.cuda.reset_peak_memory_stats()
     c, z, mel, wav, times, counts = run(True)
-    k3a = fa.launches["K3a"]
+    k3a, dit_k = fa.launches["K3a"], dict(fu.launches)
     import numpy as np
     log(f"main path: context {tuple(c.shape)} latent {tuple(z.shape)} "
         f"mel {tuple(mel.shape)} wav {wav.shape}; peak memory "
@@ -726,9 +749,13 @@ def main_path(torch, system_mod, config_path, k1, k2, profile=False):
         f"K3a {k3a} (expect {want_k3a}: self and cross in each block at each Euler step)")
     require(counts == K1_K2_PER_VOCODE, f"launch counts {counts} == {K1_K2_PER_VOCODE}")
     require(k3a == want_k3a, f"the ODE's K3a launches {k3a} == {want_k3a}")
+    want_dit = serve_dit(system.spec.dit.depth)
+    log(f"main path launches: K5 {dit_k['K5']}, K6 {dit_k['K6']} (expect {want_dit['K5']}, "
+        f"{want_dit['K6']}: the fused block's two norm sites and its RoPE)")
+    require(dit_k == want_dit, f"the ODE's K5 / K6 launches {dit_k} == {want_dit}")
     if profile:
         profile_run(torch, run, times["end_to_end"] * 1e3)
-    return times, counts, k3a
+    return times, counts, k3a, dit_k
 
 
 def check_flash(torch, fa, full_fp32, shapes=FLASH_SHAPES):
@@ -947,6 +974,87 @@ def serve_attention(torch, fa, full_fp32):
     del q, k, v, yk, yv, qh, kh, vh
     torch.cuda.empty_cache()
     return ms
+
+
+# K5 / K6 at the closed loop's 32 dual rows x 312 tokens: XL (1152, 16 heads
+# of 72) and XXL (1536, 32 heads of 48)
+DIT_BLOCK_SHAPES = {"xl_closed_loop": (32, LATENT, 1152, 16, 72),
+                    "xxl": (32, LATENT, 1536, 32, 48)}
+
+
+def dit_block_kernels(torch):
+    """Phase 6, the fused DiT block's kernels at DIT_BLOCK_SHAPES, held to
+    their plain versions with a norm weight away from 1: K5 in each variant
+    the serving step launches, with the attention / MLP branch and without
+    (block 0's entry; h left as it is), x in bf16 and in fp32 (an int8
+    GEMM's input): h' the same bits, a bf16 x within a bf16 ulp of the
+    largest, an fp32 x within 1e-6 of it; K6 the same bits. Each is timed
+    by the card's time per call (profiled_ms: the wrapper's host work per
+    launch is about as long as the kernel, so events around calls queued
+    back to back would time the host; K5 with the branch and a bf16 x)
+    beside its plain version and its bound, bytes / 3.35 TB/s (K5: h read
+    and written in fp32, the branch read and x written in bf16; K6: the bf16
+    wqkv product read and q, k, v written). Returns {kernel: {shape: {ms,
+    plain_ms, bound_ms, bytes, err}}}, err the largest of K5's bf16 x."""
+    from maa3_tpu_torch.ops import dit_fused as fu
+    from maa3_tpu_torch.ops.rope import precompute_rope
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    out = {"K5": {}, "K6": {}}
+    for what, (b, l, d, heads, hd) in DIT_BLOCK_SHAPES.items():
+        h = torch.randn(b, l, d, generator=g, device=dev)
+        br = torch.randn(b, l, d, generator=g, device=dev).to(torch.bfloat16)
+        mods = torch.randn(b, 6 * d, generator=g, device=dev) * 0.1
+        w = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
+        shift, scale, gate = mods.chunk(6, dim=-1)[:3]
+        err = 0.0
+        for branch, dtype in (((br, gate), torch.bfloat16), ((None, None), torch.bfloat16),
+                              ((br, gate), torch.float32)):
+            variant = f"{'residual' if branch[0] is not None else 'entry'}, {dtype}"
+            want_h, want_x = fu.residual_norm_modulate_plain(h, *branch, w, shift, scale, 1e-5,
+                                                             dtype)
+            got_h, got_x = fu.residual_norm_modulate(h.clone(), *branch, w, shift, scale, 1e-5,
+                                                     dtype)
+            torch.cuda.synchronize()
+            require(torch.equal(got_h, want_h) and got_x.dtype == dtype,
+                    f"K5 {what} ({variant}): h' the same bits as the plain version")
+            e = (got_x.float() - want_x.float()).abs().max().item()
+            lim = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-6) * want_x.abs().max().item()
+            require(e <= lim, f"K5 {what} ({variant}): x {e:.3e} <= {lim:.3e}")
+            log(f"fused DiT block ({what}): K5 {variant}: x within {e:.3e} of the plain "
+                f"version (limit {lim:.3e})")
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+            del want_h, want_x, got_h, got_x
+        nbytes = 12 * b * l * d
+        out["K5"][what] = {
+            "ms": profiled_ms(torch, lambda: fu.residual_norm_modulate(h, br, gate, w, shift,
+                                                                       scale, 1e-5)),
+            "plain_ms": profiled_ms(torch, lambda: fu.residual_norm_modulate_plain(
+                h, br, gate, w, shift, scale, 1e-5)),
+            "bound_ms": nbytes / PEAK_BW * 1e3, "bytes": nbytes, "err": err}
+        del h, br
+        qkv = torch.randn(b, l, 3 * d, generator=g, device=dev).to(torch.bfloat16)
+        cos, sin = precompute_rope(hd, l, device=dev)
+        want = fu.rope_qkv_heads_plain(qkv, cos, sin, heads, heads)
+        got = fu.rope_qkv_heads(qkv, cos, sin, heads, heads)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, c) for a, c in zip(got, want)),
+                f"K6 {what}: q, k, v the same bits as the plain version")
+        nbytes = 2 * 2 * b * l * 3 * d
+        out["K6"][what] = {
+            "ms": profiled_ms(torch, lambda: fu.rope_qkv_heads(qkv, cos, sin, heads, heads)),
+            "plain_ms": profiled_ms(torch, lambda: fu.rope_qkv_heads_plain(qkv, cos, sin, heads,
+                                                                           heads)),
+            "bound_ms": nbytes / PEAK_BW * 1e3, "bytes": nbytes, "err": 0.0}
+        del qkv, want, got
+        for k in ("K5", "K6"):
+            r = out[k][what]
+            log(f"fused DiT block ({what}, {(b, l, d)}): {k} {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                f"({100 * r['bound_ms'] / r['ms']:.1f} % of it), err {r['err']:.3e}")
+    torch.cuda.empty_cache()
+    return out
 
 
 def attn_crossover(torch, fa):
@@ -1484,7 +1592,7 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
     import threading
     import numpy as np
     from maa3_tpu_torch.models.clap import FLAN
-    from maa3_tpu_torch.ops import flash_attention as fa
+    from maa3_tpu_torch.ops import dit_fused as fu, flash_attention as fa
     from maa3_tpu_torch.serving import AudioServer, ServeConfig
     root = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
@@ -1548,8 +1656,9 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
         server.batcher._process, system.captions = logged_process, logged_captions
         k1.launches = k2.launches = 0  # count exactly the requests below
         for n, bs in enumerate((bodies + other, bodies, bodies)):
-            if n == 1:  # K3a: rounds 2-3 and the request alone, 25 steps a batch
+            if n == 1:  # K3a / K5 / K6: rounds 2-3 and the request alone, 25 steps a batch
                 fa.launches["K3a"] = 0
+                dit0 = dict(fu.launches)
             h0 = hist()
             rounds.append(_round(server.port, bs))
             h1 = hist()
@@ -1559,6 +1668,7 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
         h1 = hist()
         hists.append({n: h1[n] - h0.get(n, 0) for n in h1 if h1[n] != h0.get(n, 0)})
         launches, k3a = (k1.launches, k2.launches), fa.launches["K3a"]
+        dit = dit_launches(fu, dit0)
         stats = server.batcher.stats()
     finally:
         server.shutdown()
@@ -1590,9 +1700,13 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
                        f"bytes: {same}")
     require(launches == (K1_K2_PER_VOCODE[0] * n_batches, K1_K2_PER_VOCODE[1] * n_batches),
             f"K1 / K2 launches {launches} over {n_batches} batch vocodes")
-    want_k3a = serve_k3a(system.dit.cfg.depth, sum(sum(h.values()) for h in hists[1:]))
+    odes = sum(sum(h.values()) for h in hists[1:])
+    want_k3a, want_dit = serve_k3a(system.dit.cfg.depth, odes), serve_dit(system.dit.cfg.depth,
+                                                                          odes)
     require(k3a == want_k3a, f"serve: K3a launches {k3a} == {want_k3a} over rounds 2-3 and "
             f"the request alone")
+    require(dit == want_dit, f"serve: K5 / K6 launches {dit} == {want_dit} over rounds 2-3 "
+            f"and the request alone")
     diff = np.abs(_pcm(alone[1])[1].astype(np.int32)
                   - _pcm(rounds[1][0][0][1])[1].astype(np.int32)).max()
     lat = sorted(r[2] for rs, _ in rounds[1:] for r in rs)
@@ -1604,9 +1718,9 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
     log(f"serve: batch 8 of 8.19 s clips: p50 latency {p50 * 1e3:.1f} ms, round walls "
         f"{[round(w * 1e3, 1) for w in walls]} ms, {rate:.2f} s of audio per s; "
         f"launches per batch vocode K1 {launches[0] // n_batches}, "
-        f"K2 {launches[1] // n_batches} ({n_batches} batches); K3a {k3a} over rounds 2-3 "
-        f"and the request alone")
-    out.update(p50_ms=p50 * 1e3, audio_s_per_s=rate, launches=launches, k3a=k3a,
+        f"K2 {launches[1] // n_batches} ({n_batches} batches); K3a {k3a}, K5 / K6 {dit} over "
+        f"rounds 2-3 and the request alone")
+    out.update(p50_ms=p50 * 1e3, audio_s_per_s=rate, launches=launches, k3a=k3a, dit=dit,
                n_batches=n_batches, alone_diff=int(diff), counts=counts)
     del system, server
     gc.collect()
@@ -1617,9 +1731,9 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
 def ode_chunk_probe(torch, system_mod, config_path):
     """Phase 11: the XL serving ODE (25 steps, latent 312, bf16) at batch 8
     and 16 with MAA3_ODE_CHUNK 0 and 8 in turns (0, 8, 0, 8 after one warm
-    call per batch), each call's K3a launches those of its sub-batch ODEs;
-    returns {(batch, chunk): [ms, ms]}."""
-    from maa3_tpu_torch.ops import flash_attention as fa
+    call per batch), each call's K3a / K5 / K6 launches those of its
+    sub-batch ODEs; returns {(batch, chunk): [ms, ms]}."""
+    from maa3_tpu_torch.ops import dit_fused as fu, flash_attention as fa
     system = system_mod.MAA3System.from_config(
         [config_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
     g = torch.Generator(device="cuda").manual_seed(21)
@@ -1632,14 +1746,18 @@ def ode_chunk_probe(torch, system_mod, config_path):
             zs = {}
             for i, chunk in enumerate((8, 0, 8, 0, 8)):
                 os.environ["MAA3_ODE_CHUNK"] = str(chunk)
-                n0 = fa.launches["K3a"]
+                n0, dit0 = fa.launches["K3a"], dict(fu.launches)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 zs[chunk] = system.sample_cfg(c, 5.0, uc, x0=x0, timesteps=25)
                 torch.cuda.synchronize()
-                want = serve_k3a(XL_DEPTH, b // chunk if chunk and b > chunk else 1)
+                odes = b // chunk if chunk and b > chunk else 1
+                want, want_dit = serve_k3a(XL_DEPTH, odes), serve_dit(XL_DEPTH, odes)
                 require(fa.launches["K3a"] - n0 == want, f"ODE chunk: batch {b} chunk {chunk}: "
                         f"K3a launches {fa.launches['K3a'] - n0} == {want}")
+                dit = dit_launches(fu, dit0)
+                require(dit == want_dit, f"ODE chunk: batch {b} chunk {chunk}: K5 / K6 "
+                        f"launches {dit} == {want_dit}")
                 if i:  # the first call warms up
                     ms.setdefault((b, chunk), []).append((time.perf_counter() - t) * 1e3)
             dz = (zs[8] - zs[0]).abs().max().item()
@@ -1866,6 +1984,7 @@ def recipe_run(torch, system_mod, config_path, fa, k1, k2, tsv):
     import threading
     import numpy as np
     from maa3_tpu_torch import config as config_mod
+    from maa3_tpu_torch.ops import dit_fused as fu
     from maa3_tpu_torch.train import __main__ as cli
     from maa3_tpu_torch.train.audio_logger import AudioLogger
     from maa3_tpu_torch.train.loop import Trainer
@@ -1894,13 +2013,14 @@ def recipe_run(torch, system_mod, config_path, fa, k1, k2, tsv):
 
     def log_samples(*a, **kw):  # time the logger and count its launches
         k1.launches = k2.launches = 0
-        flash0 = dict(fa.launches)
+        flash0, dit0 = dict(fa.launches), dict(fu.launches)
         torch.cuda.synchronize()
         s = time.perf_counter()
         out = real_log(*a, **kw)
         torch.cuda.synchronize()
         logged.append((out, (time.perf_counter() - s) * 1e3, (k1.launches, k2.launches),
-                       {n: fa.launches[n] - flash0[n] for n in FLASH_KERNELS}))
+                       {n: fa.launches[n] - flash0[n] for n in FLASH_KERNELS},
+                       dit_launches(fu, dit0)))
         return out
 
     logger.log_samples = log_samples
@@ -1915,7 +2035,7 @@ def recipe_run(torch, system_mod, config_path, fa, k1, k2, tsv):
             before = params()
             torch.cuda.synchronize()
             reset_launches(fa)
-            n_logged = len(logged)
+            n_logged, dit0 = len(logged), dict(fu.launches)
             s = time.perf_counter()
             m = trainer.fit(feed, max_steps=1, audio_logger=logger,
                             sample_captions=LOGGER_CAPTIONS)
@@ -1926,6 +2046,8 @@ def recipe_run(torch, system_mod, config_path, fa, k1, k2, tsv):
             moved = max((a - b).abs().max().item() for a, b in zip(params(), before))
             counts = {n: fa.launches[n] - sum(x[3][n] for x in logged[n_logged:])
                       for n in FLASH_KERNELS}
+            counts.update({k: n - sum(x[4][k] for x in logged[n_logged:])
+                           for k, n in dit_launches(fu, dit0).items()})
             steps.append((ms, counts, m, moved))
             require(np.isfinite(m["loss"]), f"recipe micro-step {i + 1}: finite loss")
             require((moved > 0) == ((i + 1) % r["accum_steps"] == 0),
@@ -1962,6 +2084,8 @@ def check_recipe(steps, vals, logged, waits, peak):
             f"{m['grad_norm']:.4f}, largest parameter change {moved:.3e}, launches {counts}")
         require(counts["K3a"] == 56 and counts["K4a"] == 28,
                 f"recipe micro-step {i + 1}: K3a 56, K4a 28 ({counts})")
+        require(counts["K5"] == counts["K6"] == 0,
+                f"recipe micro-step {i + 1}: training runs no fused block ({counts})")
     # an update: its micro-steps (the audio logger's time taken out)
     k = r["accum_steps"]
     per_update = [sum(x[0] for x in steps[i:i + k]) for i in range(0, len(steps), k)]
@@ -1976,10 +2100,10 @@ def check_recipe(steps, vals, logged, waits, peak):
             f"batches, {v['ms']:.1f} ms")
     require(len(vals) == r["micro_steps"] // r["val_every"], "recipe: every validation ran")
     require(len(logged) == 1, f"recipe: the audio logger ran once ({len(logged)})")
-    out, ms, counts, flash = logged[0]
+    out, ms, counts, flash, dit = logged[0]
     wavs = sorted(f for f in os.listdir(out) if f.endswith(".wav"))
     log(f"recipe: audio logger at micro-step {r['audio_log_every']}: {len(wavs)} wavs in "
-        f"{ms:.1f} ms, K1 {counts[0]}, K2 {counts[1]}, flash {flash}")
+        f"{ms:.1f} ms, K1 {counts[0]}, K2 {counts[1]}, flash {flash}, K5 / K6 {dit}")
     require(wavs == [f"{i:02d}.wav" for i in range(4)], f"recipe: 4 wavs ({wavs})")
     for w in wavs:
         rate, pcm = wavfile.read(os.path.join(out, w))
@@ -1989,7 +2113,10 @@ def check_recipe(steps, vals, logged, waits, peak):
     want = {n: serve_k3a(XL_DEPTH) if n == "K3a" else 0 for n in FLASH_KERNELS}
     require(flash == want, f"recipe: the audio logger's 25-step ODE runs the serving "
             f"route, flash launches {flash} == {want}")
-    return {"per_update": per_update, "logger_counts": counts + (flash["K3a"],),
+    require(dit == serve_dit(XL_DEPTH), f"recipe: the audio logger's 25-step ODE runs the "
+            f"fused blocks, K5 / K6 launches {dit} == {serve_dit(XL_DEPTH)}")
+    return {"per_update": per_update,
+            "logger_counts": counts + (flash["K3a"], dit["K5"], dit["K6"]),
             "micro_step_counts": steps[-1][1]}
 
 
@@ -2531,7 +2658,7 @@ def int8_serving(torch, system_mod, config_path, k1, k2, card, profile=False):
     int8 (with profile, one more of each under torch.profiler). Returns
     {mode: (K1, K2, K3a) launches per request}."""
     import numpy as np
-    from maa3_tpu_torch.ops import flash_attention as fa, quant
+    from maa3_tpu_torch.ops import dit_fused as fu, flash_attention as fa, quant
     system = system_mod.MAA3System.from_config(
         [config_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
     caps = ["a dog barks in the distance", "rain falls on a tin roof",
@@ -2563,15 +2690,16 @@ def int8_serving(torch, system_mod, config_path, k1, k2, card, profile=False):
         _, ms = _sync_ms(torch, system.serving_dit)
         request()  # warm-up: the serving copies, cuBLAS handles
         k1.launches = k2.launches = fa.launches["K3a"] = 0
-        n_mm = quant.int_mm_calls
+        n_mm, dit0 = quant.int_mm_calls, dict(fu.launches)
         z, wav, times = request()
-        counts[mode] = (k1.launches, k2.launches, fa.launches["K3a"])
+        dit = dit_launches(fu, dit0)
+        counts[mode] = (k1.launches, k2.launches, fa.launches["K3a"], dit["K5"], dit["K6"])
         require(torch.isfinite(z).all() and np.isfinite(wav).all()
                 and wav.shape == (B, 159744) and 0 < np.abs(wav).max() <= 1.0,
                 f"int8 serving {mode}: outputs")
-        require(counts[mode] == K1_K2_PER_VOCODE + (serve_k3a(XL_DEPTH),),
-                f"int8 serving {mode}: K1/K2/K3a {counts[mode]} == {K1_K2_PER_VOCODE} + "
-                f"{serve_k3a(XL_DEPTH)}")
+        want = K1_K2_PER_VOCODE + (serve_k3a(XL_DEPTH),) + tuple(serve_dit(XL_DEPTH).values())
+        require(counts[mode] == want, f"int8 serving {mode}: K1/K2/K3a/K5/K6 {counts[mode]} "
+                f"== {want}")
         out[mode] = z.float()
         rel = (z.float() - out[None]).norm().item() / out[None].norm().item()
         mm = quant.int_mm_calls - n_mm
@@ -2579,7 +2707,8 @@ def int8_serving(torch, system_mod, config_path, k1, k2, card, profile=False):
         log(f"int8 serving ({card}) mode {mode or 'bf16'}: end to end "
             f"{times['end_to_end']:.2f} ms, ODE {times['ode']:.2f} ms, latent rel L2 vs "
             f"bf16 {rel:.3e}, _int_mm launches per request {mm}, K1 {counts[mode][0]} "
-            f"K2 {counts[mode][1]} K3a {counts[mode][2]}, serving copy built in {ms:.0f} ms")
+            f"K2 {counts[mode][1]} K3a {counts[mode][2]} K5 {counts[mode][3]} K6 "
+            f"{counts[mode][4]}, serving copy built in {ms:.0f} ms")
     c16, uc16 = c.repeat(4, 1, 1), uc.repeat(4, 1, 1)
     x16 = torch.randn(16, 20, LATENT, generator=torch.Generator(device="cuda").manual_seed(1),
                       device="cuda")
@@ -2780,17 +2909,18 @@ def eval_generate(torch, system_mod, config_path, k1, k2, d):
     """Phase 15 (b) 1-2: phase 5's XL system turns EVAL_CAPTIONS into 8 clips
     of 10 s (2 x batch 4); their int16 wavs <name>_0.wav, the manifest
     (name, ori_cap, audio_path) and the VAE's mels under d. Returns the
-    manifest and the K1 / K2 launches of the two vocodes and the K3a
-    launches of the two ODEs."""
+    manifest and the K1 / K2 launches of the two vocodes and the K3a, K5
+    and K6 launches of the two ODEs."""
     import numpy as np
     from scipy.io import wavfile
-    from maa3_tpu_torch.ops import flash_attention as fa
+    from maa3_tpu_torch.ops import dit_fused as fu, flash_attention as fa
     system = system_mod.MAA3System.from_config(
         [config_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
     for sub in ("wavs", "gen_mels"):
         os.makedirs(os.path.join(d, sub), exist_ok=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1.launches = k2.launches = fa.launches["K3a"] = 0
+    dit0 = dict(fu.launches)
     lines = ["name\tori_cap\taudio_path"]
     t = time.perf_counter()
     for b in range(0, EVAL_CLIPS, B):
@@ -2809,12 +2939,15 @@ def eval_generate(torch, system_mod, config_path, k1, k2, d):
             wavfile.write(path, 16000, (np.clip(w, -1, 1) * 32767).astype(np.int16))
             lines.append(f"{name}\t{caps[i]}\t{path}")
     torch.cuda.synchronize()
-    counts = (k1.launches, k2.launches, fa.launches["K3a"])
-    want = tuple(2 * n for n in K1_K2_PER_VOCODE) + (serve_k3a(XL_DEPTH, 2),)
-    require(counts == want, f"eval generation: K1/K2/K3a {counts} == {want} over 2 vocodes "
-            f"and 2 ODEs")
+    counts = (k1.launches, k2.launches, fa.launches["K3a"]) + tuple(
+        dit_launches(fu, dit0).values())
+    want = (tuple(2 * n for n in K1_K2_PER_VOCODE) + (serve_k3a(XL_DEPTH, 2),)
+            + tuple(serve_dit(XL_DEPTH, 2).values()))
+    require(counts == want, f"eval generation: K1/K2/K3a/K5/K6 {counts} == {want} over 2 "
+            f"vocodes and 2 ODEs")
     log(f"eval flow: {EVAL_CLIPS} clips of 10 s generated in "
-        f"{time.perf_counter() - t:.2f} s (2 x batch {B}, 25 steps), K1 / K2 / K3a {counts}")
+        f"{time.perf_counter() - t:.2f} s (2 x batch {B}, 25 steps), K1 / K2 / K3a / K5 / K6 "
+        f"{counts}")
     tsv = os.path.join(d, "clips.tsv")
     with open(tsv, "w") as f:
         f.write("\n".join(lines) + "\n")
@@ -3022,9 +3155,10 @@ def xxl_serve(torch, system_mod, xxl_path, k1, k2, card, mesh):
     """Phase 16 (a): the XXL system as its YAML writes it (random weights from
     the seed, zero-init gates made nonzero), served through shard_serving on
     the 1 x 1 mesh in bf16: 4 prompts x 10 s, 25 steps, guidance 5.0, with
-    the K1 / K2 launches of its vocode and the K3a launches of its ODE."""
+    the K1 / K2 launches of its vocode and the K3a, K5 and K6 launches of
+    its ODE."""
     import numpy as np
-    from maa3_tpu_torch.ops import flash_attention as fa
+    from maa3_tpu_torch.ops import dit_fused as fu, flash_attention as fa
     t = time.perf_counter()
     system = system_mod.MAA3System.from_config(
         [xxl_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
@@ -3057,22 +3191,26 @@ def xxl_serve(torch, system_mod, xxl_path, k1, k2, card, mesh):
     torch.cuda.reset_peak_memory_stats()
     k1.launches = k2.launches = 0
     fa.launches["K3a"] = 0
+    dit0 = dict(fu.launches)
     z, wav, e2e, ode = run()
-    counts, k3a = (k1.launches, k2.launches), fa.launches["K3a"]
-    want_k3a = serve_k3a(system.dit.cfg.depth)
+    counts, k3a, dit = (k1.launches, k2.launches), fa.launches["K3a"], dit_launches(fu, dit0)
+    want_k3a, want_dit = serve_k3a(system.dit.cfg.depth), serve_dit(system.dit.cfg.depth)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     require(tuple(z.shape) == (B, 20, LATENT) and bool(torch.isfinite(z).all())
             and wav.shape == (B, 159744) and np.isfinite(wav).all()
             and 0 < np.abs(wav).max() <= 1.0, "XXL serve: finite outputs of the shapes")
     require(counts == K1_K2_PER_VOCODE, f"XXL serve: K1 / K2 {counts} == {K1_K2_PER_VOCODE}")
     require(k3a == want_k3a, f"XXL serve: the ODE's K3a launches {k3a} == {want_k3a}")
+    require(dit == want_dit, f"XXL serve: the ODE's K5 / K6 launches {dit} == {want_dit}")
     log(f"XXL serve (4 x 10 s, 25 steps, bf16, 1 x 1 mesh over NCCL): end to end "
-        f"{e2e:.1f} ms, ODE {ode:.1f} ms, peak {peak:.2f} GiB, K1 / K2 {counts}, K3a {k3a}; "
+        f"{e2e:.1f} ms, ODE {ode:.1f} ms, peak {peak:.2f} GiB, K1 / K2 {counts}, K3a {k3a}, "
+        f"K5 / K6 {dit}; "
         f"{card}")
     del system
     gc.collect()
     torch.cuda.empty_cache()
-    return {"e2e_ms": e2e, "ode_ms": ode, "peak_gib": peak, "counts": counts, "k3a": k3a}
+    return {"e2e_ms": e2e, "ode_ms": ode, "peak_gib": peak, "counts": counts, "k3a": k3a,
+            "dit": dit}
 
 
 def xxl_depth2_check(torch, system_mod, xxl_path, mesh, full_fp32):
@@ -3786,8 +3924,8 @@ def main() -> int:
     log(f"reference: small system agrees, {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
-    times, counts, serve_ode_k3a = main_path(torch, system_mod, config_path, k1, k2,
-                                             profile="--profile" in sys.argv[1:])
+    times, counts, serve_ode_k3a, serve_ode_dit = main_path(
+        torch, system_mod, config_path, k1, k2, profile="--profile" in sys.argv[1:])
     log(f"main path: done, {time.perf_counter() - t:.2f} s")
 
     from maa3_tpu_torch.ops import flash_attention as fa
@@ -3797,6 +3935,9 @@ def main() -> int:
     t = time.perf_counter()
     serve_attn = serve_attention(torch, fa, full_fp32)
     log(f"serving attention: done, {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    dit_ms = dit_block_kernels(torch)
+    log(f"fused DiT block kernels: done, {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     long_ms = long_lq(torch, fa, full_fp32)
     log(f"long-Lq: auto runs K4a at every length, which "
@@ -4011,6 +4152,26 @@ def main() -> int:
                                                             "library_ms")}
             entry["xxl_train"]["max_abs_err"] = x["err"]
         kernels.append(entry)
+    # K5 / K6: per Euler step of the XL serving ODE, the launches phase 5
+    # counted over its 24 steps (pinned there to 2 x 28 x 24 and 28 x 24),
+    # each timed at the closed loop's 32 dual rows x 312, XXL's widths beside
+    for i, (name, src) in enumerate((("K5", "maa3_tpu_torch/csrc/dit_norm.cu"),
+                                     ("K6", "maa3_tpu_torch/csrc/dit_rope.cu")), start=3):
+        per = serve_ode_dit[name] // SERVE_EULER_STEPS
+        xl, xxl = dit_ms[name]["xl_closed_loop"], dit_ms[name]["xxl"]
+        kernels.append({
+            "name": f"{name} {'residual_norm_modulate' if name == 'K5' else 'rope_qkv_heads'}",
+            "route": "cuda", "source": src, "replaces": None, "launches": per,
+            "max_abs_err": max(xl["err"], xxl["err"]),
+            "ms": xl["ms"] * per, "plain_ms": xl["plain_ms"] * per,
+            "bound_ms": xl["bound_ms"] * per, "bound_by": "bytes", "library_ms": None,
+            "per_launch": {"xl_closed_loop": xl, "xxl": xxl},
+            "launches_by_path": {
+                "xl_serving_ode": serve_ode_dit[name], "xxl_serving_ode": xxl_serving["dit"][name],
+                "music_server_3_batches": serve["dit"][name],
+                "audio_logger": recipe["logger_counts"][i],
+                "recipe_micro_step": recipe["micro_step_counts"][name], "eval": eval_counts[i],
+                **{f"xl_serving_{mode}_ode": c[i] for mode, c in int8_counts.items() if mode}}})
     log(f"ODE chunk (XL, 25 steps, ms): " + "; ".join(
         f"batch {b} chunk {c}: {[round(x, 1) for x in v]}" for (b, c), v in chunk_ms.items()))
     print(json.dumps({"kernels": kernels}), flush=True)

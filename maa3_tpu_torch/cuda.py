@@ -119,6 +119,9 @@ SIGNATURES = {
                                 _F, _I, _P)),
     "maa3_flash_bwd_dq": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                _F, _I, _P)),
+    "maa3_residual_norm_modulate": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                          _P)),
+    "maa3_rope_qkv_heads": (_I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }
 
 

@@ -17,7 +17,12 @@ adaLN modulations and the static cross-attention K/V (head-major, the
 layout the flash kernels read) out of the ODE loop, with the same ops as
 `dit_apply`. On the card in bf16 without autograd, the planned step sends
 self- and cross-attention to the flash forward (K3a) at every length
-(`card_attention_route`); elsewhere it follows JAX's rule.
+(`card_attention_route`); elsewhere it follows JAX's rule. There, with
+the fp32 residual stream and a fused wqkv, it also runs each block as
+`_fused_block` (`fused_block_route`): the gated residuals, RMSNorms and
+adaLN modulates in K5 and RoPE with the head-major split in K6
+(ops/dit_fused.py), each block's MLP residual added by the next block's
+entry K5; `block_steps` counts the block-steps of each route.
 `serving_copy` makes the bf16 serving weights: every matmul weight rounded
 to bf16, wq/wk/wv and w1/w3 fused (JAX's cast_matmul_weights +
 fuse_dit_gemms).
@@ -35,11 +40,14 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from maa3_tpu_torch.ops.attention import Attention, attention_apply, context_kv
+from maa3_tpu_torch.ops.attention import (Attention, attention_apply, attention_apply_heads,
+                                          context_kv)
 from maa3_tpu_torch.ops.basic import (RMSNorm, TimestepEmbedder, checkpoint_names,
                                       layer_norm, linear, modulate, rms_norm, silu)
+from maa3_tpu_torch.ops.dit_fused import residual_norm_modulate
 from maa3_tpu_torch.ops.ffn import FeedForward, feed_forward_apply
 from maa3_tpu_torch.ops.flash_attention import MAX_HEAD_DIM
+from maa3_tpu_torch.ops.quant import QuantWeight
 from maa3_tpu_torch.ops.rope import precompute_rope
 from maa3_tpu_torch.parallel.fsdp import gathered
 
@@ -132,6 +140,32 @@ def card_attention_route(device_type: str, dtype: Optional[torch.dtype],
     on = (device_type == "cuda" and dtype == torch.bfloat16 and not grad_enabled
           and head_dim <= MAX_HEAD_DIM)
     return on, on and not y_masked
+
+
+# planned block-steps by route (the serving span reads them: serving.py)
+block_steps = {"dit_fused": 0, "dit_plain": 0}
+
+
+def block_counts(since: dict) -> dict:
+    """{"dit_fused", "dit_plain"}: the planned block-steps of each route
+    since `since` (a copy of `block_steps`)."""
+    return {k: block_steps[k] - since[k] for k in block_steps}
+
+
+def fused_block_route(cfg: DiTConfig, device_type: str, dtype: Optional[torch.dtype],
+                      grad_enabled: bool, tp, return_stats: bool, fused_wqkv: bool) -> bool:
+    """Whether the planned serving step runs its blocks as `_fused_block`
+    (the token-wise passes in K5 and K6, ops/dit_fused.py) instead of
+    `_block_apply`: where `card_attention_route` sends self-attention to K3a
+    (a CUDA device, bf16, no autograd, head dim <= 72), at an even head dim
+    and a width the kernels take (a multiple of 8), with the fp32 residual
+    stream, a fused wqkv (serving_copy and quant_serving_copy make it), and
+    no tensor parallelism, SmoothQuant statistics or qk_norm. Everything else
+    (training, the CPU, fp32 serving, tp, calibration, the video MoE) runs
+    `_block_apply`."""
+    on, _ = card_attention_route(device_type, dtype, grad_enabled, cfg.head_dim, False)
+    return (on and cfg.head_dim % 2 == 0 and cfg.hidden_size % 8 == 0 and cfg.fp32_residual
+            and tp is None and not return_stats and not cfg.qk_norm and fused_wqkv)
 
 
 class TransformerBlock(nn.Module):
@@ -398,6 +432,35 @@ def _block_apply(blk: TransformerBlock, cfg: DiTConfig, x, cos, sin, mod,
     return h + gate_mlp[:, None, :].to(h.dtype) * h_ffn
 
 
+def _fused_block(blk: TransformerBlock, cfg: DiTConfig, h, carry: tuple, cos, sin, mod,
+                 y_kv, x_mask, y_mask, compute_dtype, route: tuple):
+    """One block of the planned serving step on `fused_block_route`: the
+    math of `_block_apply` (forward only, fp32 h), with its token-wise passes
+    in K5 and K6 (ops/dit_fused.py). carry: the previous block's MLP branch
+    and gate, (None, None) before the first block; its residual is added by
+    this block's entry K5. h may be updated in place. Returns (h, carry):
+    h after the attention residual, and this block's (MLP branch, gate)."""
+    shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
+    att, ff = blk.attention, blk.feed_forward
+    h, x_attn_in = residual_norm_modulate(h, *carry, blk.attention_norm.weight, shift_msa,
+                                          scale_msa, cfg.norm_eps,
+                                          _gemm_in_dtype(att.wqkv, compute_dtype))
+    h_attn = attention_apply_heads(
+        att, x_attn_in, cos, sin, y_kv, x_mask=x_mask, y_mask=y_mask,
+        n_heads=cfg.num_heads, n_kv_heads=cfg.n_kv_heads, compute_dtype=compute_dtype,
+        use_flash=route[0], cross_flash=route[1], fp32_scores=cfg.fp32_scores)
+    h, x_ffn_in = residual_norm_modulate(h, h_attn, gate_msa, blk.ffn_norm.weight, shift_mlp,
+                                         scale_mlp, cfg.norm_eps,
+                                         _gemm_in_dtype(ff.w13, compute_dtype))
+    return h, (feed_forward_apply(ff, x_ffn_in, compute_dtype), gate_mlp)
+
+
+def _gemm_in_dtype(w, compute_dtype) -> torch.dtype:
+    """The dtype `dense` takes its input in: fp32 for an int8 weight (w8a8
+    quantizes the activations from fp32), else the compute dtype."""
+    return torch.float32 if isinstance(w, QuantWeight) else compute_dtype
+
+
 def _pooled(context: torch.Tensor, context_mask: Optional[torch.Tensor]):
     ctx_f = context.float()
     if context_mask is None:
@@ -524,9 +587,10 @@ def dit_apply_planned(dit: DiT, x: torch.Tensor, mods: torch.Tensor,
     and cross-attention run on the flash forward where
     `card_attention_route` says so (a config's use_flash still decides
     self-attention), else self-attention by JAX's rule and cross-attention
-    dense. return_stats: also {"attn_in", "ffn_in": (depth, H), "ffn_prod":
-    (depth, H')}, the per-block, per-channel amax of the quantized-GEMM
-    inputs."""
+    dense. The blocks run as `_fused_block` where `fused_block_route` says
+    so, else as `_block_apply`. return_stats: also {"attn_in", "ffn_in":
+    (depth, H), "ffn_prod": (depth, H')}, the per-block, per-channel amax of
+    the quantized-GEMM inputs."""
     cfg = dit.cfg
     tp = getattr(dit, "tp", None)
     card_self, card_cross = card_attention_route(
@@ -535,6 +599,17 @@ def dit_apply_planned(dit: DiT, x: torch.Tensor, mods: torch.Tensor,
     route = (cfg.use_flash if cfg.use_flash is not None
              else card_self or cfg.flash_for_len(x.shape[-1]), card_cross)
     h, cos, sin = _embed(dit, x, compute_dtype)
+    if fused_block_route(cfg, x.device.type, compute_dtype or x.dtype, torch.is_grad_enabled(),
+                         tp, return_stats, dit.blocks[0].attention.wqkv is not None):
+        carry = (None, None)
+        for i, blk in enumerate(dit.blocks):
+            h, carry = _fused_block(blk, cfg, h, carry, cos, sin, mods[i], (yk[i], yv[i]),
+                                    x_mask, y_mask, compute_dtype, route)
+        block_steps["dit_fused"] += len(dit.blocks)
+        h_ffn, gate_mlp = carry
+        shift, scale = final_mod.chunk(2, dim=-1)
+        return _final(dit, h + gate_mlp[:, None, :] * h_ffn, shift, scale)
+    block_steps["dit_plain"] += len(dit.blocks)
     stats = []
     for i, blk in enumerate(dit.blocks):
         h = _block_apply(blk, cfg, h, cos, sin, mods[i], y_kv=(yk[i], yv[i]),

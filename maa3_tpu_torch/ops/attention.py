@@ -9,8 +9,11 @@ self-attention, as the DiT does in training from 1248 tokens
 (models/dit.py `flash_for_len`), and `cross_flash` for the cross-attention,
 as the planned serving step does on the card for both
 (models/dit.py `card_attention_route`). `calls` counts the calls of each
-route. The projections run under JAX's checkpoint names attn_q, attn_k,
-attn_v (one fused wqkv matmul carries all three) and attn_out.
+route. `attention_apply_heads` is the planned serving step's fused entry:
+the fused wqkv product through K6 (ops/dit_fused.py), which writes q, k and
+v rotated and head-major, then the same attention. The projections run
+under JAX's checkpoint names attn_q, attn_k, attn_v (one fused wqkv matmul
+carries all three) and attn_out.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from torch import nn
 
 from maa3_tpu_torch.ops.basic import dense, layer_norm
+from maa3_tpu_torch.ops.dit_fused import rope_qkv_heads
 from maa3_tpu_torch.ops.flash_attention import flash_attention
 from maa3_tpu_torch.ops.rope import apply_rope
 
@@ -122,7 +126,6 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
     b, l, d = x.shape
     n_kv = n_heads if n_kv_heads is None else n_kv_heads
     hd = d // n_heads
-    scale = 1.0 / math.sqrt(hd)
     if tp is not None:
         n_heads, n_kv = tp.local(n_heads), tp.local(n_kv)
     if att.wqkv is not None:
@@ -144,12 +147,49 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
     if rep > 1:  # GQA
         xk = xk.repeat_interleave(rep, dim=2)
         xv = xv.repeat_interleave(rep, dim=2)
-    cross = hasattr(att, "wk_y") and (y is not None or y_kv is not None)
-    cross_flash = cross and cross_flash
     # (B, H, L, D): one copy of q for the flash calls, a view otherwise
     qh, kh, vh = xq.transpose(1, 2), xk.transpose(1, 2), xv.transpose(1, 2)
-    if use_flash or cross_flash:
+    if use_flash or (cross_flash and _has_cross(att, y, y_kv)):
         qh = qh.contiguous()
+    return _attend(att, qh, kh, vh, y, y_kv, x_mask, y_mask, rep, compute_dtype, use_flash,
+                   cross_flash, fp32_scores, tp)
+
+
+def attention_apply_heads(att: Attention, x: torch.Tensor, cos: torch.Tensor,
+                          sin: torch.Tensor, y_kv: tuple,
+                          x_mask: Optional[torch.Tensor] = None,
+                          y_mask: Optional[torch.Tensor] = None,
+                          n_heads: int = 8, n_kv_heads: Optional[int] = None,
+                          compute_dtype: Optional[torch.dtype] = None,
+                          use_flash: bool = False, cross_flash: bool = False,
+                          fp32_scores: bool = False) -> torch.Tensor:
+    """attention_apply for the planned serving step's fused block
+    (models/dit.py `fused_block_route`: a fused wqkv, no qk_norm, no tp):
+    the wqkv product goes through K6 (ops/dit_fused.py rope_qkv_heads), which
+    writes q, k and v rotated and head-major, then the same attention."""
+    n_kv = n_heads if n_kv_heads is None else n_kv_heads
+    qkv = dense(x, att.wqkv, None, compute_dtype, names=("attn_q", "attn_k", "attn_v"))
+    qh, kh, vh = rope_qkv_heads(qkv, cos, sin, n_heads, n_kv)
+    rep = n_heads // n_kv
+    if rep > 1:  # GQA
+        kh = kh.repeat_interleave(rep, dim=1)
+        vh = vh.repeat_interleave(rep, dim=1)
+    return _attend(att, qh, kh, vh, None, y_kv, x_mask, y_mask, rep, compute_dtype, use_flash,
+                   cross_flash, fp32_scores, None)
+
+
+def _has_cross(att: Attention, y, y_kv) -> bool:
+    return hasattr(att, "wk_y") and (y is not None or y_kv is not None)
+
+
+def _attend(att: Attention, qh, kh, vh, y, y_kv, x_mask, y_mask, rep: int, compute_dtype,
+            use_flash: bool, cross_flash: bool, fp32_scores: bool, tp) -> torch.Tensor:
+    """Self-attention of head-major (B, H, L, D) q, k, v, the gated
+    cross-attention, and the output projection."""
+    b, n_heads, l, hd = qh.shape
+    scale = 1.0 / math.sqrt(hd)
+    cross = _has_cross(att, y, y_kv)
+    cross_flash = cross and cross_flash
     if use_flash:
         out = flash_attention(qh, kh, vh, mask=x_mask, scale=scale)
     else:

@@ -35,7 +35,9 @@ With tracing on (maa3_tpu_torch/trace.py) the server records, on the
 batcher thread, `serve.collect` (the wait for a first request and the batch
 window) and `serve.batch` (rows, bucket, padded) with its children
 `serve.encode`, `serve.noise`, `serve.ode` (with the batch's DiT attention
-calls by route, `attn_flash` and `attn_dense`: ops/attention.py `calls`),
+calls by route, `attn_flash` and `attn_dense`: ops/attention.py `calls`, and
+its planned block-steps by route, `dit_fused` and `dit_plain`:
+models/dit.py `block_steps`),
 `serve.decode`, `serve.vocode` (the four with device time) and
 `serve.deliver`; per request `serve.queue`
 (from its arrival at `Batcher.submit` to the start of the batch that takes
@@ -63,6 +65,7 @@ import numpy as np
 import torch
 
 from maa3_tpu_torch import trace
+from maa3_tpu_torch.models import dit
 from maa3_tpu_torch.ops import attention
 from maa3_tpu_torch.system import check_limits
 
@@ -388,9 +391,9 @@ class Batcher(threading.Thread):
                                             "x0": x0.cpu().numpy(), "scale": first.scale,
                                             "steps": first.steps})
             with trace.span("serve.ode", device_time=True):
-                calls = dict(attention.calls)
+                calls, steps = dict(attention.calls), dict(dit.block_steps)
                 z = self.system.sample_cfg(c, first.scale, uc, timesteps=first.steps, x0=x0)
-                trace.annotate(**attention.route_counts(calls))
+                trace.annotate(**attention.route_counts(calls), **dit.block_counts(steps))
             with trace.span("serve.decode", device_time=True):
                 mel = self.system.decode_first_stage(z)
             with trace.span("serve.vocode", device_time=True):

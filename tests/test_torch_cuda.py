@@ -1383,3 +1383,153 @@ def test_planned_step_on_flash_matches_the_dense_route(cuda_dev, monkeypatch):
           f"{g_dense:.3e}, flash vs dense {g_routes:.3e}")
     assert torch.isfinite(flash).all() and ref.float().abs().max().item() > 0.1
     assert g_flash <= 1.25 * g_dense and g_routes <= 1e-2
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each element of a bf16 tensor (in fp32)."""
+    e = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))[1]
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1152, 1536, 64, 2056], ids=["xl", "xxl", "narrow", "row_loop"])
+@pytest.mark.parametrize("branch", [True, False], ids=["residual", "entry"])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_residual_norm_modulate_kernel_matches_plain(cuda_dev, d, branch, out):
+    """K5 at the closed loop's 32 dual rows x 312 tokens (XL 1152, XXL 1536;
+    a narrow row and one past the register cache, 2056, which takes the row
+    loop), with the MLP / attention branch and without (block 0's entry),
+    the gate / shift / scale as strided chunks of a (B, 6D) modulation: h'
+    within 1 fp32 ulp of the plain version (its products and sums round
+    alone: the same bits), a bf16 x within 1 bf16 ulp on at most 0.1 % of
+    its elements (the sum of squares is added in another order; where
+    x = n (1 + scale) + shift cancels, the ulp is the larger of x's and 2^-20
+    of |n (1 + scale)| + |shift|, the fp32 rounding of the terms), an fp32 x
+    (an int8 GEMM's input) within 1e-6 of its largest value."""
+    from maa3_tpu_torch.ops import dit_fused as fu
+    g = torch.Generator(device=cuda_dev).manual_seed(11)
+    b, l = 32, 312
+    h = torch.randn(b, l, d, generator=g, device=cuda_dev) * 3.0
+    br = torch.randn(b, l, d, generator=g, device=cuda_dev).to(torch.bfloat16)
+    mods = torch.randn(b, 6 * d, generator=g, device=cuda_dev) * 0.5
+    w = 1.0 + 0.1 * torch.randn(d, generator=g, device=cuda_dev)
+    shift, scale, gate = mods.chunk(6, dim=-1)[:3]
+    args = (br, gate) if branch else (None, None)
+    want_h, want_x = fu.residual_norm_modulate_plain(h, *args, w, shift, scale, 1e-5, out)
+    n = fu.launches["K5"]
+    got_h, got_x = fu.residual_norm_modulate(h, *args, w, shift, scale, 1e-5, out)
+    torch.cuda.synchronize()
+    assert fu.launches["K5"] == n + 1 and got_h is h and got_x.dtype == out
+    fp32_ulp = torch.finfo(torch.float32).eps * want_h.abs().clamp_min(2.0 ** -126)
+    assert ((got_h - want_h).abs() <= fp32_ulp).all()
+    diff = (got_x.float() - want_x.float()).abs()
+    if out == torch.bfloat16:
+        x32 = fu.residual_norm_modulate_plain(want_h, None, None, w, shift, scale, 1e-5,
+                                              torch.float32)[1]
+        terms = (x32 - shift[:, None, :]).abs() + shift[:, None, :].abs()
+        ulp = torch.maximum(_bf16_ulp(want_x), 2.0 ** -20 * terms)
+        off = (diff > 0).float().mean().item()
+        worst = (diff / ulp).max().item()
+        print(f"K5 D {d}: x differs from the plain version on {100 * off:.4f} % of elements, "
+              f"by up to {worst:.3f} ulp")
+        assert worst <= 1.0 and off <= 1e-3
+    else:
+        assert diff.max().item() <= 1e-6 * want_x.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_residual_norm_modulate_refused_launch_raises(cuda_dev):
+    """The C entry refuses a width that is no multiple of 8 (and returns its
+    cudaError); the wrapper raises on what the kernel does not take."""
+    from maa3_tpu_torch import cuda
+    from maa3_tpu_torch.ops import dit_fused as fu
+    h = torch.zeros(1, 4, 12, device=cuda_dev)
+    mods = torch.zeros(1, 72, device=cuda_dev)
+    lib = cuda.load()
+    err = lib.maa3_residual_norm_modulate(h.data_ptr(), None, None, mods.data_ptr(),
+                                          mods.data_ptr(), mods.data_ptr(), h.data_ptr(), 4, 4,
+                                          12, 72, 1e-5, 0, cuda.stream_ptr(h))
+    assert err != 0
+    with pytest.raises(RuntimeError, match="cudaError"):
+        cuda.check(err, "residual_norm_modulate")
+    with pytest.raises(ValueError, match="D % 8"):
+        fu.residual_norm_modulate(h, None, None, mods[0, :12], mods[:, :12], mods[:, 12:24],
+                                  1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,heads,n_kv,head_dim", [
+    (32, 16, 16, 72), (16, 32, 32, 48), (4, 8, 2, 64), (2, 4, 4, 6)],
+    ids=["xl", "xxl", "gqa", "pair_path"])
+def test_rope_qkv_heads_kernel_is_plain_bit_for_bit(cuda_dev, rows, heads, n_kv, head_dim):
+    """K6 at the closed loop's XL shape (32 dual rows x 312, 16 heads of 72),
+    XXL's (16 x 312, 32 heads of 48), a GQA projection and a head dim that
+    is no multiple of 8 (one pair a thread): q, k and v the same bits as the
+    plain version, contiguous and head-major."""
+    from maa3_tpu_torch.ops import dit_fused as fu
+    from maa3_tpu_torch.ops.rope import precompute_rope
+    g = torch.Generator(device=cuda_dev).manual_seed(12)
+    l = 312
+    qkv = (torch.randn(rows, l, (heads + 2 * n_kv) * head_dim, generator=g, device=cuda_dev)
+           * 2.0).to(torch.bfloat16)
+    cos, sin = precompute_rope(head_dim, l, device=cuda_dev)
+    want = fu.rope_qkv_heads_plain(qkv, cos, sin, heads, n_kv)
+    n = fu.launches["K6"]
+    got = fu.rope_qkv_heads(qkv, cos, sin, heads, n_kv)
+    torch.cuda.synchronize()
+    assert fu.launches["K6"] == n + 1
+    for gt, wt in zip(got, want):
+        assert gt.is_contiguous() and gt.shape == wt.shape and torch.equal(gt, wt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,heads,depth", [(1152, 16, 28), (1536, 32, 32)],
+                         ids=["xl", "xxl"])
+def test_planned_step_on_the_fused_blocks_matches_the_unfused_route(cuda_dev, monkeypatch,
+                                                                    width, heads, depth):
+    """XL (28 blocks of 1152, 16 heads of 72) and XXL (32 of 1536, 32 heads
+    of 48) as bf16 serving copies with the fp32 residual stream, one planned
+    step at 16 rows: the fused blocks (K5 twice and K6 once a block, every
+    launch's return code checked by its wrapper) against the same copy on
+    `_block_apply`, both held to the copy's step in fp32, with the planned
+    route test's tolerance: the fused gap may not exceed the unfused one by
+    more than a quarter, and the two lie within 1 % of each other."""
+    from maa3_tpu_torch.models import dit as tdit
+    from maa3_tpu_torch.ops import dit_fused as fu
+    cfg = tdit.DiTConfig(in_channels=20, context_dim=1024, hidden_size=width, depth=depth,
+                         num_heads=heads, fp32_residual=True)
+    g = torch.Generator(device=cuda_dev).manual_seed(8)
+    with torch.device(cuda_dev):
+        dit = tdit.unfreeze_zero_init(tdit.dit_init_(tdit.DiT(cfg), g), g)
+    card = tdit.serving_copy(dit, torch.bfloat16)
+    del dit
+    x = torch.randn(16, 20, 312, generator=g, device=cuda_dev)
+    ctx = torch.randn(16, 154, 1024, generator=g, device=cuda_dev)
+    t = torch.tensor([0, 400], device=cuda_dev)
+
+    def step(dtype):
+        plan = tdit.dit_sample_plan(card, t, ctx, compute_dtype=dtype)
+        with torch.no_grad():
+            return tdit.dit_apply_planned(card, x, plan["mods"][1], plan["final"][1],
+                                          plan["yk"], plan["yv"], compute_dtype=dtype)
+
+    since, n = dict(tdit.block_steps), dict(fu.launches)
+    fused = step(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tdit.block_counts(since) == {"dit_fused": depth, "dit_plain": 0}
+    assert fu.launches == {"K5": n["K5"] + 2 * depth, "K6": n["K6"] + depth}
+    with full_fp32():
+        ref = step(torch.float32)
+    monkeypatch.setattr(tdit, "fused_block_route", lambda *a: False)
+    unfused = step(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tdit.block_counts(since) == {"dit_fused": depth, "dit_plain": 2 * depth}
+
+    def gap(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    g_fused, g_unfused, g_routes = gap(fused, ref), gap(unfused, ref), gap(fused, unfused)
+    print(f"planned step, {depth} blocks of {width}, 16 rows: fused vs fp32 {g_fused:.3e}, "
+          f"unfused vs fp32 {g_unfused:.3e}, fused vs unfused {g_routes:.3e}")
+    assert torch.isfinite(fused).all() and ref.float().abs().max().item() > 0.1
+    assert g_fused <= 1.25 * g_unfused and g_routes <= 1e-2

@@ -1,0 +1,196 @@
+"""The planned serving step's fused block (models/dit.py `fused_block_route`,
+`_fused_block`; ops/dit_fused.py K5 / K6) on the CPU: the route each
+device, dtype, grad mode, residual dtype, tp, SmoothQuant statistics,
+qk_norm, head dim and weight layout takes; each plain version against the
+unfused chain it replaces, bit for bit; the fused block loop with its
+carried residual, through the plain versions, against the `_block_apply`
+loop on small DiTs, bit for bit; the block-step counts."""
+
+import dataclasses
+
+import pytest
+import torch
+
+from maa3_tpu_torch.models import dit as tdit
+from maa3_tpu_torch.ops import attention as tatt
+from maa3_tpu_torch.ops import dit_fused as fu
+from maa3_tpu_torch.ops.basic import modulate, rms_norm
+from maa3_tpu_torch.ops.rope import apply_rope, precompute_rope
+
+torch.set_num_threads(2)
+
+BF16 = torch.bfloat16
+XL = tdit.DiTConfig(hidden_size=1152, depth=28, num_heads=16, fp32_residual=True)
+
+
+@pytest.mark.parametrize("over,device,dtype,grad,tp,stats,wqkv,want", [
+    ({}, "cuda", BF16, False, None, False, True, True),
+    ({"hidden_size": 1536, "num_heads": 32}, "cuda", BF16, False, None, False, True, True),
+    ({}, "cpu", BF16, False, None, False, True, False),
+    ({}, "cuda", torch.float32, False, None, False, True, False),     # fp32 serving
+    ({}, "cuda", BF16, True, None, False, True, False),               # autograd: training
+    ({"fp32_residual": False}, "cuda", BF16, False, None, False, True, False),
+    ({}, "cuda", BF16, False, object(), False, True, False),          # tensor parallelism
+    ({}, "cuda", BF16, False, None, True, True, False),               # SmoothQuant statistics
+    ({"qk_norm": True}, "cuda", BF16, False, None, False, True, False),
+    ({}, "cuda", BF16, False, None, False, False, False),              # wq / wk / wv apart
+    ({"hidden_size": 80 * 16}, "cuda", BF16, False, None, False, True, False),
+    ({"hidden_size": 7 * 16, "num_heads": 16}, "cuda", BF16, False, None, False, True, False),
+    ({"hidden_size": 10 * 6, "num_heads": 6}, "cuda", BF16, False, None, False, True, False),
+    ({"hidden_size": 12 * 6, "num_heads": 6}, "cuda", BF16, False, None, False, True, True),
+])
+def test_fused_block_route(over, device, dtype, grad, tp, stats, wqkv, want):
+    """Head dim 7 (odd), 80 (past the kernels' 72) and a width of 60 (not a
+    multiple of 8) stay on `_block_apply`; a width of 72 (heads of 12) takes
+    the fused block."""
+    cfg = dataclasses.replace(XL, **over)
+    assert tdit.fused_block_route(cfg, device, dtype, grad, tp, stats, wqkv) is want
+
+
+def _stream(b, l, d, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(b, l, d, generator=g) * 3.0
+    branch = torch.randn(b, l, d, generator=g).to(BF16)
+    mods = torch.randn(b, 6 * d, generator=g) * 0.5
+    w = 1.0 + 0.1 * torch.randn(d, generator=g)
+    return h, branch, mods, w
+
+
+@pytest.mark.parametrize("b,l,d", [(3, 17, 64), (2, 40, 1152), (1, 9, 1536)])
+@pytest.mark.parametrize("with_branch", [True, False])
+@pytest.mark.parametrize("out", [BF16, torch.float32])
+def test_residual_norm_modulate_plain_is_the_unfused_chain(b, l, d, with_branch, out):
+    """K5's plain version on strided chunks of a (B, 6D) modulation gives the
+    bits of `_block_apply`'s gated residual, rms_norm, modulate and the GEMM
+    input's cast (bf16; none for an int8 GEMM); without a branch h comes back
+    as it is."""
+    h, branch, mods, w = _stream(b, l, d)
+    shift, scale, gate = mods.chunk(6, dim=-1)[:3]
+    n = dict(fu.launches)
+    got_h, got_x = fu.residual_norm_modulate(h, branch if with_branch else None,
+                                             gate if with_branch else None, w, shift, scale,
+                                             1e-5, out)
+    want_h = h + gate[:, None, :].to(h.dtype) * branch if with_branch else h
+    want_x = modulate(rms_norm(w, want_h, 1e-5), shift, scale).to(out)
+    assert got_h.dtype == torch.float32 and got_x.dtype == out
+    assert torch.equal(got_h, want_h) and torch.equal(got_x, want_x)
+    assert with_branch or got_h is h
+    assert fu.launches == n  # the CPU never launches a kernel
+
+
+@pytest.mark.parametrize("b,l,heads,n_kv,hd", [(2, 31, 4, 4, 72), (3, 12, 8, 8, 48),
+                                               (2, 9, 4, 2, 16), (1, 5, 2, 1, 6)])
+def test_rope_qkv_heads_plain_is_the_unfused_chain(b, l, heads, n_kv, hd):
+    """K6's plain version gives the bits of ops/rope.py's apply_rope on the
+    split wqkv product, moved to contiguous (B, heads, L, hd) as the flash
+    route copies it; v is moved unrotated (GQA: n_kv of the heads)."""
+    g = torch.Generator().manual_seed(1)
+    qkv = (torch.randn(b, l, (heads + 2 * n_kv) * hd, generator=g) * 2.0).to(BF16)
+    cos, sin = precompute_rope(hd, l + 3)
+    n = dict(fu.launches)
+    got = fu.rope_qkv_heads(qkv, cos, sin, heads, n_kv)
+    xq, xk, xv = qkv.split([heads * hd, n_kv * hd, n_kv * hd], dim=-1)
+    xq, xk = apply_rope(xq.reshape(b, l, heads, hd), xk.reshape(b, l, n_kv, hd), cos, sin)
+    want = [t.transpose(1, 2).contiguous() for t in (xq, xk, xv.reshape(b, l, n_kv, hd))]
+    for gt, wt, nh in zip(got, want, (heads, n_kv, n_kv)):
+        assert gt.shape == (b, nh, l, hd) and gt.dtype == BF16 and gt.is_contiguous()
+        assert torch.equal(gt, wt)
+    assert fu.launches == n
+
+
+def test_kernel_entries_raise_off_the_cpu_and_the_card():
+    h, branch, mods, w = _stream(1, 4, 16)
+    shift, scale, gate = mods.chunk(6, dim=-1)[:3]
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fu.residual_norm_modulate(h.to(meta), None, None, w, shift, scale, 1e-5)
+    cos, sin = precompute_rope(8, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fu.rope_qkv_heads(torch.empty(1, 4, 24, dtype=BF16, device=meta), cos, sin, 1, 1)
+
+
+def _dit(seed=3, **over):
+    cfg = tdit.DiTConfig(**dict(dict(in_channels=4, context_dim=16, hidden_size=64, depth=3,
+                                     num_heads=4, multiple_of=16, fp32_residual=True),
+                                **over))
+    gen = torch.Generator().manual_seed(seed)
+    dit = tdit.unfreeze_zero_init(tdit.dit_init_(tdit.DiT(cfg), gen), gen)
+    return dit, gen
+
+
+def _planned(dit, gen, b=3, t=24, ly=7, y_mask=None):
+    x = torch.randn(b, 4, t, generator=gen)
+    ctx = torch.randn(b, ly, 16, generator=gen)
+    plan = tdit.dit_sample_plan(dit, torch.tensor([0, 500]), ctx, context_mask=y_mask,
+                                compute_dtype=BF16)
+
+    def step():
+        with torch.no_grad():
+            return tdit.dit_apply_planned(dit, x, plan["mods"][1], plan["final"][1],
+                                          plan["yk"], plan["yv"], y_mask=y_mask,
+                                          compute_dtype=BF16)
+    return step
+
+
+@pytest.mark.parametrize("attn", ["dense", "flash"])
+@pytest.mark.parametrize("over", [{}, {"n_kv_heads": 2}, {"hidden_size": 96, "num_heads": 2}])
+def test_fused_block_loop_is_the_block_apply_loop_on_the_cpu(monkeypatch, attn, over):
+    """A bf16 serving copy with the fp32 residual stream, one planned step:
+    the fused loop forced onto the CPU (K5 / K6 through their plain
+    versions, each block's MLP residual carried into the next block's entry)
+    gives the bits of the `_block_apply` loop, on the dense attention route
+    and on the flash route (its plain versions); GQA and heads of 48
+    included. The block-step counts follow the route."""
+    dit, gen = _dit(**over)
+    step = _planned(tdit.serving_copy(dit, BF16), gen)
+    if attn == "flash":
+        monkeypatch.setattr(tdit, "card_attention_route", lambda *a: (True, True))
+    route = tdit.fused_block_route
+    since = dict(tdit.block_steps)
+    monkeypatch.setattr(tdit, "fused_block_route", lambda *a: route(*a) and False)
+    want = step()
+    assert tdit.block_counts(since) == {"dit_fused": 0, "dit_plain": 3}
+    monkeypatch.setattr(tdit, "fused_block_route", lambda *a: True)
+    calls = dict(tatt.calls)
+    got = step()
+    assert tdit.block_counts(since) == {"dit_fused": 3, "dit_plain": 3}
+    assert tatt.route_counts(calls) == ({"attn_flash": 6, "attn_dense": 0} if attn == "flash"
+                                        else {"attn_flash": 0, "attn_dense": 6})
+    assert got.dtype == torch.float32 and got.abs().max().item() > 0.01
+    assert torch.equal(got, want)
+
+
+def test_fused_block_loop_with_a_context_mask_and_int8_weights(monkeypatch):
+    """A ragged context mask (cross-attention dense on the card's route) and
+    int8 serving copies (w8a8 GEMMs, per channel and without w2's) run the
+    fused loop too, with the same bits: K5 gives an int8 GEMM its input in
+    fp32, which dense_w8a8 quantizes, as the unfused chain does."""
+    dit, gen = _dit(seed=5)
+    mask = torch.arange(7)[None, :] < torch.tensor([[7], [3], [1]])
+    steps = [_planned(tdit.serving_copy(dit, BF16), gen, y_mask=mask),
+             _planned(tdit.quant_serving_copy(dit), gen),
+             _planned(tdit.quant_serving_copy(dit, skip_w2=True), gen)]
+    want = [s() for s in steps]
+    monkeypatch.setattr(tdit, "fused_block_route", lambda *a: True)
+    since = dict(tdit.block_steps)
+    for s, w in zip(steps, want):
+        assert torch.equal(s(), w)
+    assert tdit.block_counts(since) == {"dit_fused": 9, "dit_plain": 0}
+
+
+def test_training_fp32_and_calibration_keep_block_apply():
+    """The CPU's unpatched route: dit_apply (training's forward, autograd
+    on), fp32 serving and the SmoothQuant statistics run `_block_apply`
+    only; the planned step on the CPU counts its block-steps as plain."""
+    dit, gen = _dit()
+    since, n = dict(tdit.block_steps), dict(fu.launches)
+    x = torch.randn(2, 4, 24, generator=gen)
+    ctx = torch.randn(2, 7, 16, generator=gen)
+    tdit.dit_apply(dit, x, torch.tensor([3, 700]), ctx, compute_dtype=BF16,
+                   training=True).sum().backward()
+    plan = tdit.dit_sample_plan(dit, torch.tensor([0, 500]), ctx, compute_dtype=None)
+    with torch.no_grad():
+        tdit.dit_apply_planned(dit, x, plan["mods"][0], plan["final"][0], plan["yk"],
+                               plan["yv"], compute_dtype=None, return_stats=True)
+    assert tdit.block_counts(since) == {"dit_fused": 0, "dit_plain": 3}
+    assert fu.launches == n

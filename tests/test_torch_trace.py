@@ -114,8 +114,10 @@ def test_a_served_batch_tiles_the_batcher_thread(system):
     kids = _children(spans, b)
     assert [k["name"] for k in kids] == BATCH_CHILDREN
     _in_order(b, kids)
-    # one Euler step of 2 through a block's dense self- and cross-attention (CPU)
-    assert kids[2]["attrs"] == {"attn_flash": 0, "attn_dense": 2}
+    # one Euler step of 2 through a block's dense self- and cross-attention,
+    # the block on `_block_apply` (CPU)
+    assert kids[2]["attrs"] == {"attn_flash": 0, "attn_dense": 2, "dit_fused": 0,
+                                "dit_plain": 1}
     collect = max((s for s in spans
                    if s["name"] == "serve.collect" and s["end_ns"] <= b["start_ns"]),
                   key=lambda s: s["end_ns"])
@@ -327,3 +329,31 @@ def test_trace_out_writes_the_spans_as_json_lines(cli, tmp_path, monkeypatch):
     assert set(lines[0]) == {"clock"} and set(lines[0]["clock"]) == {"unix_ns", "perf_ns"}
     assert [(x["name"], x["attrs"]) for x in lines[1:]] == [("work", {"rows": 2})]
     assert lines[1]["end_ns"] >= lines[1]["start_ns"] and lines[1]["parent"] is None
+
+
+def test_dit_fused_share_reads_the_served_batches_ode_counts():
+    """dit_fused_share.lat over every served batch's serve.ode block-step
+    counts, .tput over the batches that ended in the closed loop's window;
+    None from spans without the counts (a program before them)."""
+    from benchmark import harness
+    bench = harness.Bench()
+    lat, tput = (bench.reader(f"dit_fused_share.{k}") for k in ("lat", "tput"))
+    spans = [_sp(1, "serve.collect", 0, 100), _sp(2, "serve.batch", 100, 500),
+             _sp(3, "serve.ode", 150, 450, 2, attn_flash=56, attn_dense=0, dit_fused=28,
+                 dit_plain=0),
+             _sp(4, "serve.collect", 500, 600), _sp(5, "serve.batch", 600, 900),
+             _sp(6, "serve.ode", 650, 850, 5, attn_flash=56, attn_dense=0, dit_fused=0,
+                 dit_plain=28),
+             _sp(7, "serve.warmup", 0, 90, thread="main"),
+             _sp(8, "serve.ode", 10, 80, 7, thread="main", dit_fused=0, dit_plain=28)]
+
+    def rec(spans, window_s=1.0):
+        return {"kind": "serve", "window_s": window_s,
+                "program": {"clock": {"perf_ns": 0, "unix_ns": 0}, "spans": spans}}
+
+    assert lat(rec(spans)) == pytest.approx(50.0)
+    assert tput(rec(spans)) == pytest.approx(0.0)  # the second batch alone
+    older = [dict(s, attrs={"attn_flash": 56, "attn_dense": 0}) if s["name"] == "serve.ode"
+             else s for s in spans]
+    assert lat(rec(older)) is None and tput(rec(older)) is None
+    assert lat({"kind": "serve", "window_s": 1.0, "program": None}) is None
