@@ -57,7 +57,7 @@ Phases, each timed on a line of its own:
      --attn-crossover instead times K3a against `_sdpa` as the planned step
      calls each at 2-32 dual rows over latent lengths 39-624, self and
      cross, alone (no result line): whether flash still wins at every
-     length, as models/dit.py card_attention_route assumes;
+     length, as models/dit.py dit_route assumes;
   7. small training on the card against the CPU: two fp32 steps of a small
      DiT with flash attention forced on, same weights and draws; then two
      Trainer steps that also train a small conditioner with
@@ -93,11 +93,10 @@ Phases, each timed on a line of its own:
      launches per batch vocode, K3a 2 x 16 x 24, K5 2 x 16 x 24 and K6
      16 x 24 per 25-step batch over
      rounds 2-3 and the request alone, no thread left after shutdown; p50
-     latency and audio seconds per second at batch 8; then the XL ODE at
-     batch 8 and 16 with MAA3_ODE_CHUNK 0 and 8 (K3a and K5 2 x 28 x 24,
-     K6 28 x 24 per sub-batch ODE); then an AMPBlock2 and an lrelu vocoder
-     at BigVGAN 1536 width on the card against the CPU (fp32, 1e-3; AMP2
-     reaches K1 and K2, lrelu neither). --profile leaves it unprofiled.
+     latency and audio seconds per second at batch 8; then an AMPBlock2 and
+     an lrelu vocoder at BigVGAN 1536 width on the card against the CPU
+     (fp32, 1e-3; AMP2 reaches K1 and K2, lrelu neither). --profile leaves
+     it unprofiled.
  12. the remaining trainer options at XL width (random weights from the
      seed), fed by 64 log-mels of 80 x 2496 written from the seed under
      build/: (a) the remat sweep, frozen conditioner, batch 6 x latent 1248,
@@ -667,7 +666,7 @@ def serve_k3a(depth: int, odes: int = 1) -> int:
 
 def serve_dit(depth: int, odes: int = 1) -> dict:
     """K5 / K6 launches of `odes` 25-step CFG ODEs on the fused block route
-    (models/dit.py `fused_block_route`): K5 at each block's entry and middle,
+    (models/dit.py `dit_route`, `_fused_block`): K5 at each block's entry and middle,
     K6 once a block, at each Euler step."""
     n = depth * SERVE_EULER_STEPS * odes
     return {"K5": 2 * n, "K6": n}
@@ -1063,7 +1062,7 @@ def attn_crossover(torch, fa):
     (B, H, L, D) once, k and v of self-attention too, the context already
     head-major; dense: views), bf16, 16 heads of 72, over SERVE_ROWS x
     SERVE_LENS, self, cross and both: whether flash still wins at every
-    length, as models/dit.py card_attention_route assumes."""
+    length, as models/dit.py dit_route assumes."""
     from maa3_tpu_torch.ops.attention import _sdpa
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
@@ -1726,52 +1725,6 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
     gc.collect()
     torch.cuda.empty_cache()
     return out
-
-
-def ode_chunk_probe(torch, system_mod, config_path):
-    """Phase 11: the XL serving ODE (25 steps, latent 312, bf16) at batch 8
-    and 16 with MAA3_ODE_CHUNK 0 and 8 in turns (0, 8, 0, 8 after one warm
-    call per batch), each call's K3a / K5 / K6 launches those of its
-    sub-batch ODEs; returns {(batch, chunk): [ms, ms]}."""
-    from maa3_tpu_torch.ops import dit_fused as fu, flash_attention as fa
-    system = system_mod.MAA3System.from_config(
-        [config_path], seed=0, compute_dtype=torch.bfloat16, device="cuda", unfreeze=True)
-    g = torch.Generator(device="cuda").manual_seed(21)
-    old = os.environ.pop("MAA3_ODE_CHUNK", None)
-    ms = {}
-    try:
-        for b in (8, 16):
-            c, uc = (torch.randn(b, 154, 1024, generator=g, device="cuda") for _ in range(2))
-            x0 = torch.randn(b, 20, LATENT, generator=g, device="cuda")
-            zs = {}
-            for i, chunk in enumerate((8, 0, 8, 0, 8)):
-                os.environ["MAA3_ODE_CHUNK"] = str(chunk)
-                n0, dit0 = fa.launches["K3a"], dict(fu.launches)
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                zs[chunk] = system.sample_cfg(c, 5.0, uc, x0=x0, timesteps=25)
-                torch.cuda.synchronize()
-                odes = b // chunk if chunk and b > chunk else 1
-                want, want_dit = serve_k3a(XL_DEPTH, odes), serve_dit(XL_DEPTH, odes)
-                require(fa.launches["K3a"] - n0 == want, f"ODE chunk: batch {b} chunk {chunk}: "
-                        f"K3a launches {fa.launches['K3a'] - n0} == {want}")
-                dit = dit_launches(fu, dit0)
-                require(dit == want_dit, f"ODE chunk: batch {b} chunk {chunk}: K5 / K6 "
-                        f"launches {dit} == {want_dit}")
-                if i:  # the first call warms up
-                    ms.setdefault((b, chunk), []).append((time.perf_counter() - t) * 1e3)
-            dz = (zs[8] - zs[0]).abs().max().item()
-            require(torch.isfinite(zs[8]).all(), "finite chunked latents")
-            log(f"ODE chunk: XL batch {b}: chunk 0 {[round(x, 1) for x in ms[(b, 0)]]} ms, "
-                f"chunk 8 {[round(x, 1) for x in ms[(b, 8)]]} ms; max |z_8 - z_0| {dz:.3e}")
-    finally:
-        os.environ.pop("MAA3_ODE_CHUNK", None)
-        if old is not None:
-            os.environ["MAA3_ODE_CHUNK"] = old
-    del system
-    gc.collect()
-    torch.cuda.empty_cache()
-    return ms
 
 
 def amp2_lrelu_vocoders(torch, k1, k2, full_fp32):
@@ -3990,7 +3943,6 @@ def main() -> int:
     t = time.perf_counter()
     music_path = os.path.join(root, "configs", "txt2music-cfm-cfg.yaml")
     serve = serve_from_files(torch, system_mod, music_path, k1, k2)
-    chunk_ms = ode_chunk_probe(torch, system_mod, config_path)
     amp2 = amp2_lrelu_vocoders(torch, k1, k2, full_fp32)
     log(f"serving from checkpoint files: done, {time.perf_counter() - t:.2f} s")
 
@@ -4172,8 +4124,6 @@ def main() -> int:
                 "audio_logger": recipe["logger_counts"][i],
                 "recipe_micro_step": recipe["micro_step_counts"][name], "eval": eval_counts[i],
                 **{f"xl_serving_{mode}_ode": c[i] for mode, c in int8_counts.items() if mode}}})
-    log(f"ODE chunk (XL, 25 steps, ms): " + "; ".join(
-        f"batch {b} chunk {c}: {[round(x, 1) for x in v]}" for (b, c), v in chunk_ms.items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@ x (B, C, T) latents -> proj_in -> depth x [RoPE self-attn + gated cross-attn
 + SwiGLU FFN, 6-way adaLN-modulated] -> FinalLayer -> (B, C, T) velocity.
 
 Blocks are an nn.ModuleList with the reference's state-dict keys
-(blocks.{i}.attention.wq.weight, ...). `dit_apply(training=True)` is the
+(blocks.{i}.attention.wq.weight, ...). `dit_route` decides once per apply
+which kernels its blocks run (the `Route`). `dit_apply(training=True)` is the
 training forward: self-attention goes through the flash kernels from 1248
-tokens (`DiTConfig.flash_for_len`, JAX's rule; cross-attention stays dense),
+tokens (JAX's rule; cross-attention stays dense),
 and `remat` recomputes each block in the backward (torch.utils.checkpoint)
 under one of JAX's five `remat_policy`s (selective activation
 checkpointing, `remat_policy_fn`). `fuse_dit_gemms` / `unfuse_dit_gemms`
@@ -16,13 +17,12 @@ parameters). `dit_sample_plan` / `dit_apply_planned` hoist the per-step
 adaLN modulations and the static cross-attention K/V (head-major, the
 layout the flash kernels read) out of the ODE loop, with the same ops as
 `dit_apply`. On the card in bf16 without autograd, the planned step sends
-self- and cross-attention to the flash forward (K3a) at every length
-(`card_attention_route`); elsewhere it follows JAX's rule. There, with
-the fp32 residual stream and a fused wqkv, it also runs each block as
-`_fused_block` (`fused_block_route`): the gated residuals, RMSNorms and
-adaLN modulates in K5 and RoPE with the head-major split in K6
+self- and cross-attention to the flash forward (K3a) at every length;
+elsewhere it follows JAX's rule. There, with the fp32 residual stream and a
+fused wqkv, it also runs each block as `_fused_block`: the gated residuals,
+RMSNorms and adaLN modulates in K5 and RoPE with the head-major split in K6
 (ops/dit_fused.py), each block's MLP residual added by the next block's
-entry K5; `block_steps` counts the block-steps of each route.
+entry K5; trace.py `counts` counts the block-steps of each route.
 `serving_copy` makes the bf16 serving weights: every matmul weight rounded
 to bf16, wq/wk/wv and w1/w3 fused (JAX's cast_matmul_weights +
 fuse_dit_gemms).
@@ -40,8 +40,9 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from maa3_tpu_torch.ops.attention import (Attention, attention_apply, attention_apply_heads,
-                                          context_kv)
+from maa3_tpu_torch import trace
+from maa3_tpu_torch.ops.attention import (Attention, Route, attention_apply,
+                                          attention_apply_heads, context_kv)
 from maa3_tpu_torch.ops.basic import (RMSNorm, TimestepEmbedder, checkpoint_names,
                                       layer_norm, linear, modulate, rms_norm, silu)
 from maa3_tpu_torch.ops.dit_fused import residual_norm_modulate
@@ -83,11 +84,8 @@ class DiTConfig:
     # bf16 serving carries the residual stream between blocks in fp32
     # (system.py:421-433); no effect in fp32
     fp32_residual: bool = False
-    # bf16 serving keeps the dense attention logits in fp32 (a drift lever;
-    # maa3_tpu/models/dit.py:80); no effect in fp32
-    fp32_scores: bool = False
     # flash attention for self-attention: None = by sequence length and mode
-    # (flash_for_len), True/False = always / never
+    # (dit_route), True/False = always / never
     use_flash: Optional[bool] = None
     # recompute each block in the backward instead of keeping its activations,
     # keeping what remat_policy names (REMAT_SAVES)
@@ -111,61 +109,43 @@ class DiTConfig:
         return self.hidden_size // self.num_heads
 
     def flash_for_len(self, seq_len: int, training: bool = False) -> bool:
-        """The JAX rule (maa3_tpu/models/dit.py:103-106) for self-attention:
-        training from 1248 tokens, inference only above 4096 (a TPU
-        measurement). The planned serving step on the card routes by
-        `card_attention_route` instead."""
-        if self.use_flash is not None:
-            return self.use_flash
-        return seq_len >= 1248 if training else seq_len > 4096
-
-    def resolve_flash(self, seq_len: int, training: bool) -> "DiTConfig":
-        """This config with use_flash pinned for one apply, so the blocks
-        route the same way whatever mode they are called in."""
-        if self.use_flash is not None:
-            return self
-        return dataclasses.replace(self, use_flash=self.flash_for_len(seq_len, training))
+        """JAX's method: whether self-attention takes flash (`dit_route`)."""
+        return dit_route(self, seq_len, training).self_flash
 
 
-def card_attention_route(device_type: str, dtype: Optional[torch.dtype],
-                         grad_enabled: bool, head_dim: int, y_masked: bool) -> tuple:
-    """(self, cross): whether the planned serving step sends its self- and
-    cross-attention to the flash forward (K3a). Only on a CUDA device, in
-    bf16, without autograd and at head dims the kernels take; cross-attention
-    only without a context mask (K3a gives a fully masked row 0, the dense
-    path the mean of v, and finding such rows would cost a host sync). No
-    length threshold: on an H100 K3a beat the dense path at every latent
-    length from 39 to 624 at 2-32 dual rows, self and cross (chip_smoke.py
-    --attn-crossover, bf16, 16 heads of 72; PERF.md)."""
-    on = (device_type == "cuda" and dtype == torch.bfloat16 and not grad_enabled
-          and head_dim <= MAX_HEAD_DIM)
-    return on, on and not y_masked
+def dit_route(cfg, seq_len: int, training: bool = False, *,
+              device_type: Optional[str] = None, dtype: Optional[torch.dtype] = None,
+              grad_enabled: bool = False, y_masked: bool = False, tp=None,
+              return_stats: bool = False, fused_wqkv: bool = False) -> Route:
+    """The kernels of one apply of the text DiT or the video MoE (cfg: a
+    DiTConfig or a MoEDiTConfig), decided once for all its blocks.
 
+    Self-attention follows JAX's rule (maa3_tpu/models/dit.py:103-106):
+    cfg.use_flash if set, else flash in training from 1248 tokens and in
+    inference above 4096 (a TPU measurement); seq_len is the whole sequence,
+    before any tp split. Cross-attention is dense and the blocks plain.
 
-# planned block-steps by route (the serving span reads them: serving.py)
-block_steps = {"dit_fused": 0, "dit_plain": 0}
-
-
-def block_counts(since: dict) -> dict:
-    """{"dit_fused", "dit_plain"}: the planned block-steps of each route
-    since `since` (a copy of `block_steps`)."""
-    return {k: block_steps[k] - since[k] for k in block_steps}
-
-
-def fused_block_route(cfg: DiTConfig, device_type: str, dtype: Optional[torch.dtype],
-                      grad_enabled: bool, tp, return_stats: bool, fused_wqkv: bool) -> bool:
-    """Whether the planned serving step runs its blocks as `_fused_block`
-    (the token-wise passes in K5 and K6, ops/dit_fused.py) instead of
-    `_block_apply`: where `card_attention_route` sends self-attention to K3a
-    (a CUDA device, bf16, no autograd, head dim <= 72), at an even head dim
-    and a width the kernels take (a multiple of 8), with the fp32 residual
-    stream, a fused wqkv (serving_copy and quant_serving_copy make it), and
-    no tensor parallelism, SmoothQuant statistics or qk_norm. Everything else
-    (training, the CPU, fp32 serving, tp, calibration, the video MoE) runs
-    `_block_apply`."""
-    on, _ = card_attention_route(device_type, dtype, grad_enabled, cfg.head_dim, False)
-    return (on and cfg.head_dim % 2 == 0 and cfg.hidden_size % 8 == 0 and cfg.fp32_residual
-            and tp is None and not return_stats and not cfg.qk_norm and fused_wqkv)
+    The planned serving step also passes what it runs on and with. On a CUDA
+    device, in bf16, without autograd and at head dims the kernels take, it
+    sends self-attention (unless cfg.use_flash says otherwise) and, without
+    a context mask, cross-attention to the flash forward (K3a) at every
+    length: on an H100 K3a beat the dense path at every latent length from
+    39 to 624 at 2-32 dual rows, self and cross (chip_smoke.py
+    --attn-crossover, bf16, 16 heads of 72; PERF.md). A masked context stays
+    dense: K3a gives a fully masked row 0, the dense path the mean of v, and
+    finding such rows would cost a host sync. There the blocks run as
+    `_fused_block` (K5 / K6, ops/dit_fused.py) at an even head dim and a
+    width that is a multiple of 8, with the fp32 residual stream and a fused
+    wqkv (serving_copy and quant_serving_copy make it), and without tensor
+    parallelism, SmoothQuant statistics or qk_norm."""
+    flash = (cfg.use_flash if cfg.use_flash is not None
+             else seq_len >= 1248 if training else seq_len > 4096)
+    if not (device_type == "cuda" and dtype == torch.bfloat16 and not grad_enabled
+            and cfg.head_dim <= MAX_HEAD_DIM):
+        return Route(flash)
+    fused = (cfg.head_dim % 2 == 0 and cfg.hidden_size % 8 == 0 and cfg.fp32_residual
+             and tp is None and not return_stats and not cfg.qk_norm and fused_wqkv)
+    return Route(cfg.use_flash if cfg.use_flash is not None else True, not y_masked, fused)
 
 
 class TransformerBlock(nn.Module):
@@ -384,15 +364,13 @@ def _reduces(lin: nn.Module) -> bool:
     return getattr(lin.weight, "amax_group", None) is not None
 
 
-def _block_apply(blk: TransformerBlock, cfg: DiTConfig, x, cos, sin, mod,
+def _block_apply(blk: TransformerBlock, cfg: DiTConfig, x, cos, sin, mod, route: Route,
                  y=None, y_kv=None, x_mask=None, y_mask=None,
-                 compute_dtype=None, return_stats: bool = False, tp=None,
-                 route: Optional[tuple] = None):
-    """TransformerBlock.forward with the (B, 6H) modulation given.
+                 compute_dtype=None, return_stats: bool = False, tp=None):
+    """TransformerBlock.forward with the (B, 6H) modulation given, its
+    attention on `route`.
     return_stats: also {attn_in, ffn_in, ffn_prod}, the per-channel amax of
     the three quantized-GEMM inputs (maa3_tpu/models/dit.py:376-419).
-    route: (self, cross) flash flags; default JAX's rule for self-attention
-    and dense cross-attention.
     tp: the block's weights are this rank's shards (parallel/tp.py); the
     attention and the FFN run between tp.enter and tp.exit, and x is this
     rank's sequence shard under sequence parallelism."""
@@ -406,15 +384,11 @@ def _block_apply(blk: TransformerBlock, cfg: DiTConfig, x, cos, sin, mod,
     if tp is not None:
         w_attn, w_ffn = tp.on_stream(w_attn), tp.on_stream(w_ffn)
     x_attn_in = modulate(rms_norm(w_attn, x, cfg.norm_eps), shift_msa, scale_msa)
-    if route is None:
-        seq = x.shape[1] * (tp.size if tp is not None and tp.seq_parallel else 1)
-        route = (cfg.flash_for_len(seq), False)
     h_attn = attention_apply(
         blk.attention, x_attn_in if tp is None else tp.enter(x_attn_in),
         cos, sin, y=y, y_kv=y_kv, x_mask=x_mask, y_mask=y_mask,
         n_heads=cfg.num_heads, n_kv_heads=cfg.n_kv_heads,
-        compute_dtype=compute_dtype, use_flash=route[0], cross_flash=route[1],
-        fp32_scores=cfg.fp32_scores, tp=tp)
+        compute_dtype=compute_dtype, route=route, tp=tp)
     if tp is not None and not _reduces(blk.attention.wo):
         h_attn = tp.exit(h_attn)
     h = x + gate_msa[:, None, :].to(x.dtype) * h_attn
@@ -433,8 +407,8 @@ def _block_apply(blk: TransformerBlock, cfg: DiTConfig, x, cos, sin, mod,
 
 
 def _fused_block(blk: TransformerBlock, cfg: DiTConfig, h, carry: tuple, cos, sin, mod,
-                 y_kv, x_mask, y_mask, compute_dtype, route: tuple):
-    """One block of the planned serving step on `fused_block_route`: the
+                 y_kv, x_mask, y_mask, compute_dtype, route: Route):
+    """One block of the planned serving step on a fused `route`: the
     math of `_block_apply` (forward only, fp32 h), with its token-wise passes
     in K5 and K6 (ops/dit_fused.py). carry: the previous block's MLP branch
     and gate, (None, None) before the first block; its residual is added by
@@ -448,7 +422,7 @@ def _fused_block(blk: TransformerBlock, cfg: DiTConfig, h, carry: tuple, cos, si
     h_attn = attention_apply_heads(
         att, x_attn_in, cos, sin, y_kv, x_mask=x_mask, y_mask=y_mask,
         n_heads=cfg.num_heads, n_kv_heads=cfg.n_kv_heads, compute_dtype=compute_dtype,
-        use_flash=route[0], cross_flash=route[1], fp32_scores=cfg.fp32_scores)
+        route=route)
     h, x_ffn_in = residual_norm_modulate(h, h_attn, gate_msa, blk.ffn_norm.weight, shift_mlp,
                                          scale_mlp, cfg.norm_eps,
                                          _gemm_in_dtype(ff.w13, compute_dtype))
@@ -493,13 +467,13 @@ def _embed(dit: DiT, x: torch.Tensor, compute_dtype):
 
 
 def _dit_block(blk: TransformerBlock, cfg: DiTConfig, h, cos, sin, adaln,
-               context, x_mask, context_mask, compute_dtype, tp=None, fsdp=None):
+               context, x_mask, context_mask, compute_dtype, route: Route, tp=None, fsdp=None):
     """One block of dit_apply, its modulation and normed context included
     (the body JAX's remat recomputes), its FSDP shards gathered inside."""
     with gathered(fsdp, blk):
         mod = linear(blk.adaLN_modulation[1], silu(adaln.float()))
         y = rms_norm(blk.attention_y_norm.weight, context, cfg.norm_eps)
-        return _block_apply(blk, cfg, h, cos, sin, mod, y=y, x_mask=x_mask,
+        return _block_apply(blk, cfg, h, cos, sin, mod, route, y=y, x_mask=x_mask,
                             y_mask=context_mask, compute_dtype=compute_dtype, tp=tp)
 
 
@@ -514,7 +488,8 @@ def dit_apply(dit: DiT, x: torch.Tensor, t: torch.Tensor,
     Megatron's tensor parallelism, with cfg.seq_parallel its sequence
     parallelism; one sharded over the data group (dit.fsdp) gathers its
     parameters as it goes."""
-    cfg = dit.cfg.resolve_flash(x.shape[-1], training)
+    cfg = dit.cfg
+    route = dit_route(cfg, x.shape[-1], training)
     tp = getattr(dit, "tp", None)
     if tp is not None:
         tp = tp.with_seq_parallel(cfg.seq_parallel)
@@ -531,7 +506,7 @@ def dit_apply(dit: DiT, x: torch.Tensor, t: torch.Tensor,
                                                    remat_policy_fn(cfg.remat_policy))
         for blk in dit.blocks:
             args = (blk, cfg, h, cos, sin, adaln, context, x_mask, context_mask,
-                    compute_dtype, tp, fsdp)
+                    compute_dtype, route, tp, fsdp)
             h = checkpoint(_dit_block, *args, **ckpt) if remat else _dit_block(*args)
         if tp is not None:
             h = tp.join_seq(h)
@@ -583,39 +558,34 @@ def dit_apply_planned(dit: DiT, x: torch.Tensor, mods: torch.Tensor,
                       compute_dtype: Optional[torch.dtype] = torch.bfloat16,
                       return_stats: bool = False):
     """dit_apply for one step of a plan (mods: (depth, B, 6H),
-    final_mod: (B, 2H), yk/yv: per-block (B, n_kv, Ly, head_dim)). Self-
-    and cross-attention run on the flash forward where
-    `card_attention_route` says so (a config's use_flash still decides
-    self-attention), else self-attention by JAX's rule and cross-attention
-    dense. The blocks run as `_fused_block` where `fused_block_route` says
-    so, else as `_block_apply`. return_stats: also {"attn_in", "ffn_in":
-    (depth, H), "ffn_prod": (depth, H')}, the per-block, per-channel amax of
-    the quantized-GEMM inputs."""
+    final_mod: (B, 2H), yk/yv: per-block (B, n_kv, Ly, head_dim)), its
+    blocks as `_fused_block` or `_block_apply` on `dit_route`'s route for
+    this device, dtype and weight layout. return_stats: also {"attn_in",
+    "ffn_in": (depth, H), "ffn_prod": (depth, H')}, the per-block,
+    per-channel amax of the quantized-GEMM inputs."""
     cfg = dit.cfg
     tp = getattr(dit, "tp", None)
-    card_self, card_cross = card_attention_route(
-        x.device.type, compute_dtype or x.dtype, torch.is_grad_enabled(), cfg.head_dim,
-        y_mask is not None)
-    route = (cfg.use_flash if cfg.use_flash is not None
-             else card_self or cfg.flash_for_len(x.shape[-1]), card_cross)
+    route = dit_route(cfg, x.shape[-1], device_type=x.device.type,
+                      dtype=compute_dtype or x.dtype, grad_enabled=torch.is_grad_enabled(),
+                      y_masked=y_mask is not None, tp=tp, return_stats=return_stats,
+                      fused_wqkv=dit.blocks[0].attention.wqkv is not None)
     h, cos, sin = _embed(dit, x, compute_dtype)
-    if fused_block_route(cfg, x.device.type, compute_dtype or x.dtype, torch.is_grad_enabled(),
-                         tp, return_stats, dit.blocks[0].attention.wqkv is not None):
+    if route.fused:
         carry = (None, None)
         for i, blk in enumerate(dit.blocks):
             h, carry = _fused_block(blk, cfg, h, carry, cos, sin, mods[i], (yk[i], yv[i]),
                                     x_mask, y_mask, compute_dtype, route)
-        block_steps["dit_fused"] += len(dit.blocks)
+        trace.counts["dit_fused"] += len(dit.blocks)
         h_ffn, gate_mlp = carry
         shift, scale = final_mod.chunk(2, dim=-1)
         return _final(dit, h + gate_mlp[:, None, :] * h_ffn, shift, scale)
-    block_steps["dit_plain"] += len(dit.blocks)
+    trace.counts["dit_plain"] += len(dit.blocks)
     stats = []
     for i, blk in enumerate(dit.blocks):
-        h = _block_apply(blk, cfg, h, cos, sin, mods[i], y_kv=(yk[i], yv[i]),
+        h = _block_apply(blk, cfg, h, cos, sin, mods[i], route, y_kv=(yk[i], yv[i]),
                          x_mask=x_mask, y_mask=y_mask,
                          compute_dtype=compute_dtype, return_stats=return_stats,
-                         tp=tp and tp.with_seq_parallel(False), route=route)
+                         tp=tp and tp.with_seq_parallel(False))
         if return_stats:
             h, st = h
             stats.append(st)

@@ -16,7 +16,8 @@ Routing depends on t and the channel only, so it is dense: the time-MoE
 gathers each sample's expert weights and runs one batched product; the
 frequency-MoE runs on the pre-sliced stacks. Self- and cross-attention go
 through ops/attention.py, so self-attention takes the flash kernels
-(K3a/K3b forward, K4a or K4b + K4c backward) wherever `flash_for_len` says.
+(K3a/K3b forward, K4a or K4b + K4c backward) wherever models/dit.py
+`dit_route` says.
 Random init is models/dit.py `dit_init_` (xavier linears, zero adaLN, final
 layer and gates). `moe_dit_sample_plan` / `moe_dit_apply_planned` hoist what every ODE step
 shares: the conditioning tower, the adaLN modulations, the cross-attention
@@ -44,8 +45,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from maa3_tpu_torch.models.dit import FinalLayer, _final
-from maa3_tpu_torch.ops.attention import Attention, attention_apply, context_kv
+from maa3_tpu_torch.models.dit import FinalLayer, _final, dit_route
+from maa3_tpu_torch.ops.attention import Attention, Route, attention_apply, context_kv
 from maa3_tpu_torch.ops.basic import (RMSNorm, TimestepEmbedder, layer_norm, linear,
                                       modulate, rms_norm, silu)
 from maa3_tpu_torch.ops.ffn import FeedForward
@@ -70,7 +71,8 @@ class MoEDiTConfig:
     ntk_factor: float = 1.0
     num_experts: int = 4
     num_timesteps: int = 1000
-    # None: by sequence length and mode (flash_for_len); True/False: always / never
+    # None: by sequence length and mode (models/dit.py dit_route); True/False:
+    # always / never
     use_flash: Optional[bool] = None
     # recompute each block in the backward (torch.utils.checkpoint)
     remat: bool = False
@@ -82,18 +84,6 @@ class MoEDiTConfig:
     @property
     def time_bucket(self) -> int:
         return 250  # flag_large_dit_moe.py:520 (time // 250)
-
-    def flash_for_len(self, seq_len: int, training: bool = False) -> bool:
-        """The text DiT's rule (models/dit.py): training from 1248 tokens,
-        inference above 4096."""
-        if self.use_flash is not None:
-            return self.use_flash
-        return seq_len >= 1248 if training else seq_len > 4096
-
-    def resolve_flash(self, seq_len: int, training: bool) -> "MoEDiTConfig":
-        if self.use_flash is not None:
-            return self
-        return dataclasses.replace(self, use_flash=self.flash_for_len(seq_len, training))
 
 
 def _expert(cfg: MoEDiTConfig) -> FeedForward:
@@ -275,7 +265,7 @@ def _adaln_input(dit: MoEDiT, t_emb: torch.Tensor, cond: torch.Tensor) -> torch.
 
 
 def _moe_block(blk: MoEBlock, cfg: MoEDiTConfig, h, cos, sin, adaln, cond, t,
-               compute_dtype, tp=None, ep=None, fsdp=None):
+               compute_dtype, route: Route, tp=None, ep=None, fsdp=None):
     """One block of moe_dit_apply, its FSDP shards gathered inside; with tp
     the attention runs between tp.enter and tp.exit (no sequence
     parallelism), the MoE as moe_apply."""
@@ -287,7 +277,7 @@ def _moe_block(blk: MoEBlock, cfg: MoEDiTConfig, h, cos, sin, adaln, cond, t,
             blk.attention, xa if tp is None else tp.enter(xa),
             cos, sin, y=rms_norm(blk.attention_y_norm.weight, cond, cfg.norm_eps),
             n_heads=cfg.num_heads, n_kv_heads=cfg.n_kv_heads,
-            compute_dtype=compute_dtype, use_flash=cfg.flash_for_len(h.shape[1]), tp=tp)
+            compute_dtype=compute_dtype, route=route, tp=tp)
         if tp is not None:
             ha = tp.exit(ha)
         h = h + g_msa[:, None, :].to(h.dtype) * ha
@@ -323,7 +313,8 @@ def moe_dit_apply(dit: MoEDiT, x: torch.Tensor, t: torch.Tensor,
     recomputes each block in the backward. A MoEDiT sharded over the model
     (dit.tp), expert (dit.ep) or data (dit.fsdp) group runs tensor, expert
     or ZeRO-3 parallelism (parallel/)."""
-    cfg = dit.cfg.resolve_flash(x.shape[-1], training)
+    cfg = dit.cfg
+    route = dit_route(cfg, x.shape[-1], training)
     tp, ep, fsdp = _parallel(dit)
     with gathered(fsdp, dit.proj_in, dit.t_embedder, dit.c_embedder, dit.cap_embedder,
                   dit.final_layer):
@@ -332,7 +323,7 @@ def moe_dit_apply(dit: MoEDiT, x: torch.Tensor, t: torch.Tensor,
         adaln = _adaln_input(dit, dit.t_embedder(t), cond)
         remat = cfg.remat and torch.is_grad_enabled()
         for blk in dit.blocks:
-            args = (blk, cfg, h, cos, sin, adaln, cond, t, compute_dtype, tp, ep, fsdp)
+            args = (blk, cfg, h, cos, sin, adaln, cond, t, compute_dtype, route, tp, ep, fsdp)
             h = (checkpoint(_moe_block, *args, use_reentrant=False) if remat
                  else _moe_block(*args))
         shift, scale = linear(dit.final_layer.adaLN_modulation[1],
@@ -384,6 +375,7 @@ def moe_dit_apply_planned(dit: MoEDiT, x: torch.Tensor, mods: torch.Tensor,
     t_idx (maa3_tpu/models/dit_moe.py:348); tensor and expert parallel as
     the DiT's shards say."""
     cfg = dit.cfg
+    route = dit_route(cfg, x.shape[-1])
     tp, ep, _ = _parallel(dit)
     h, cos, sin = _embed(dit, x, compute_dtype)
     for i, blk in enumerate(dit.blocks):
@@ -392,8 +384,7 @@ def moe_dit_apply_planned(dit: MoEDiT, x: torch.Tensor, mods: torch.Tensor,
         ha = attention_apply(
             blk.attention, xa if tp is None else tp.enter(xa),
             cos, sin, y_kv=(yk[i], yv[i]), n_heads=cfg.num_heads,
-            n_kv_heads=cfg.n_kv_heads, compute_dtype=compute_dtype,
-            use_flash=cfg.flash_for_len(h.shape[1]), tp=tp)
+            n_kv_heads=cfg.n_kv_heads, compute_dtype=compute_dtype, route=route, tp=tp)
         if tp is not None:
             ha = tp.exit(ha)
         h = h + g_msa[:, None, :].to(h.dtype) * ha

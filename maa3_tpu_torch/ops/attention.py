@@ -2,28 +2,27 @@
 cross-attention (counterpart of maa3_tpu/ops/attention.py:89-169).
 
 Each of the two attentions is dense (`_sdpa`: plain matmuls, the logits
-stored in bf16 in bf16 mode with fp32 softmax statistics, as in JAX; kept in
-fp32 with `fp32_scores`) unless the caller asks for flash attention
-(ops/flash_attention.py: K3a/K3b forward, K4a backward): `use_flash` for
-self-attention, as the DiT does in training from 1248 tokens
-(models/dit.py `flash_for_len`), and `cross_flash` for the cross-attention,
-as the planned serving step does on the card for both
-(models/dit.py `card_attention_route`). `calls` counts the calls of each
-route. `attention_apply_heads` is the planned serving step's fused entry:
-the fused wqkv product through K6 (ops/dit_fused.py), which writes q, k and
-v rotated and head-major, then the same attention. The projections run
-under JAX's checkpoint names attn_q, attn_k, attn_v (one fused wqkv matmul
-carries all three) and attn_out.
+stored in bf16 in bf16 mode with fp32 softmax statistics, as in JAX) unless
+the caller's `Route` sends it to flash attention (ops/flash_attention.py:
+K3a/K3b forward, K4a backward): models/dit.py `dit_route` decides the route
+once per DiT apply, and `_attend` counts each call by route
+(trace.py `counts`). `attention_apply_heads` is the planned serving step's
+fused entry: the fused wqkv product through K6 (ops/dit_fused.py), which
+writes q, k and v rotated and head-major, then the same attention. The
+projections run under JAX's checkpoint names attn_q, attn_k, attn_v (one
+fused wqkv matmul carries all three) and attn_out.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from maa3_tpu_torch import trace
 from maa3_tpu_torch.ops.basic import dense, layer_norm
 from maa3_tpu_torch.ops.dit_fused import rope_qkv_heads
 from maa3_tpu_torch.ops.flash_attention import flash_attention
@@ -31,15 +30,15 @@ from maa3_tpu_torch.ops.rope import apply_rope
 
 NEG_INF = -1e9  # finite mask value: no NaN rows for all-masked queries
 
-# attention calls by kind and route (the serving span reads them: serving.py)
-calls = {"self_flash": 0, "self_dense": 0, "cross_flash": 0, "cross_dense": 0}
 
-
-def route_counts(since: dict) -> dict:
-    """{"attn_flash", "attn_dense"}: the calls of each route, self and cross
-    together, since `since` (a copy of `calls`)."""
-    return {f"attn_{r}": sum(calls[k] - since[k] for k in calls if k.endswith(r))
-            for r in ("flash", "dense")}
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """The kernels of one DiT apply (models/dit.py `dit_route`): self- and
+    cross-attention on the flash forward or dense, and the planned step's
+    blocks as `_fused_block` (K5 / K6) or `_block_apply`."""
+    self_flash: bool = False
+    cross_flash: bool = False
+    fused: bool = False
 
 
 class Attention(nn.Module):
@@ -68,14 +67,12 @@ class Attention(nn.Module):
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-          mask: Optional[torch.Tensor], fp32_scores: bool = False) -> torch.Tensor:
+          mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Softmax attention on head-major (B, H, L, D); mask: (B, Lk) bool,
-    True = valid. In bf16 the logits are stored in bf16 unless fp32_scores
+    True = valid. In bf16 the logits are stored in bf16
     (maa3_tpu/ops/attention.py:63-80)."""
-    qs, ks = (q.float(), k.float()) if fp32_scores else (q, k)
-    # fp32_scores: fp32 products of the bf16 inputs, never rounded to bf16
-    logits = torch.matmul(qs, ks.transpose(-1, -2)).float() * scale
-    if q.dtype == torch.bfloat16 and not fp32_scores:
+    logits = torch.matmul(q, k.transpose(-1, -2)).float() * scale
+    if q.dtype == torch.bfloat16:
         logits = logits.to(torch.bfloat16)
     if mask is not None:
         logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
@@ -112,17 +109,15 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
                     y_mask: Optional[torch.Tensor] = None,
                     n_heads: int = 8, n_kv_heads: Optional[int] = None,
                     compute_dtype: Optional[torch.dtype] = None,
-                    y_kv: Optional[tuple] = None,
-                    use_flash: bool = False, cross_flash: bool = False,
-                    fp32_scores: bool = False, tp=None) -> torch.Tensor:
+                    y_kv: Optional[tuple] = None, route: Route = Route(),
+                    tp=None) -> torch.Tensor:
     """x: (B, L, D); y: (B, Ly, y_dim) normed context, or y_kv: its
     precomputed (yk, yv) (context_kv: head-major (B, n_kv, Ly, head_dim)).
-    use_flash / cross_flash route self- / cross-
-    attention through the flash kernels (a query row whose keys are all
-    masked gives 0 there, the mean of v dense); fp32_scores keeps the dense
-    logits in fp32 in bf16 mode. With tp (parallel/tp.py) the weights are
-    this rank's heads, and the result is this rank's partial sum of the
-    output projection."""
+    route.self_flash / cross_flash send self- / cross-attention through the
+    flash kernels (a query row whose keys are all masked gives 0 there, the
+    mean of v dense). With tp (parallel/tp.py) the weights are this rank's
+    heads, and the result is this rank's partial sum of the output
+    projection."""
     b, l, d = x.shape
     n_kv = n_heads if n_kv_heads is None else n_kv_heads
     hd = d // n_heads
@@ -149,10 +144,9 @@ def attention_apply(att: Attention, x: torch.Tensor, cos: torch.Tensor,
         xv = xv.repeat_interleave(rep, dim=2)
     # (B, H, L, D): one copy of q for the flash calls, a view otherwise
     qh, kh, vh = xq.transpose(1, 2), xk.transpose(1, 2), xv.transpose(1, 2)
-    if use_flash or (cross_flash and _has_cross(att, y, y_kv)):
+    if route.self_flash or (route.cross_flash and _has_cross(att, y, y_kv)):
         qh = qh.contiguous()
-    return _attend(att, qh, kh, vh, y, y_kv, x_mask, y_mask, rep, compute_dtype, use_flash,
-                   cross_flash, fp32_scores, tp)
+    return _attend(att, qh, kh, vh, y, y_kv, x_mask, y_mask, rep, compute_dtype, route, tp)
 
 
 def attention_apply_heads(att: Attention, x: torch.Tensor, cos: torch.Tensor,
@@ -161,10 +155,9 @@ def attention_apply_heads(att: Attention, x: torch.Tensor, cos: torch.Tensor,
                           y_mask: Optional[torch.Tensor] = None,
                           n_heads: int = 8, n_kv_heads: Optional[int] = None,
                           compute_dtype: Optional[torch.dtype] = None,
-                          use_flash: bool = False, cross_flash: bool = False,
-                          fp32_scores: bool = False) -> torch.Tensor:
+                          route: Route = Route()) -> torch.Tensor:
     """attention_apply for the planned serving step's fused block
-    (models/dit.py `fused_block_route`: a fused wqkv, no qk_norm, no tp):
+    (models/dit.py `dit_route`'s `fused`: a fused wqkv, no qk_norm, no tp):
     the wqkv product goes through K6 (ops/dit_fused.py rope_qkv_heads), which
     writes q, k and v rotated and head-major, then the same attention."""
     n_kv = n_heads if n_kv_heads is None else n_kv_heads
@@ -174,8 +167,7 @@ def attention_apply_heads(att: Attention, x: torch.Tensor, cos: torch.Tensor,
     if rep > 1:  # GQA
         kh = kh.repeat_interleave(rep, dim=1)
         vh = vh.repeat_interleave(rep, dim=1)
-    return _attend(att, qh, kh, vh, None, y_kv, x_mask, y_mask, rep, compute_dtype, use_flash,
-                   cross_flash, fp32_scores, None)
+    return _attend(att, qh, kh, vh, None, y_kv, x_mask, y_mask, rep, compute_dtype, route, None)
 
 
 def _has_cross(att: Attention, y, y_kv) -> bool:
@@ -183,31 +175,29 @@ def _has_cross(att: Attention, y, y_kv) -> bool:
 
 
 def _attend(att: Attention, qh, kh, vh, y, y_kv, x_mask, y_mask, rep: int, compute_dtype,
-            use_flash: bool, cross_flash: bool, fp32_scores: bool, tp) -> torch.Tensor:
+            route: Route, tp) -> torch.Tensor:
     """Self-attention of head-major (B, H, L, D) q, k, v, the gated
     cross-attention, and the output projection."""
     b, n_heads, l, hd = qh.shape
     scale = 1.0 / math.sqrt(hd)
-    cross = _has_cross(att, y, y_kv)
-    cross_flash = cross and cross_flash
-    if use_flash:
+    if route.self_flash:
         out = flash_attention(qh, kh, vh, mask=x_mask, scale=scale)
     else:
-        out = _sdpa(qh, kh, vh, scale, x_mask, fp32_scores)
-    calls["self_flash" if use_flash else "self_dense"] += 1
+        out = _sdpa(qh, kh, vh, scale, x_mask)
+    trace.counts["attn_flash" if route.self_flash else "attn_dense"] += 1
 
-    if cross:
+    if _has_cross(att, y, y_kv):
         if y_kv is None:  # copy-to-TP: y feeds this rank's column products
             y_kv = context_kv(att, y if tp is None else tp.copy(y), compute_dtype, tp)
         yk, yv = y_kv
         if rep > 1:
             yk = yk.repeat_interleave(rep, dim=1)
             yv = yv.repeat_interleave(rep, dim=1)
-        if cross_flash:
+        if route.cross_flash:
             out_y = flash_attention(qh, yk, yv, mask=y_mask, scale=scale)
         else:
-            out_y = _sdpa(qh, yk, yv, scale, y_mask, fp32_scores)
-        calls["cross_flash" if cross_flash else "cross_dense"] += 1
+            out_y = _sdpa(qh, yk, yv, scale, y_mask)
+        trace.counts["attn_flash" if route.cross_flash else "attn_dense"] += 1
         gate = torch.tanh(att.gate.float()).to(out_y.dtype)
         out = out + out_y * gate[None, :, None, None]
     return dense(out.transpose(1, 2).reshape(b, l, n_heads * hd), att.wo.weight, None,

@@ -11,7 +11,7 @@ XLA fuses these passes itself).
   flash forward (K3a) reads.
 
 The planned serving step runs them in its fused block (models/dit.py
-`fused_block_route`). On a CPU tensor each entry point runs its plain
+`_fused_block`, where `dit_route` says so). On a CPU tensor each entry point runs its plain
 PyTorch version; on a CUDA tensor it launches the kernel or raises. The
 plain versions round where the unfused chain rounds (ops/basic.py rms_norm,
 modulate; ops/rope.py apply_rope; the gated residual of models/dit.py

@@ -45,7 +45,8 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
-from maa3_tpu_torch.models.dit import DiT, _cap_emb, _dit_block, _embed, _final, dit_apply
+from maa3_tpu_torch.models.dit import (DiT, _cap_emb, _dit_block, _embed, _final, dit_apply,
+                                       dit_route)
 from maa3_tpu_torch.ops.basic import linear, silu
 from maa3_tpu_torch.parallel.mesh import Mesh
 from maa3_tpu_torch.parallel.tp import TP
@@ -101,7 +102,8 @@ def dit_apply_pipelined(dit: DiT, x: torch.Tensor, t: torch.Tensor,
                          compute_dtype=compute_dtype, training=training)
     if getattr(dit, "fsdp", None) is not None:
         raise ValueError("n_pipe>1 + fsdp unsupported")
-    cfg = dit.cfg.resolve_flash(x.shape[-1], training)
+    cfg = dit.cfg
+    route = dit_route(cfg, x.shape[-1], training)
     depth = len(dit.blocks)
     if depth % n_pipe:
         raise ValueError(f"depth {depth} is not divisible into n_pipe={n_pipe} stages")
@@ -126,7 +128,7 @@ def dit_apply_pipelined(dit: DiT, x: torch.Tensor, t: torch.Tensor,
     def stage_apply(state, y_m, ada_m, xm_m, ym_m):
         for blk in blocks:
             state = _dit_block(blk, cfg, state, cos, sin, ada_m, y_m, xm_m, ym_m,
-                               compute_dtype, tp)
+                               compute_dtype, route, tp)
         return state
 
     remat = cfg.remat and torch.is_grad_enabled()

@@ -1,8 +1,7 @@
 """End-to-end generation pipeline (counterpart of maa3_tpu/pipeline.py):
 
     uc, c = text embeddings;  x0 ~ N(0, (B, 20, T/2))
-    z   = CFG Euler ODE (25 steps, planned: per-step constants hoisted;
-          sub-batches of ode_chunk() rows)
+    z   = CFG Euler ODE (25 steps, planned: per-step constants hoisted)
     mel = VAE.decode(z / scale_factor)     (fp32)
     wav = BigVGAN(mel)                     (compute dtype; K1/K2 kernels on CUDA)
 """
@@ -10,7 +9,6 @@
 from __future__ import annotations
 
 import contextlib
-import os
 from typing import Optional
 
 import torch
@@ -47,37 +45,15 @@ def dual_mask(context_mask, uncond_mask, uncond):
     return torch.cat([um, context_mask.bool()], dim=0)
 
 
-def ode_chunk() -> int:
-    """Rows per ODE sub-batch for large launches, 0 for none: MAA3_ODE_CHUNK,
-    else 0 (maa3_tpu/pipeline.py:33). JAX's default of 8 is a TPU
-    measurement; on the card chunk 8 did not win (PERF.md section 5,
-    chip_smoke.py phase 11), so none is the default everywhere."""
-    return int(os.environ.get("MAA3_ODE_CHUNK", 0))
-
-
 @torch.no_grad()
 def sample_planned(dit: DiT, x0, context, uncond, guidance_scale: float,
                    steps: int = 25, context_mask=None, uncond_mask=None,
-                   compute_dtype=torch.bfloat16, num_timesteps: int = 1000,
-                   chunk: Optional[int] = None):
+                   compute_dtype=torch.bfloat16, num_timesteps: int = 1000):
     """CFG ODE with the adaLN modulations and context K/V of the whole
-    timestep grid computed once, up front (dit_sample_plan). A batch of B
-    rows runs as B / chunk sequential sub-batches when B > chunk and chunk
-    divides B (chunk: ode_chunk() unless given; maa3_tpu/system.py:508-538):
-    the rows are independent, so the result is the same. A video MoE DiT
-    runs its own plan (models/dit_moe.py) and takes no masks."""
-    b = x0.shape[0]
-    chunk = ode_chunk() if chunk is None else chunk
-    if chunk and b > chunk and b % chunk == 0:
-        def rows(t, i):
-            return None if t is None else t[i:i + chunk]
-
-        return torch.cat([
-            sample_planned(dit, x0[i:i + chunk], context[i:i + chunk],
-                           uncond[i:i + chunk], guidance_scale, steps,
-                           rows(context_mask, i), rows(uncond_mask, i),
-                           compute_dtype, num_timesteps, chunk=0)
-            for i in range(0, b, chunk)])
+    timestep grid computed once, up front (dit_sample_plan), the whole batch
+    at once (JAX's sub-batches, maa3_tpu/system.py:508-538, never won on the
+    card). A video MoE DiT runs its own plan (models/dit_moe.py) and takes
+    no masks."""
     ctx_in = torch.cat([uncond, context], dim=0)
     mask_in = dual_mask(context_mask, uncond_mask, uncond)
     t_ints = torch.as_tensor(cfm.planned_t_ints(steps, num_timesteps=num_timesteps),

@@ -35,9 +35,8 @@ With tracing on (maa3_tpu_torch/trace.py) the server records, on the
 batcher thread, `serve.collect` (the wait for a first request and the batch
 window) and `serve.batch` (rows, bucket, padded) with its children
 `serve.encode`, `serve.noise`, `serve.ode` (with the batch's DiT attention
-calls by route, `attn_flash` and `attn_dense`: ops/attention.py `calls`, and
-its planned block-steps by route, `dit_fused` and `dit_plain`:
-models/dit.py `block_steps`),
+calls by route, `attn_flash` and `attn_dense`, and its planned block-steps
+by route, `dit_fused` and `dit_plain`: trace.py `counts`),
 `serve.decode`, `serve.vocode` (the four with device time) and
 `serve.deliver`; per request `serve.queue`
 (from its arrival at `Batcher.submit` to the start of the batch that takes
@@ -65,8 +64,6 @@ import numpy as np
 import torch
 
 from maa3_tpu_torch import trace
-from maa3_tpu_torch.models import dit
-from maa3_tpu_torch.ops import attention
 from maa3_tpu_torch.system import check_limits
 
 MAX_STEPS = 1000  # a request's ODE steps: at most the model's timestep count
@@ -391,9 +388,9 @@ class Batcher(threading.Thread):
                                             "x0": x0.cpu().numpy(), "scale": first.scale,
                                             "steps": first.steps})
             with trace.span("serve.ode", device_time=True):
-                calls, steps = dict(attention.calls), dict(dit.block_steps)
+                since = dict(trace.counts)
                 z = self.system.sample_cfg(c, first.scale, uc, timesteps=first.steps, x0=x0)
-                trace.annotate(**attention.route_counts(calls), **dit.block_counts(steps))
+                trace.annotate(**trace.counts_since(since))
             with trace.span("serve.decode", device_time=True):
                 mel = self.system.decode_first_stage(z)
             with trace.span("serve.vocode", device_time=True):

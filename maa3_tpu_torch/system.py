@@ -40,8 +40,8 @@ from maa3_tpu_torch.models.bigvgan import (BigVGAN, BigVGANConfig, bigvgan_init_
 from maa3_tpu_torch.models.clap import (CLAPFLANConfig, clap_flan_encode_batch,
                                         clap_flan_init_, make_conditioner,
                                         video_feat_encoder_apply)
-from maa3_tpu_torch.models.dit import (DiT, dit_apply, dit_init_, quant_serving_copy,
-                                       serving_copy, unfreeze_zero_init)
+from maa3_tpu_torch.models.dit import (DiT, dit_apply, dit_init_, dit_route,
+                                       quant_serving_copy, serving_copy, unfreeze_zero_init)
 from maa3_tpu_torch.models.dit_moe import MoEDiT, moe_dit_apply
 from maa3_tpu_torch.models.vae1d import (AutoencoderKL, gaussian_sample,
                                          vae_encode_moments, vae_init_)
@@ -97,15 +97,13 @@ def _versions(m: nn.Module):
 def check_limits(spec: ModelSpec, device, latent_len: Optional[int] = None) -> None:
     """Refuse, before any launch, a config whose serving route the card's
     kernels cannot run: a DiT head dim above the flash kernels' MAX_HEAD_DIM
-    where the DiT sends self-attention to flash at latent_len (default: the
-    config's latent length; models/dit.py resolve_flash). The card's own
-    serving route (models/dit.py card_attention_route) takes flash only at
-    head dims up to MAX_HEAD_DIM and runs wider heads dense, so it adds
-    nothing to refuse."""
+    where models/dit.py `dit_route` sends self-attention to flash at
+    latent_len (default: the config's latent length). At such head dims the
+    planned step on the card follows the inference rule asked here."""
     cfg = spec.dit
     n = spec.mel_length if latent_len is None else latent_len
     if (torch.device(device).type == "cuda" and cfg.head_dim > MAX_HEAD_DIM
-            and cfg.flash_for_len(n)):
+            and dit_route(cfg, n).self_flash):
         raise ValueError(
             f"DiT head dim {cfg.head_dim} (hidden {cfg.hidden_size} / "
             f"{cfg.num_heads} heads) exceeds the flash kernels' {MAX_HEAD_DIM}, "

@@ -24,6 +24,12 @@ the one exporter, behind the CLIs' `--trace_out`.
 When tracing is off, `span` tests one module-level flag and returns a
 shared no-op context manager: no event is made, nothing is stored and
 nothing is synchronized.
+
+`counts` counts the DiT's work by kernel route, where it runs and whether
+tracing is on or off: attention calls, self and cross, on the flash forward
+or dense (ops/attention.py), and the planned step's block-steps as the fused
+block or plain (models/dit.py). The server puts a batch's
+`counts_since` on its `serve.ode` span (serving.py).
 """
 
 from __future__ import annotations
@@ -45,6 +51,12 @@ _spans: deque = deque(maxlen=CAPACITY)
 _lock = threading.Lock()
 _ids = itertools.count(1)
 _local = threading.local()
+counts = {"attn_flash": 0, "attn_dense": 0, "dit_fused": 0, "dit_plain": 0}
+
+
+def counts_since(since: dict) -> dict:
+    """`counts` less `since`, an earlier copy of it."""
+    return {k: n - since[k] for k, n in counts.items()}
 
 
 def enable(device) -> None:

@@ -15,8 +15,8 @@ same seeded weights on both sides:
   training CLI's --torch_ckpt warm start;
 - the FLAN and CLAP conditioners, the text-to-music (FLAN) and a CLAP-only
   system (conditioning, `sample` without guidance, `sample_cfg`), the
-  AMPBlock2 and lrelu vocoders and BigVGANConfig.from_dict, `_sdpa` with
-  fp32_scores in bf16, and the ODE's sub-batching (MAA3_ODE_CHUNK)."""
+  AMPBlock2 and lrelu vocoders and BigVGANConfig.from_dict, and `_sdpa` in
+  bf16."""
 
 import dataclasses
 import json
@@ -41,7 +41,6 @@ from maa3_tpu.ops import attention as jattn
 from maa3_tpu.system import MAA3System as JSystem
 from maa3_tpu.utils.nprand import unfreeze_zero_init
 from maa3_tpu_torch import config as tconfig
-from maa3_tpu_torch import pipeline as tpipeline
 from maa3_tpu_torch import torch_import
 from maa3_tpu_torch.models import bert as tbert
 from maa3_tpu_torch.models import bigvgan as tvoc
@@ -450,47 +449,16 @@ def test_vocoder_config_from_dict_matches_jax():
     assert tvoc.BigVGANConfig.from_dict(d) == tvoc.BigVGANConfig(**VOC)
 
 
-@pytest.mark.parametrize("fp32_scores", [False, True])
-def test_sdpa_bf16_scores_match_jax(fp32_scores):
+def test_sdpa_bf16_scores_match_jax():
     """_sdpa in bf16 (head-major here, (B, L, H, D) in JAX), the logits
-    stored in bf16 or (fp32_scores) in fp32, with a key mask: bf16
-    outputs, so rtol = atol = 2^-7 (one bf16 step of a value near 1)."""
+    stored in bf16, with a key mask: bf16 outputs, so rtol = atol = 2^-7
+    (one bf16 step of a value near 1)."""
     rng = np.random.RandomState(6)
     q, k, v = (rng.randn(2, 24, 4, 16).astype(np.float32) * 2 for _ in range(3))
     mask = np.arange(24)[None] < np.array([[24], [13]])
     want = jattn._sdpa(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), 0.25,
-                       jnp.asarray(mask), fp32_scores=fp32_scores)
+                       jnp.asarray(mask))
     got = tattn._sdpa(*(torch.tensor(a).bfloat16().transpose(1, 2) for a in (q, k, v)),
-                      0.25, torch.tensor(mask), fp32_scores=fp32_scores).transpose(1, 2)
+                      0.25, torch.tensor(mask)).transpose(1, 2)
     assert got.dtype == torch.bfloat16
     _cmp(got, np.asarray(want, np.float32), rtol=2 ** -7, atol=2 ** -7)
-
-
-def test_ode_sub_batches_equal_the_whole_batch(monkeypatch, files):
-    """MAA3_ODE_CHUNK=2 at B=4 runs the ODE as two sub-batches of 2, and
-    gives the same latents as one batch of 4 (rows are independent; on the
-    CPU the sub-batch GEMMs may round differently in the last bit, so
-    rtol 1e-6 / atol 1e-6)."""
-    tmp, _, _, _ = files
-    s = MAA3System.from_config([XL], SMALL, device="cpu", compute_dtype=torch.float32,
-                               clap_cfg=small_clap(), voc_cfg=tvoc.BigVGANConfig(**VOC),
-                               ckpt_path=str(tmp / "model.ckpt"))
-    caps = {"ori_caption": ["a", "b", "c", "d"], "struct_caption": ["<a>", "<b>", "<c>", "<d>"]}
-    c = s.get_learned_conditioning(caps)
-    uc = s.get_learned_conditioning({k: [""] * 4 for k in caps})
-    x0 = torch.randn(4, 20, 10, generator=torch.Generator().manual_seed(7))
-    plans = []
-    real = tpipeline.dit_sample_plan
-    monkeypatch.setattr(tpipeline, "dit_sample_plan",
-                        lambda dit, t, ctx, **kw: plans.append(ctx.shape[0]) or real(
-                            dit, t, ctx, **kw))
-    monkeypatch.delenv("MAA3_ODE_CHUNK", raising=False)
-    assert tpipeline.ode_chunk() == 0
-    whole = s.sample_cfg(c, 5.0, uc, timesteps=3, x0=x0)
-    monkeypatch.setenv("MAA3_ODE_CHUNK", "2")
-    parts = s.sample_cfg(c, 5.0, uc, timesteps=3, x0=x0)
-    monkeypatch.setenv("MAA3_ODE_CHUNK", "3")  # does not divide 4: one batch
-    odd = s.sample_cfg(c, 5.0, uc, timesteps=3, x0=x0)
-    assert plans == [8, 4, 4, 8]  # dual batches [uc; c]
-    _cmp(parts, whole.numpy(), rtol=1e-6, atol=1e-6)
-    assert torch.equal(odd, whole)

@@ -15,6 +15,7 @@ backward (K4b's dk and dv, K4c's dq) has no atomics and must be the same bits
 on every run.
 """
 
+import dataclasses
 import time
 
 import numpy as np
@@ -1370,7 +1371,7 @@ def test_planned_step_on_flash_matches_the_dense_route(cuda_dev, monkeypatch):
     assert fa.launches["K3a"] == n + 4
     with full_fp32():
         ref = step(torch.float32)
-    monkeypatch.setattr(tdit, "card_attention_route", lambda *a: (False, False))
+    monkeypatch.setattr(tdit, "dit_route", lambda *a, **k: tdit.Route())
     dense = step(torch.bfloat16)
     torch.cuda.synchronize()
     assert fa.launches["K3a"] == n + 4
@@ -1494,6 +1495,7 @@ def test_planned_step_on_the_fused_blocks_matches_the_unfused_route(cuda_dev, mo
     `_block_apply`, both held to the copy's step in fp32, with the planned
     route test's tolerance: the fused gap may not exceed the unfused one by
     more than a quarter, and the two lie within 1 % of each other."""
+    from maa3_tpu_torch import trace
     from maa3_tpu_torch.models import dit as tdit
     from maa3_tpu_torch.ops import dit_fused as fu
     cfg = tdit.DiTConfig(in_channels=20, context_dim=1024, hidden_size=width, depth=depth,
@@ -1513,17 +1515,22 @@ def test_planned_step_on_the_fused_blocks_matches_the_unfused_route(cuda_dev, mo
             return tdit.dit_apply_planned(card, x, plan["mods"][1], plan["final"][1],
                                           plan["yk"], plan["yv"], compute_dtype=dtype)
 
-    since, n = dict(tdit.block_steps), dict(fu.launches)
+    since, n = dict(trace.counts), dict(fu.launches)
     fused = step(torch.bfloat16)
     torch.cuda.synchronize()
-    assert tdit.block_counts(since) == {"dit_fused": depth, "dit_plain": 0}
+    assert trace.counts_since(since) == {"attn_flash": 2 * depth, "attn_dense": 0,
+                                         "dit_fused": depth, "dit_plain": 0}
     assert fu.launches == {"K5": n["K5"] + 2 * depth, "K6": n["K6"] + depth}
     with full_fp32():
         ref = step(torch.float32)
-    monkeypatch.setattr(tdit, "fused_block_route", lambda *a: False)
+    route = tdit.dit_route
+    monkeypatch.setattr(tdit, "dit_route", lambda *a, **k: dataclasses.replace(
+        route(*a, **k), fused=False))
+    since = dict(trace.counts)
     unfused = step(torch.bfloat16)
     torch.cuda.synchronize()
-    assert tdit.block_counts(since) == {"dit_fused": depth, "dit_plain": 2 * depth}
+    assert trace.counts_since(since) == {"attn_flash": 2 * depth, "attn_dense": 0,
+                                         "dit_fused": 0, "dit_plain": depth}
 
     def gap(a, b):
         return ((a.float() - b.float()).norm() / b.float().norm()).item()

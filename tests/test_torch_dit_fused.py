@@ -1,18 +1,17 @@
-"""The planned serving step's fused block (models/dit.py `fused_block_route`,
-`_fused_block`; ops/dit_fused.py K5 / K6) on the CPU: the route each
-device, dtype, grad mode, residual dtype, tp, SmoothQuant statistics,
-qk_norm, head dim and weight layout takes; each plain version against the
+"""The planned serving step's fused block (models/dit.py `_fused_block`;
+ops/dit_fused.py K5 / K6) on the CPU: each plain version against the
 unfused chain it replaces, bit for bit; the fused block loop with its
 carried residual, through the plain versions, against the `_block_apply`
-loop on small DiTs, bit for bit; the block-step counts."""
+loop on small DiTs, bit for bit; the block-step counts. Which applies take
+it: tests/test_torch_attention_route.py `test_dit_route`."""
 
 import dataclasses
 
 import pytest
 import torch
 
+from maa3_tpu_torch import trace
 from maa3_tpu_torch.models import dit as tdit
-from maa3_tpu_torch.ops import attention as tatt
 from maa3_tpu_torch.ops import dit_fused as fu
 from maa3_tpu_torch.ops.basic import modulate, rms_norm
 from maa3_tpu_torch.ops.rope import apply_rope, precompute_rope
@@ -20,33 +19,6 @@ from maa3_tpu_torch.ops.rope import apply_rope, precompute_rope
 torch.set_num_threads(2)
 
 BF16 = torch.bfloat16
-XL = tdit.DiTConfig(hidden_size=1152, depth=28, num_heads=16, fp32_residual=True)
-
-
-@pytest.mark.parametrize("over,device,dtype,grad,tp,stats,wqkv,want", [
-    ({}, "cuda", BF16, False, None, False, True, True),
-    ({"hidden_size": 1536, "num_heads": 32}, "cuda", BF16, False, None, False, True, True),
-    ({}, "cpu", BF16, False, None, False, True, False),
-    ({}, "cuda", torch.float32, False, None, False, True, False),     # fp32 serving
-    ({}, "cuda", BF16, True, None, False, True, False),               # autograd: training
-    ({"fp32_residual": False}, "cuda", BF16, False, None, False, True, False),
-    ({}, "cuda", BF16, False, object(), False, True, False),          # tensor parallelism
-    ({}, "cuda", BF16, False, None, True, True, False),               # SmoothQuant statistics
-    ({"qk_norm": True}, "cuda", BF16, False, None, False, True, False),
-    ({}, "cuda", BF16, False, None, False, False, False),              # wq / wk / wv apart
-    ({"hidden_size": 80 * 16}, "cuda", BF16, False, None, False, True, False),
-    ({"hidden_size": 7 * 16, "num_heads": 16}, "cuda", BF16, False, None, False, True, False),
-    ({"hidden_size": 10 * 6, "num_heads": 6}, "cuda", BF16, False, None, False, True, False),
-    ({"hidden_size": 12 * 6, "num_heads": 6}, "cuda", BF16, False, None, False, True, True),
-])
-def test_fused_block_route(over, device, dtype, grad, tp, stats, wqkv, want):
-    """Head dim 7 (odd), 80 (past the kernels' 72) and a width of 60 (not a
-    multiple of 8) stay on `_block_apply`; a width of 72 (heads of 12) takes
-    the fused block."""
-    cfg = dataclasses.replace(XL, **over)
-    assert tdit.fused_block_route(cfg, device, dtype, grad, tp, stats, wqkv) is want
-
-
 def _stream(b, l, d, seed=0):
     g = torch.Generator().manual_seed(seed)
     h = torch.randn(b, l, d, generator=g) * 3.0
@@ -143,19 +115,19 @@ def test_fused_block_loop_is_the_block_apply_loop_on_the_cpu(monkeypatch, attn, 
     included. The block-step counts follow the route."""
     dit, gen = _dit(**over)
     step = _planned(tdit.serving_copy(dit, BF16), gen)
-    if attn == "flash":
-        monkeypatch.setattr(tdit, "card_attention_route", lambda *a: (True, True))
-    route = tdit.fused_block_route
-    since = dict(tdit.block_steps)
-    monkeypatch.setattr(tdit, "fused_block_route", lambda *a: route(*a) and False)
+    flash = attn == "flash"
+    route = tdit.dit_route
+    monkeypatch.setattr(tdit, "dit_route", lambda *a, **k: dataclasses.replace(
+        route(*a, **k), self_flash=flash, cross_flash=flash))
+    since = dict(trace.counts)
     want = step()
-    assert tdit.block_counts(since) == {"dit_fused": 0, "dit_plain": 3}
-    monkeypatch.setattr(tdit, "fused_block_route", lambda *a: True)
-    calls = dict(tatt.calls)
+    assert trace.counts_since(since) == {"attn_flash": 6 * flash, "attn_dense": 6 * (not flash),
+                                         "dit_fused": 0, "dit_plain": 3}
+    monkeypatch.setattr(tdit, "dit_route", lambda *a, **k: tdit.Route(flash, flash, True))
+    since = dict(trace.counts)
     got = step()
-    assert tdit.block_counts(since) == {"dit_fused": 3, "dit_plain": 3}
-    assert tatt.route_counts(calls) == ({"attn_flash": 6, "attn_dense": 0} if attn == "flash"
-                                        else {"attn_flash": 0, "attn_dense": 6})
+    assert trace.counts_since(since) == {"attn_flash": 6 * flash, "attn_dense": 6 * (not flash),
+                                         "dit_fused": 3, "dit_plain": 0}
     assert got.dtype == torch.float32 and got.abs().max().item() > 0.01
     assert torch.equal(got, want)
 
@@ -171,11 +143,14 @@ def test_fused_block_loop_with_a_context_mask_and_int8_weights(monkeypatch):
              _planned(tdit.quant_serving_copy(dit), gen),
              _planned(tdit.quant_serving_copy(dit, skip_w2=True), gen)]
     want = [s() for s in steps]
-    monkeypatch.setattr(tdit, "fused_block_route", lambda *a: True)
-    since = dict(tdit.block_steps)
+    route = tdit.dit_route
+    monkeypatch.setattr(tdit, "dit_route", lambda *a, **k: dataclasses.replace(
+        route(*a, **k), fused=True))
+    since = dict(trace.counts)
     for s, w in zip(steps, want):
         assert torch.equal(s(), w)
-    assert tdit.block_counts(since) == {"dit_fused": 9, "dit_plain": 0}
+    assert trace.counts_since(since) == {"attn_flash": 0, "attn_dense": 18, "dit_fused": 9,
+                                         "dit_plain": 0}
 
 
 def test_training_fp32_and_calibration_keep_block_apply():
@@ -183,7 +158,7 @@ def test_training_fp32_and_calibration_keep_block_apply():
     on), fp32 serving and the SmoothQuant statistics run `_block_apply`
     only; the planned step on the CPU counts its block-steps as plain."""
     dit, gen = _dit()
-    since, n = dict(tdit.block_steps), dict(fu.launches)
+    since, n = dict(trace.counts), dict(fu.launches)
     x = torch.randn(2, 4, 24, generator=gen)
     ctx = torch.randn(2, 7, 16, generator=gen)
     tdit.dit_apply(dit, x, torch.tensor([3, 700]), ctx, compute_dtype=BF16,
@@ -192,5 +167,6 @@ def test_training_fp32_and_calibration_keep_block_apply():
     with torch.no_grad():
         tdit.dit_apply_planned(dit, x, plan["mods"][0], plan["final"][0], plan["yk"],
                                plan["yv"], compute_dtype=None, return_stats=True)
-    assert tdit.block_counts(since) == {"dit_fused": 0, "dit_plain": 3}
+    assert trace.counts_since(since) == {"attn_flash": 0, "attn_dense": 12, "dit_fused": 0,
+                                         "dit_plain": 3}
     assert fu.launches == n

@@ -145,11 +145,12 @@ def test_route_follows_jax_rule(lk, block_k):
 @pytest.mark.parametrize("use_flash", [None, True, False])
 @pytest.mark.parametrize("seq", [312, 1247, 1248, 4096, 4097])
 def test_flash_for_len_matches_jax(use_flash, seq):
+    """JAX's rule, and the route dit_apply takes from it (models/dit.py
+    dit_route: self-attention by the rule, cross-attention dense)."""
     jc, tc = jdit.DiTConfig(use_flash=use_flash), tdit.DiTConfig(use_flash=use_flash)
     for training in (False, True):
         assert tc.flash_for_len(seq, training) == jc.flash_for_len(seq, training)
-        assert tc.resolve_flash(seq, training).use_flash == \
-            jc.resolve_flash(seq, training).use_flash
+        assert tdit.dit_route(tc, seq, training) == tdit.Route(jc.flash_for_len(seq, training))
 
 
 def test_wrappers_refuse_other_devices():
