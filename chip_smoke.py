@@ -30,8 +30,8 @@ Phases, each timed on a line of its own:
      conditioning -> planned 25-step CFG ODE (bf16, fp32 residual) -> fp32
      VAE decode -> bf16 BigVGAN, with the kernel launch counts of the run
      (K3a 2 x 28 x 24: self- and cross-attention, each block, each step;
-     K5 2 x 28 x 24 and K6 28 x 24: the fused block's two norm sites and
-     its RoPE)
+     K5 2 x 28 x 24 and K6, K7, K8 28 x 24 each: the fused block's two norm
+     sites, its RoPE, its SwiGLU gate and its gated cross-attention merge)
      (--profile adds one run under torch.profiler: device busy share and
      the kernels that take the most device time);
   6. flash kernels: K3a / K3b (forward), K4a (fused backward) and K4b / K4c
@@ -52,8 +52,8 @@ Phases, each timed on a line of its own:
      (torch.profiler) of K3a, self and cross, of the layout copies the
      planned step makes for it, and of the dense `_sdpa` it replaces; then
      the fused DiT block's K5 (each variant: with the branch and without, a
-     bf16 and an fp32 x) and K6 against their plain versions at 32 dual rows
-     x 312, XL and XXL widths, timed beside their bounds.
+     bf16 and an fp32 x), K6, K7 and K8 against their plain versions at 32
+     dual rows x 312, XL and XXL widths, timed beside their bounds.
      --attn-crossover instead times K3a against `_sdpa` as the planned step
      calls each at 2-32 dual rows over latent lengths 39-624, self and
      cross, alone (no result line): whether flash still wins at every
@@ -90,8 +90,8 @@ Phases, each timed on a line of its own:
      runs them, by captions and seed: cuDNN's bf16 vocoder convolutions
      round a row by its place in the batch),
      every response a 16 kHz wav of 131,072 samples, no error, K1 72 / K2 37
-     launches per batch vocode, K3a 2 x 16 x 24, K5 2 x 16 x 24 and K6
-     16 x 24 per 25-step batch over
+     launches per batch vocode, K3a 2 x 16 x 24, K5 2 x 16 x 24 and K6, K7,
+     K8 16 x 24 each per 25-step batch over
      rounds 2-3 and the request alone, no thread left after shutdown; p50
      latency and audio seconds per second at batch 8; then an AMPBlock2 and
      an lrelu vocoder at BigVGAN 1536 width on the card against the CPU
@@ -111,9 +111,9 @@ Phases, each timed on a line of its own:
      loader behind 2 PrefetchLoader threads, validation every 2 micro-steps
      over 2 batches, the audio logger at update 2 on 4 captions (25 steps):
      parameters unchanged by the first micro-step of each update and moved
-     by the second, K3a 56 / K4a 28 and no K5 / K6 per micro-step, finite
+     by the second, K3a 56 / K4a 28 and no K5 - K8 per micro-step, finite
      validation losses, 4 16 kHz wavs, K1 72 / K2 37 in the logger's vocode
-     and K3a / K5 / K6 as phase 5's in its ODE, no thread
+     and K3a / K5 - K8 as phase 5's in its ODE, no thread
      left once the loader is closed; ms per update, tokens per second, peak,
      the host's wait on the loader; (c) cached latents: encode_latents over
      the manifest with the XL VAE, then the frozen-conditioner 6 x 1248 step
@@ -149,8 +149,8 @@ Phases, each timed on a line of its own:
      prompts x 10 s, 25 steps, guidance 5.0) in bf16 and in int8, int8:g128,
      int8:now2, int8:smooth (after calibrate_smooth) and int8:voc from the
      same weights and noise: end-to-end and ODE ms, the latent's relative L2
-     to bf16, _int_mm launches per request, K1 / K2 72 / 37 and K3a / K5 /
-     K6 as phase 5's in every mode;
+     to bf16, _int_mm launches per request, K1 / K2 72 / 37 and K3a / K5 -
+     K8 as phase 5's in every mode;
      then the ODE alone at batch 16, bf16 and int8 (--profile adds one of
      each under torch.profiler); (c) python -m
      maa3_tpu_torch.video2audio at the video config's full width (MoE DiT
@@ -168,7 +168,7 @@ Phases, each timed on a line of its own:
      624) with running BN statistics and without, the Melception's logits,
      features and aux, LPAPS; (b) the eval flow, every file under
      build/chip_smoke_eval/ (the norm statistics too): phase 5's XL system
-     generates 8 clips of 10 s (2 x batch 4; K1 / K2, K3a, K5 and K6
+     generates 8 clips of 10 s (2 x batch 4; K1 / K2, K3a, K5 - K8
      counted as "eval"),
      their wavs, manifest and VAE mels, reference mels by mel_spec; then
      train_melclf (VGGishish, 20 steps over phase 12's mels with labels,
@@ -188,7 +188,7 @@ Phases, each timed on a line of its own:
      heads of 48, 1.47 B; random weights from the seed, gates made nonzero)
      serves 4 prompts x 10 s, 25 steps, guidance 5.0, bf16 through
      shard_serving: end-to-end and ODE ms, peak memory, K1 / K2 72 / 37,
-     K3a and K5 2 x 32 x 24, K6 32 x 24 ("xxl_serve"); a depth-2 model of XXL width in fp32
+     K3a and K5 2 x 32 x 24, K6 - K8 32 x 24 ("xxl_serve"); a depth-2 model of XXL width in fp32
      sampled with shard_serving and without it: the same bits; (b) the
      YAML's training (trainable conditioner) through Trainer(n_model=1,
      fsdp=True), a no-op
@@ -650,7 +650,8 @@ def profile_run(torch, run, ref_ms) -> None:
             f"{e.key[:90]}")
     for e in sorted(evts, key=lambda e: e.key):  # the port's own kernels, each
         name = re.match(r"void (?:maa3_(?:flash|dit)::)?\(anonymous namespace\)::"
-                        r"((?:flash|conv_snake|aa_snake|residual_norm|rope)_\w*kernel<[^>]*>)",
+                        r"((?:flash|conv_snake|aa_snake|residual_norm|rope|swiglu|gated_merge)"
+                        r"_\w*kernel<[^>]*>)",
                         e.key)
         if name:
             log(f"profile: port kernel {e.self_device_time_total / 1e3:9.2f} ms "
@@ -664,24 +665,29 @@ def serve_k3a(depth: int, odes: int = 1) -> int:
     return 2 * depth * SERVE_EULER_STEPS * odes
 
 
+DIT_KERNELS = ("K5", "K6", "K7", "K8")
+
+
 def serve_dit(depth: int, odes: int = 1) -> dict:
-    """K5 / K6 launches of `odes` 25-step CFG ODEs on the fused block route
+    """K5 - K8 launches of `odes` 25-step CFG ODEs on the fused block route
     (models/dit.py `dit_route`, `_fused_block`): K5 at each block's entry and middle,
-    K6 once a block, at each Euler step."""
+    K6 (RoPE), K8 (the gated merge) and K7 (the SwiGLU gate) once a block, at
+    each Euler step."""
     n = depth * SERVE_EULER_STEPS * odes
-    return {"K5": 2 * n, "K6": n}
+    return {"K5": 2 * n, "K6": n, "K7": n, "K8": n}
 
 
 def dit_launches(fu, since: dict) -> dict:
-    """K5 / K6 launches since `since` (a copy of ops/dit_fused.launches)."""
-    return {k: fu.launches[k] - since[k] for k in ("K5", "K6")}
+    """K5 - K8 launches since `since` (a copy of ops/dit_fused.launches)."""
+    return {k: fu.launches[k] - since[k] for k in DIT_KERNELS}
 
 
 def main_path(torch, system_mod, config_path, k1, k2, profile=False):
     """Phase 5: the XL main path; returns (stage times, K1 / K2 launch
     counts, K3a launches of the ODE: the planned step's self- and
-    cross-attention in every block at every Euler step, and its K5 / K6
-    launches: the fused block's two norm sites and its RoPE)."""
+    cross-attention in every block at every Euler step, and its K5 - K8
+    launches: the fused block's two norm sites, its RoPE, its gated merge
+    and its SwiGLU gate)."""
     from maa3_tpu_torch.ops import dit_fused as fu
     from maa3_tpu_torch.ops import flash_attention as fa
     t = time.perf_counter()
@@ -714,7 +720,7 @@ def main_path(torch, system_mod, config_path, k1, k2, profile=False):
             k1.launches = 0
             k2.launches = 0
             fa.launches["K3a"] = 0
-            fu.launches.update(K5=0, K6=0)
+            fu.launches.update(dict.fromkeys(DIT_KERNELS, 0))
         s0 = time.perf_counter()
         c = stage("encode", lambda: system.get_learned_conditioning(prompts))
         uc = stage("encode_uncond", lambda: system.get_learned_conditioning(empty))
@@ -749,9 +755,9 @@ def main_path(torch, system_mod, config_path, k1, k2, profile=False):
     require(counts == K1_K2_PER_VOCODE, f"launch counts {counts} == {K1_K2_PER_VOCODE}")
     require(k3a == want_k3a, f"the ODE's K3a launches {k3a} == {want_k3a}")
     want_dit = serve_dit(system.spec.dit.depth)
-    log(f"main path launches: K5 {dit_k['K5']}, K6 {dit_k['K6']} (expect {want_dit['K5']}, "
-        f"{want_dit['K6']}: the fused block's two norm sites and its RoPE)")
-    require(dit_k == want_dit, f"the ODE's K5 / K6 launches {dit_k} == {want_dit}")
+    log(f"main path launches: K5 - K8 {dit_k} (expect {want_dit}: the fused block's two "
+        f"norm sites, its RoPE, its SwiGLU gate and its gated merge)")
+    require(dit_k == want_dit, f"the ODE's K5 - K8 launches {dit_k} == {want_dit}")
     if profile:
         profile_run(torch, run, times["end_to_end"] * 1e3)
     return times, counts, k3a, dit_k
@@ -975,8 +981,8 @@ def serve_attention(torch, fa, full_fp32):
     return ms
 
 
-# K5 / K6 at the closed loop's 32 dual rows x 312 tokens: XL (1152, 16 heads
-# of 72) and XXL (1536, 32 heads of 48)
+# K5 - K8 at the closed loop's 32 dual rows x 312 tokens: XL (1152, 16 heads
+# of 72, an FFN of 3072) and XXL (1536, 32 heads of 48, 4096)
 DIT_BLOCK_SHAPES = {"xl_closed_loop": (32, LATENT, 1152, 16, 72),
                     "xxl": (32, LATENT, 1536, 32, 48)}
 
@@ -987,19 +993,25 @@ def dit_block_kernels(torch):
     the serving step launches, with the attention / MLP branch and without
     (block 0's entry; h left as it is), x in bf16 and in fp32 (an int8
     GEMM's input): h' the same bits, a bf16 x within a bf16 ulp of the
-    largest, an fp32 x within 1e-6 of it; K6 the same bits. Each is timed
-    by the card's time per call (profiled_ms: the wrapper's host work per
-    launch is about as long as the kernel, so events around calls queued
+    largest, an fp32 x within 1e-6 of it; K6 and K8 the same bits; K7
+    within a bf16 ulp of the plain version on at most 0.1 % of elements (the
+    share logged: where the card's expf and PyTorch's sigmoid part). Each is
+    timed by the card's time per call (profiled_ms: the wrapper's host work
+    per launch is about as long as the kernel, so events around calls queued
     back to back would time the host; K5 with the branch and a bf16 x)
     beside its plain version and its bound, bytes / 3.35 TB/s (K5: h read
     and written in fp32, the branch read and x written in bf16; K6: the bf16
-    wqkv product read and q, k, v written). Returns {kernel: {shape: {ms,
-    plain_ms, bound_ms, bytes, err}}}, err the largest of K5's bf16 x."""
+    wqkv product read and q, k, v written; K7: the bf16 w13 product read and
+    w2's input written; K8: the self- and cross-attention outputs read and
+    wo's input written, bf16). Returns {kernel: {shape: {ms, plain_ms,
+    bound_ms, bytes, err}}}, err the largest of K5's bf16 x and K7's
+    difference from the plain version."""
     from maa3_tpu_torch.ops import dit_fused as fu
+    from maa3_tpu_torch.ops.ffn import swiglu_hidden_dim
     from maa3_tpu_torch.ops.rope import precompute_rope
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(13)
-    out = {"K5": {}, "K6": {}}
+    out = {k: {} for k in DIT_KERNELS}
     for what, (b, l, d, heads, hd) in DIT_BLOCK_SHAPES.items():
         h = torch.randn(b, l, d, generator=g, device=dev)
         br = torch.randn(b, l, d, generator=g, device=dev).to(torch.bfloat16)
@@ -1047,7 +1059,40 @@ def dit_block_kernels(torch):
                                                                            heads)),
             "bound_ms": nbytes / PEAK_BW * 1e3, "bytes": nbytes, "err": 0.0}
         del qkv, want, got
-        for k in ("K5", "K6"):
+        f = swiglu_hidden_dim(d, 4 * d)
+        x13 = (torch.randn(b, l, 2 * f, generator=g, device=dev) * 3.0).to(torch.bfloat16)
+        want, got = fu.swiglu_plain(x13), fu.swiglu(x13)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        off = (diff > 0).float().mean().item()
+        e = diff.max().item()
+        ulp = torch.ldexp(torch.ones_like(diff),
+                          torch.frexp(want.float().abs().clamp_min(2.0 ** -126))[1] - 8)
+        worst = (diff / ulp).max().item()
+        require(worst <= 1.0 and off <= 1e-3,
+                f"K7 {what}: within a bf16 ulp ({worst:.3f}) of the plain version on "
+                f"{100 * off:.4f} % <= 0.1 % of elements")
+        log(f"fused DiT block ({what}): K7 differs from the plain version on {100 * off:.4f} % "
+            f"of elements, by up to {worst:.3f} ulp")
+        nbytes = 6 * b * l * f
+        out["K7"][what] = {
+            "ms": profiled_ms(torch, lambda: fu.swiglu(x13)),
+            "plain_ms": profiled_ms(torch, lambda: fu.swiglu_plain(x13)),
+            "bound_ms": nbytes / PEAK_BW * 1e3, "bytes": nbytes, "err": e}
+        del x13, want, got, diff
+        o, oy = ((torch.randn(b, heads, l, hd, generator=g, device=dev) * 2.0)
+                 .to(torch.bfloat16) for _ in range(2))
+        gate = torch.randn(heads, generator=g, device=dev)
+        require(torch.equal(fu.gated_merge_heads(o, oy, gate),
+                            fu.gated_merge_heads_plain(o, oy, gate)),
+                f"K8 {what}: the same bits as the plain version")
+        nbytes = 6 * b * l * d
+        out["K8"][what] = {
+            "ms": profiled_ms(torch, lambda: fu.gated_merge_heads(o, oy, gate)),
+            "plain_ms": profiled_ms(torch, lambda: fu.gated_merge_heads_plain(o, oy, gate)),
+            "bound_ms": nbytes / PEAK_BW * 1e3, "bytes": nbytes, "err": 0.0}
+        del o, oy
+        for k in DIT_KERNELS:
             r = out[k][what]
             log(f"fused DiT block ({what}, {(b, l, d)}): {k} {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
@@ -1655,7 +1700,7 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
         server.batcher._process, system.captions = logged_process, logged_captions
         k1.launches = k2.launches = 0  # count exactly the requests below
         for n, bs in enumerate((bodies + other, bodies, bodies)):
-            if n == 1:  # K3a / K5 / K6: rounds 2-3 and the request alone, 25 steps a batch
+            if n == 1:  # K3a / K5 - K8: rounds 2-3 and the request alone, 25 steps a batch
                 fa.launches["K3a"] = 0
                 dit0 = dict(fu.launches)
             h0 = hist()
@@ -1704,7 +1749,7 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
                                                                           odes)
     require(k3a == want_k3a, f"serve: K3a launches {k3a} == {want_k3a} over rounds 2-3 and "
             f"the request alone")
-    require(dit == want_dit, f"serve: K5 / K6 launches {dit} == {want_dit} over rounds 2-3 "
+    require(dit == want_dit, f"serve: K5 - K8 launches {dit} == {want_dit} over rounds 2-3 "
             f"and the request alone")
     diff = np.abs(_pcm(alone[1])[1].astype(np.int32)
                   - _pcm(rounds[1][0][0][1])[1].astype(np.int32)).max()
@@ -1717,7 +1762,7 @@ def serve_from_files(torch, system_mod, music_path, k1, k2):
     log(f"serve: batch 8 of 8.19 s clips: p50 latency {p50 * 1e3:.1f} ms, round walls "
         f"{[round(w * 1e3, 1) for w in walls]} ms, {rate:.2f} s of audio per s; "
         f"launches per batch vocode K1 {launches[0] // n_batches}, "
-        f"K2 {launches[1] // n_batches} ({n_batches} batches); K3a {k3a}, K5 / K6 {dit} over "
+        f"K2 {launches[1] // n_batches} ({n_batches} batches); K3a {k3a}, K5 - K8 {dit} over "
         f"rounds 2-3 and the request alone")
     out.update(p50_ms=p50 * 1e3, audio_s_per_s=rate, launches=launches, k3a=k3a, dit=dit,
                n_batches=n_batches, alone_diff=int(diff), counts=counts)
@@ -2037,7 +2082,7 @@ def check_recipe(steps, vals, logged, waits, peak):
             f"{m['grad_norm']:.4f}, largest parameter change {moved:.3e}, launches {counts}")
         require(counts["K3a"] == 56 and counts["K4a"] == 28,
                 f"recipe micro-step {i + 1}: K3a 56, K4a 28 ({counts})")
-        require(counts["K5"] == counts["K6"] == 0,
+        require(all(counts[k] == 0 for k in DIT_KERNELS),
                 f"recipe micro-step {i + 1}: training runs no fused block ({counts})")
     # an update: its micro-steps (the audio logger's time taken out)
     k = r["accum_steps"]
@@ -2056,7 +2101,7 @@ def check_recipe(steps, vals, logged, waits, peak):
     out, ms, counts, flash, dit = logged[0]
     wavs = sorted(f for f in os.listdir(out) if f.endswith(".wav"))
     log(f"recipe: audio logger at micro-step {r['audio_log_every']}: {len(wavs)} wavs in "
-        f"{ms:.1f} ms, K1 {counts[0]}, K2 {counts[1]}, flash {flash}, K5 / K6 {dit}")
+        f"{ms:.1f} ms, K1 {counts[0]}, K2 {counts[1]}, flash {flash}, K5 - K8 {dit}")
     require(wavs == [f"{i:02d}.wav" for i in range(4)], f"recipe: 4 wavs ({wavs})")
     for w in wavs:
         rate, pcm = wavfile.read(os.path.join(out, w))
@@ -2067,9 +2112,9 @@ def check_recipe(steps, vals, logged, waits, peak):
     require(flash == want, f"recipe: the audio logger's 25-step ODE runs the serving "
             f"route, flash launches {flash} == {want}")
     require(dit == serve_dit(XL_DEPTH), f"recipe: the audio logger's 25-step ODE runs the "
-            f"fused blocks, K5 / K6 launches {dit} == {serve_dit(XL_DEPTH)}")
+            f"fused blocks, K5 - K8 launches {dit} == {serve_dit(XL_DEPTH)}")
     return {"per_update": per_update,
-            "logger_counts": counts + (flash["K3a"], dit["K5"], dit["K6"]),
+            "logger_counts": counts + (flash["K3a"],) + tuple(dit.values()),
             "micro_step_counts": steps[-1][1]}
 
 
@@ -2646,12 +2691,12 @@ def int8_serving(torch, system_mod, config_path, k1, k2, card, profile=False):
         n_mm, dit0 = quant.int_mm_calls, dict(fu.launches)
         z, wav, times = request()
         dit = dit_launches(fu, dit0)
-        counts[mode] = (k1.launches, k2.launches, fa.launches["K3a"], dit["K5"], dit["K6"])
+        counts[mode] = (k1.launches, k2.launches, fa.launches["K3a"]) + tuple(dit.values())
         require(torch.isfinite(z).all() and np.isfinite(wav).all()
                 and wav.shape == (B, 159744) and 0 < np.abs(wav).max() <= 1.0,
                 f"int8 serving {mode}: outputs")
         want = K1_K2_PER_VOCODE + (serve_k3a(XL_DEPTH),) + tuple(serve_dit(XL_DEPTH).values())
-        require(counts[mode] == want, f"int8 serving {mode}: K1/K2/K3a/K5/K6 {counts[mode]} "
+        require(counts[mode] == want, f"int8 serving {mode}: K1/K2/K3a/K5-K8 {counts[mode]} "
                 f"== {want}")
         out[mode] = z.float()
         rel = (z.float() - out[None]).norm().item() / out[None].norm().item()
@@ -2660,8 +2705,8 @@ def int8_serving(torch, system_mod, config_path, k1, k2, card, profile=False):
         log(f"int8 serving ({card}) mode {mode or 'bf16'}: end to end "
             f"{times['end_to_end']:.2f} ms, ODE {times['ode']:.2f} ms, latent rel L2 vs "
             f"bf16 {rel:.3e}, _int_mm launches per request {mm}, K1 {counts[mode][0]} "
-            f"K2 {counts[mode][1]} K3a {counts[mode][2]} K5 {counts[mode][3]} K6 "
-            f"{counts[mode][4]}, serving copy built in {ms:.0f} ms")
+            f"K2 {counts[mode][1]} K3a {counts[mode][2]} K5 - K8 {counts[mode][3:]}, serving "
+            f"copy built in {ms:.0f} ms")
     c16, uc16 = c.repeat(4, 1, 1), uc.repeat(4, 1, 1)
     x16 = torch.randn(16, 20, LATENT, generator=torch.Generator(device="cuda").manual_seed(1),
                       device="cuda")
@@ -2862,8 +2907,8 @@ def eval_generate(torch, system_mod, config_path, k1, k2, d):
     """Phase 15 (b) 1-2: phase 5's XL system turns EVAL_CAPTIONS into 8 clips
     of 10 s (2 x batch 4); their int16 wavs <name>_0.wav, the manifest
     (name, ori_cap, audio_path) and the VAE's mels under d. Returns the
-    manifest and the K1 / K2 launches of the two vocodes and the K3a, K5
-    and K6 launches of the two ODEs."""
+    manifest and the K1 / K2 launches of the two vocodes and the K3a and K5 -
+    K8 launches of the two ODEs."""
     import numpy as np
     from scipy.io import wavfile
     from maa3_tpu_torch.ops import dit_fused as fu, flash_attention as fa
@@ -2896,10 +2941,10 @@ def eval_generate(torch, system_mod, config_path, k1, k2, d):
         dit_launches(fu, dit0).values())
     want = (tuple(2 * n for n in K1_K2_PER_VOCODE) + (serve_k3a(XL_DEPTH, 2),)
             + tuple(serve_dit(XL_DEPTH, 2).values()))
-    require(counts == want, f"eval generation: K1/K2/K3a/K5/K6 {counts} == {want} over 2 "
+    require(counts == want, f"eval generation: K1/K2/K3a/K5-K8 {counts} == {want} over 2 "
             f"vocodes and 2 ODEs")
     log(f"eval flow: {EVAL_CLIPS} clips of 10 s generated in "
-        f"{time.perf_counter() - t:.2f} s (2 x batch {B}, 25 steps), K1 / K2 / K3a / K5 / K6 "
+        f"{time.perf_counter() - t:.2f} s (2 x batch {B}, 25 steps), K1 / K2 / K3a / K5 - K8 "
         f"{counts}")
     tsv = os.path.join(d, "clips.tsv")
     with open(tsv, "w") as f:
@@ -3108,7 +3153,7 @@ def xxl_serve(torch, system_mod, xxl_path, k1, k2, card, mesh):
     """Phase 16 (a): the XXL system as its YAML writes it (random weights from
     the seed, zero-init gates made nonzero), served through shard_serving on
     the 1 x 1 mesh in bf16: 4 prompts x 10 s, 25 steps, guidance 5.0, with
-    the K1 / K2 launches of its vocode and the K3a, K5 and K6 launches of
+    the K1 / K2 launches of its vocode and the K3a and K5 - K8 launches of
     its ODE."""
     import numpy as np
     from maa3_tpu_torch.ops import dit_fused as fu, flash_attention as fa
@@ -3154,10 +3199,10 @@ def xxl_serve(torch, system_mod, xxl_path, k1, k2, card, mesh):
             and 0 < np.abs(wav).max() <= 1.0, "XXL serve: finite outputs of the shapes")
     require(counts == K1_K2_PER_VOCODE, f"XXL serve: K1 / K2 {counts} == {K1_K2_PER_VOCODE}")
     require(k3a == want_k3a, f"XXL serve: the ODE's K3a launches {k3a} == {want_k3a}")
-    require(dit == want_dit, f"XXL serve: the ODE's K5 / K6 launches {dit} == {want_dit}")
+    require(dit == want_dit, f"XXL serve: the ODE's K5 - K8 launches {dit} == {want_dit}")
     log(f"XXL serve (4 x 10 s, 25 steps, bf16, 1 x 1 mesh over NCCL): end to end "
         f"{e2e:.1f} ms, ODE {ode:.1f} ms, peak {peak:.2f} GiB, K1 / K2 {counts}, K3a {k3a}, "
-        f"K5 / K6 {dit}; "
+        f"K5 - K8 {dit}; "
         f"{card}")
     del system
     gc.collect()
@@ -4104,16 +4149,18 @@ def main() -> int:
                                                             "library_ms")}
             entry["xxl_train"]["max_abs_err"] = x["err"]
         kernels.append(entry)
-    # K5 / K6: per Euler step of the XL serving ODE, the launches phase 5
+    # K5 - K8: per Euler step of the XL serving ODE, the launches phase 5
     # counted over its 24 steps (pinned there to 2 x 28 x 24 and 28 x 24),
     # each timed at the closed loop's 32 dual rows x 312, XXL's widths beside
-    for i, (name, src) in enumerate((("K5", "maa3_tpu_torch/csrc/dit_norm.cu"),
-                                     ("K6", "maa3_tpu_torch/csrc/dit_rope.cu")), start=3):
+    for i, (name, fn, src) in enumerate((
+            ("K5", "residual_norm_modulate", "dit_norm.cu"),
+            ("K6", "rope_qkv_heads", "dit_rope.cu"), ("K7", "swiglu", "dit_swiglu.cu"),
+            ("K8", "gated_merge_heads", "dit_merge.cu")), start=3):
         per = serve_ode_dit[name] // SERVE_EULER_STEPS
         xl, xxl = dit_ms[name]["xl_closed_loop"], dit_ms[name]["xxl"]
         kernels.append({
-            "name": f"{name} {'residual_norm_modulate' if name == 'K5' else 'rope_qkv_heads'}",
-            "route": "cuda", "source": src, "replaces": None, "launches": per,
+            "name": f"{name} {fn}", "route": "cuda", "source": f"maa3_tpu_torch/csrc/{src}",
+            "replaces": None, "launches": per,
             "max_abs_err": max(xl["err"], xxl["err"]),
             "ms": xl["ms"] * per, "plain_ms": xl["plain_ms"] * per,
             "bound_ms": xl["bound_ms"] * per, "bound_by": "bytes", "library_ms": None,

@@ -122,6 +122,8 @@ SIGNATURES = {
     "maa3_residual_norm_modulate": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                                           _P)),
     "maa3_rope_qkv_heads": (_I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "maa3_swiglu": (_I, (_P, _P, ctypes.c_longlong, _I, _P)),
+    "maa3_gated_merge_heads": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }
 
 

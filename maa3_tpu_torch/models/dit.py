@@ -20,9 +20,10 @@ layout the flash kernels read) out of the ODE loop, with the same ops as
 self- and cross-attention to the flash forward (K3a) at every length;
 elsewhere it follows JAX's rule. There, with the fp32 residual stream and a
 fused wqkv, it also runs each block as `_fused_block`: the gated residuals,
-RMSNorms and adaLN modulates in K5 and RoPE with the head-major split in K6
-(ops/dit_fused.py), each block's MLP residual added by the next block's
-entry K5; trace.py `counts` counts the block-steps of each route.
+RMSNorms and adaLN modulates in K5, RoPE with the head-major split in K6,
+the gated cross-attention merge with the move to token-major in K8 and the
+SwiGLU gate in K7 (ops/dit_fused.py), each block's MLP residual added by the
+next block's entry K5; trace.py `counts` counts the block-steps of each route.
 `serving_copy` makes the bf16 serving weights: every matmul weight rounded
 to bf16, wq/wk/wv and w1/w3 fused (JAX's cast_matmul_weights +
 fuse_dit_gemms).
@@ -43,9 +44,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from maa3_tpu_torch import trace
 from maa3_tpu_torch.ops.attention import (Attention, Route, attention_apply,
                                           attention_apply_heads, context_kv)
-from maa3_tpu_torch.ops.basic import (RMSNorm, TimestepEmbedder, checkpoint_names,
+from maa3_tpu_torch.ops.basic import (RMSNorm, TimestepEmbedder, checkpoint_names, dense,
                                       layer_norm, linear, modulate, rms_norm, silu)
-from maa3_tpu_torch.ops.dit_fused import residual_norm_modulate
+from maa3_tpu_torch.ops.dit_fused import residual_norm_modulate, swiglu
 from maa3_tpu_torch.ops.ffn import FeedForward, feed_forward_apply
 from maa3_tpu_torch.ops.flash_attention import MAX_HEAD_DIM
 from maa3_tpu_torch.ops.quant import QuantWeight
@@ -134,7 +135,7 @@ def dit_route(cfg, seq_len: int, training: bool = False, *,
     --attn-crossover, bf16, 16 heads of 72; PERF.md). A masked context stays
     dense: K3a gives a fully masked row 0, the dense path the mean of v, and
     finding such rows would cost a host sync. There the blocks run as
-    `_fused_block` (K5 / K6, ops/dit_fused.py) at an even head dim and a
+    `_fused_block` (K5 - K8, ops/dit_fused.py) at an even head dim and a
     width that is a multiple of 8, with the fp32 residual stream and a fused
     wqkv (serving_copy and quant_serving_copy make it), and without tensor
     parallelism, SmoothQuant statistics or qk_norm."""
@@ -410,7 +411,8 @@ def _fused_block(blk: TransformerBlock, cfg: DiTConfig, h, carry: tuple, cos, si
                  y_kv, x_mask, y_mask, compute_dtype, route: Route):
     """One block of the planned serving step on a fused `route`: the
     math of `_block_apply` (forward only, fp32 h), with its token-wise passes
-    in K5 and K6 (ops/dit_fused.py). carry: the previous block's MLP branch
+    in K5 - K8 (ops/dit_fused.py): K5 -> wqkv -> K6 -> K3a self and cross ->
+    K8 -> wo -> K5 -> w13 -> K7 -> w2. carry: the previous block's MLP branch
     and gate, (None, None) before the first block; its residual is added by
     this block's entry K5. h may be updated in place. Returns (h, carry):
     h after the attention residual, and this block's (MLP branch, gate)."""
@@ -426,7 +428,9 @@ def _fused_block(blk: TransformerBlock, cfg: DiTConfig, h, carry: tuple, cos, si
     h, x_ffn_in = residual_norm_modulate(h, h_attn, gate_msa, blk.ffn_norm.weight, shift_mlp,
                                          scale_mlp, cfg.norm_eps,
                                          _gemm_in_dtype(ff.w13, compute_dtype))
-    return h, (feed_forward_apply(ff, x_ffn_in, compute_dtype), gate_mlp)
+    x13 = dense(x_ffn_in, ff.w13, None, compute_dtype, names=("ffn_h1", "ffn_h3"))
+    h_ffn = dense(swiglu(x13), ff.w2.weight, None, compute_dtype, names=("ffn_out",))
+    return h, (h_ffn, gate_mlp)
 
 
 def _gemm_in_dtype(w, compute_dtype) -> torch.dtype:

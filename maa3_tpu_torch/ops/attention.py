@@ -8,9 +8,10 @@ K3a/K3b forward, K4a backward): models/dit.py `dit_route` decides the route
 once per DiT apply, and `_attend` counts each call by route
 (trace.py `counts`). `attention_apply_heads` is the planned serving step's
 fused entry: the fused wqkv product through K6 (ops/dit_fused.py), which
-writes q, k and v rotated and head-major, then the same attention. The
-projections run under JAX's checkpoint names attn_q, attn_k, attn_v (one
-fused wqkv matmul carries all three) and attn_out.
+writes q, k and v rotated and head-major, then the same attention, whose
+gated merge and layout change before wo run in K8. The projections run
+under JAX's checkpoint names attn_q, attn_k, attn_v (one fused wqkv matmul
+carries all three) and attn_out.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from torch import nn
 
 from maa3_tpu_torch import trace
 from maa3_tpu_torch.ops.basic import dense, layer_norm
-from maa3_tpu_torch.ops.dit_fused import rope_qkv_heads
+from maa3_tpu_torch.ops.dit_fused import gated_merge_heads, rope_qkv_heads
 from maa3_tpu_torch.ops.flash_attention import flash_attention
 from maa3_tpu_torch.ops.rope import apply_rope
 
@@ -35,7 +36,7 @@ NEG_INF = -1e9  # finite mask value: no NaN rows for all-masked queries
 class Route:
     """The kernels of one DiT apply (models/dit.py `dit_route`): self- and
     cross-attention on the flash forward or dense, and the planned step's
-    blocks as `_fused_block` (K5 / K6) or `_block_apply`."""
+    blocks as `_fused_block` (K5 - K8) or `_block_apply`."""
     self_flash: bool = False
     cross_flash: bool = False
     fused: bool = False
@@ -157,17 +158,27 @@ def attention_apply_heads(att: Attention, x: torch.Tensor, cos: torch.Tensor,
                           compute_dtype: Optional[torch.dtype] = None,
                           route: Route = Route()) -> torch.Tensor:
     """attention_apply for the planned serving step's fused block
-    (models/dit.py `dit_route`'s `fused`: a fused wqkv, no qk_norm, no tp):
-    the wqkv product goes through K6 (ops/dit_fused.py rope_qkv_heads), which
-    writes q, k and v rotated and head-major, then the same attention."""
+    (models/dit.py `dit_route`'s `fused`: a fused wqkv, no qk_norm, no tp)
+    with the context's y_kv: the wqkv product goes through K6
+    (ops/dit_fused.py rope_qkv_heads), which writes q, k and v rotated and
+    head-major, then `_attend`'s self- and cross-attention, whose gated merge
+    and move to (B, L, H * hd) for wo run in K8 (gated_merge_heads)."""
     n_kv = n_heads if n_kv_heads is None else n_kv_heads
     qkv = dense(x, att.wqkv, None, compute_dtype, names=("attn_q", "attn_k", "attn_v"))
     qh, kh, vh = rope_qkv_heads(qkv, cos, sin, n_heads, n_kv)
+    yk, yv = y_kv
     rep = n_heads // n_kv
     if rep > 1:  # GQA
-        kh = kh.repeat_interleave(rep, dim=1)
-        vh = vh.repeat_interleave(rep, dim=1)
-    return _attend(att, qh, kh, vh, None, y_kv, x_mask, y_mask, rep, compute_dtype, route, None)
+        kh, vh, yk, yv = (t.repeat_interleave(rep, dim=1) for t in (kh, vh, yk, yv))
+    scale = 1.0 / math.sqrt(qh.shape[-1])
+    outs = []
+    for flash, k, v, mask in ((route.self_flash, kh, vh, x_mask),
+                              (route.cross_flash, yk, yv, y_mask)):
+        outs.append(flash_attention(qh, k, v, mask=mask, scale=scale) if flash
+                    else _sdpa(qh, k, v, scale, mask))
+        trace.counts["attn_flash" if flash else "attn_dense"] += 1
+    return dense(gated_merge_heads(*outs, att.gate), att.wo.weight, None, compute_dtype,
+                 names=("attn_out",))
 
 
 def _has_cross(att: Attention, y, y_kv) -> bool:

@@ -1,6 +1,6 @@
-"""K5 / K6: the bf16 serving DiT block's token-wise passes between its GEMMs,
-fused (CUDA C++, csrc/dit_norm.cu and csrc/dit_rope.cu; no TPU counterpart:
-XLA fuses these passes itself).
+"""K5 - K8: the bf16 serving DiT block's token-wise passes between its GEMMs,
+fused (CUDA C++, csrc/dit_norm.cu, dit_rope.cu, dit_merge.cu and
+dit_swiglu.cu; no TPU counterpart: XLA fuses these passes itself).
 
 - `residual_norm_modulate` (K5): the gated residual, RMSNorm and adaLN
   modulate of one site in one pass over the fp32 residual stream, giving the
@@ -9,16 +9,25 @@ XLA fuses these passes itself).
 - `rope_qkv_heads` (K6): RoPE on the fused wqkv product, q, k and v written
   as contiguous head-major (B, heads, L, hd) bf16 tensors, the layout the
   flash forward (K3a) reads.
+- `gated_merge_heads` (K8): K3a's head-major self- and cross-attention
+  outputs merged through the tanh of the cross-attention gate, written
+  token-major (B, L, H * hd) for wo.
+- `swiglu` (K7): the SwiGLU gate silu(x1) * x3 on the fused w13 product,
+  written as w2's bf16 input (an int8 w2 quantizes from it, as it does from
+  the unfused chain's).
 
 The planned serving step runs them in its fused block (models/dit.py
-`_fused_block`, where `dit_route` says so). On a CPU tensor each entry point runs its plain
+`_fused_block` and ops/attention.py `attention_apply_heads`, where
+`dit_route` says so). On a CPU tensor each entry point runs its plain
 PyTorch version; on a CUDA tensor it launches the kernel or raises. The
 plain versions round where the unfused chain rounds (ops/basic.py rms_norm,
 modulate; ops/rope.py apply_rope; the gated residual of models/dit.py
-`_block_apply`), so on the CPU they give its bits and on the card they are
-the kernels' yardstick: K6 gives the same bits, K5 the same h' and an x whose
-sum of squares is added in another order (its mean multiplies by the fp32
-1/D, as torch.mean's reduction does on the card).
+`_block_apply`; ops/attention.py `_attend`'s merge; ops/ffn.py's gate), so
+on the CPU they give its bits and on the card they are the kernels'
+yardstick: K6 and K8 give the same bits, K7 too wherever the card's expf is
+PyTorch's sigmoid's, K5 the same h' and an x whose sum of squares is added
+in another order (its mean multiplies by the fp32 1/D, as torch.mean's
+reduction does on the card).
 """
 
 from __future__ import annotations
@@ -29,9 +38,10 @@ from typing import Optional, Tuple
 import torch
 
 from maa3_tpu_torch import cuda
+from maa3_tpu_torch.ops.basic import silu
 
 # kernel launches by name (chip_smoke and the card tests read them)
-launches = {"K5": 0, "K6": 0}
+launches = {"K5": 0, "K6": 0, "K7": 0, "K8": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +82,23 @@ def rope_qkv_heads_plain(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
         return out.flatten(-2).to(qkv.dtype)
 
     return rot(q), rot(k), v.contiguous()
+
+
+def gated_merge_heads_plain(out: torch.Tensor, out_y: torch.Tensor,
+                            gate: torch.Tensor) -> torch.Tensor:
+    """out, out_y (B, H, L, hd) self- and cross-attention outputs, gate (H,)
+    -> (B, L, H * hd) out + out_y * tanh(gate) in out_y's dtype, each step
+    rounded to it (ops/attention.py `_attend`)."""
+    b, h, l, hd = out.shape
+    g = torch.tanh(gate.float()).to(out_y.dtype)
+    return (out + out_y * g[None, :, None, None]).transpose(1, 2).reshape(b, l, h * hd)
+
+
+def swiglu_plain(x13: torch.Tensor) -> torch.Tensor:
+    """x13 (..., 2F), the fused w13 product -> (..., F) silu(x1) * x3 in its
+    dtype, each step rounded to it (ops/ffn.py feed_forward_apply)."""
+    x1, x3 = x13.chunk(2, dim=-1)
+    return silu(x1) * x3
 
 
 # ---------------------------------------------------------------------------
@@ -156,3 +183,51 @@ def rope_qkv_heads(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     cuda.check(err, "rope_qkv_heads")
     launches["K6"] += 1
     return q, k, v
+
+
+def gated_merge_heads(out: torch.Tensor, out_y: torch.Tensor,
+                      gate: torch.Tensor) -> torch.Tensor:
+    """K8; the contract of gated_merge_heads_plain (the same bits)."""
+    if out.device.type == "cpu":
+        return gated_merge_heads_plain(out, out_y, gate)
+    if out.device.type != "cuda":
+        raise ValueError(f"gated_merge_heads: unsupported device {out.device}")
+    b, h, l, hd = out.shape
+    if any(t.dtype != torch.bfloat16 or not t.is_contiguous() or t.shape != out.shape
+           for t in (out, out_y)):
+        raise ValueError(f"gated_merge_heads: need contiguous bf16 (B, H, L, hd) outputs of "
+                         f"one shape, got {tuple(out.shape)} {out.dtype} and "
+                         f"{tuple(out_y.shape)} {out_y.dtype}")
+    if (gate.shape != (h,) or gate.dtype not in (torch.float32, torch.bfloat16)
+            or not gate.is_contiguous()):
+        raise ValueError(f"gated_merge_heads: gate {tuple(gate.shape)} {gate.dtype} must be "
+                         f"a contiguous fp32 or bf16 ({h},)")
+    merged = torch.empty((b, l, h * hd), dtype=out.dtype, device=out.device)
+    lib = cuda.load()
+    with torch.cuda.device(out.device):
+        err = lib.maa3_gated_merge_heads(
+            out.data_ptr(), out_y.data_ptr(), gate.data_ptr(), merged.data_ptr(), b, l, h, hd,
+            int(gate.dtype == torch.bfloat16), cuda.stream_ptr(out))
+    cuda.check(err, "gated_merge_heads")
+    launches["K8"] += 1
+    return merged
+
+
+def swiglu(x13: torch.Tensor) -> torch.Tensor:
+    """K7; the contract of swiglu_plain."""
+    if x13.device.type == "cpu":
+        return swiglu_plain(x13)
+    if x13.device.type != "cuda":
+        raise ValueError(f"swiglu: unsupported device {x13.device}")
+    f = x13.shape[-1] // 2
+    if x13.dtype != torch.bfloat16 or not x13.is_contiguous() or x13.shape[-1] != 2 * f:
+        raise ValueError(f"swiglu: need a contiguous bf16 (..., 2F) w13 product, got "
+                         f"{tuple(x13.shape)} {x13.dtype}")
+    out = torch.empty((*x13.shape[:-1], f), dtype=x13.dtype, device=x13.device)
+    lib = cuda.load()
+    with torch.cuda.device(x13.device):
+        err = lib.maa3_swiglu(x13.data_ptr(), out.data_ptr(), x13.numel() // (2 * f), f,
+                              cuda.stream_ptr(x13))
+    cuda.check(err, "swiglu")
+    launches["K7"] += 1
+    return out

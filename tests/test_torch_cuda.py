@@ -1484,14 +1484,88 @@ def test_rope_qkv_heads_kernel_is_plain_bit_for_bit(cuda_dev, rows, heads, n_kv,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,l,f", [(32, 312, 3072), (32, 312, 4096), (3, 157, 3072),
+                                      (2, 9, 100)],
+                         ids=["xl", "xxl", "odd_l", "column_path"])
+def test_swiglu_kernel_matches_plain(cuda_dev, rows, l, f):
+    """K7 at the closed loop's XL (32 dual rows x 312, F 3072) and XXL (F
+    4096) shapes, an odd token count and a width that is no multiple of 8
+    (one column a thread): the plain version's bits, or within one bf16 ulp
+    on at most 0.1 % of the elements where the card's expf and PyTorch's
+    sigmoid part (the share printed); contiguous (B, L, F)."""
+    from maa3_tpu_torch.ops import dit_fused as fu
+    g = torch.Generator(device=cuda_dev).manual_seed(14)
+    x13 = (torch.randn(rows, l, 2 * f, generator=g, device=cuda_dev) * 3.0).to(torch.bfloat16)
+    want = fu.swiglu_plain(x13)
+    n = fu.launches["K7"]
+    got = fu.swiglu(x13)
+    torch.cuda.synchronize()
+    assert fu.launches["K7"] == n + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16 and got.is_contiguous()
+    diff = (got.float() - want.float()).abs()
+    off = (diff > 0).float().mean().item()
+    worst = (diff / _bf16_ulp(want)).max().item()
+    print(f"K7 {(rows, l, f)}: differs from the plain version on {100 * off:.4f} % of "
+          f"elements, by up to {worst:.3f} ulp")
+    assert worst <= 1.0 and off <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,l,hd", [(32, 16, 312, 72), (32, 32, 312, 48),
+                                          (3, 8, 157, 24), (2, 4, 9, 6)],
+                         ids=["xl", "xxl", "odd_l", "element_path"])
+@pytest.mark.parametrize("gate_dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_gated_merge_heads_kernel_is_plain_bit_for_bit(cuda_dev, b, heads, l, hd, gate_dtype):
+    """K8 at the closed loop's XL (32 dual rows x 16 heads of 72 x 312) and
+    XXL (32 heads of 48) shapes, the music server's heads of 24 at an odd
+    token count, and a head dim that is no multiple of 8 (one element a
+    thread), with an fp32 and a bf16 gate: the plain version's bits, a
+    contiguous token-major (B, L, H * hd)."""
+    from maa3_tpu_torch.ops import dit_fused as fu
+    g = torch.Generator(device=cuda_dev).manual_seed(15)
+    out, out_y = ((torch.randn(b, heads, l, hd, generator=g, device=cuda_dev) * 2.0)
+                  .to(torch.bfloat16) for _ in range(2))
+    gate = torch.randn(heads, generator=g, device=cuda_dev).to(gate_dtype)
+    want = fu.gated_merge_heads_plain(out, out_y, gate)
+    n = fu.launches["K8"]
+    got = fu.gated_merge_heads(out, out_y, gate)
+    torch.cuda.synchronize()
+    assert fu.launches["K8"] == n + 1
+    assert got.is_contiguous() and got.shape == (b, l, heads * hd) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_swiglu_and_merge_refuse_what_they_do_not_take(cuda_dev):
+    """The C entries refuse a non-positive width or head dim (and return
+    their cudaError); the wrappers raise on a dtype, a layout or a gate the
+    kernels do not take."""
+    from maa3_tpu_torch import cuda
+    from maa3_tpu_torch.ops import dit_fused as fu
+    x = torch.zeros(2, 4, 16, dtype=torch.bfloat16, device=cuda_dev)
+    lib = cuda.load()
+    assert lib.maa3_swiglu(x.data_ptr(), x.data_ptr(), 8, 0, cuda.stream_ptr(x)) != 0
+    assert lib.maa3_gated_merge_heads(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                      1, 4, 2, 0, 0, cuda.stream_ptr(x)) != 0
+    with pytest.raises(ValueError, match="bf16"):
+        fu.swiglu(x.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        fu.swiglu(x.transpose(1, 2))
+    o = x.reshape(1, 2, 4, 16)
+    with pytest.raises(ValueError, match="one shape"):
+        fu.gated_merge_heads(o, o.transpose(2, 3), torch.zeros(2, device=cuda_dev))
+    with pytest.raises(ValueError, match="gate"):
+        fu.gated_merge_heads(o, o, torch.zeros(3, device=cuda_dev))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("width,heads,depth", [(1152, 16, 28), (1536, 32, 32)],
                          ids=["xl", "xxl"])
 def test_planned_step_on_the_fused_blocks_matches_the_unfused_route(cuda_dev, monkeypatch,
                                                                     width, heads, depth):
     """XL (28 blocks of 1152, 16 heads of 72) and XXL (32 of 1536, 32 heads
     of 48) as bf16 serving copies with the fp32 residual stream, one planned
-    step at 16 rows: the fused blocks (K5 twice and K6 once a block, every
-    launch's return code checked by its wrapper) against the same copy on
+    step at 16 rows: the fused blocks (K5 twice and K6, K7, K8 once a block,
+    every launch's return code checked by its wrapper) against the same copy on
     `_block_apply`, both held to the copy's step in fp32, with the planned
     route test's tolerance: the fused gap may not exceed the unfused one by
     more than a quarter, and the two lie within 1 % of each other."""
@@ -1520,7 +1594,8 @@ def test_planned_step_on_the_fused_blocks_matches_the_unfused_route(cuda_dev, mo
     torch.cuda.synchronize()
     assert trace.counts_since(since) == {"attn_flash": 2 * depth, "attn_dense": 0,
                                          "dit_fused": depth, "dit_plain": 0}
-    assert fu.launches == {"K5": n["K5"] + 2 * depth, "K6": n["K6"] + depth}
+    assert fu.launches == {"K5": n["K5"] + 2 * depth, "K6": n["K6"] + depth,
+                           "K7": n["K7"] + depth, "K8": n["K8"] + depth}
     with full_fp32():
         ref = step(torch.float32)
     route = tdit.dit_route

@@ -1,5 +1,5 @@
 """The planned serving step's fused block (models/dit.py `_fused_block`;
-ops/dit_fused.py K5 / K6) on the CPU: each plain version against the
+ops/dit_fused.py K5 - K8) on the CPU: each plain version against the
 unfused chain it replaces, bit for bit; the fused block loop with its
 carried residual, through the plain versions, against the `_block_apply`
 loop on small DiTs, bit for bit; the block-step counts. Which applies take
@@ -13,7 +13,8 @@ import torch
 from maa3_tpu_torch import trace
 from maa3_tpu_torch.models import dit as tdit
 from maa3_tpu_torch.ops import dit_fused as fu
-from maa3_tpu_torch.ops.basic import modulate, rms_norm
+from maa3_tpu_torch.ops.basic import modulate, rms_norm, silu
+from maa3_tpu_torch.ops.ffn import FeedForward, feed_forward_apply
 from maa3_tpu_torch.ops.rope import apply_rope, precompute_rope
 
 torch.set_num_threads(2)
@@ -70,6 +71,61 @@ def test_rope_qkv_heads_plain_is_the_unfused_chain(b, l, heads, n_kv, hd):
     assert fu.launches == n
 
 
+# (batch, tokens, heads, head dim): XL's heads of 72, XXL's of 48, the music
+# server's of 24, odd token counts
+MERGE_SHAPES = [(2, 31, 4, 72), (3, 12, 8, 48), (2, 9, 6, 24), (1, 5, 2, 6)]
+
+
+@pytest.mark.parametrize("b,l,heads,hd", MERGE_SHAPES)
+@pytest.mark.parametrize("gate_dtype", [torch.float32, BF16])
+def test_gated_merge_heads_plain_is_the_unfused_chain(b, l, heads, hd, gate_dtype):
+    """K8's plain version gives the bits of ops/attention.py `_attend`'s
+    gated merge (the gate's tanh in fp32 cast to bf16, the broadcast product,
+    the sum) and its `transpose(1, 2).reshape` to wo's (B, L, H * hd) input;
+    the gate an fp32 leaf (serving copies) or bf16. Through the entry point
+    on the CPU: no launch."""
+    g = torch.Generator().manual_seed(2)
+    out, out_y = ((torch.randn(b, heads, l, hd, generator=g) * 2.0).to(BF16) for _ in range(2))
+    gate = torch.randn(heads, generator=g).to(gate_dtype)
+    n = dict(fu.launches)
+    got = fu.gated_merge_heads(out, out_y, gate)
+    tg = torch.tanh(gate.float()).to(out_y.dtype)
+    want = (out + out_y * tg[None, :, None, None]).transpose(1, 2).reshape(b, l, heads * hd)
+    assert got.shape == (b, l, heads * hd) and got.dtype == BF16 and got.is_contiguous()
+    assert torch.equal(got, want) and torch.equal(fu.gated_merge_heads_plain(out, out_y, gate),
+                                                  want)
+    assert fu.launches == n
+
+
+# (batch, tokens, width, multiple_of): XL's FFN (1152 -> 3072) and XXL's
+# (1536 -> 4096) at few tokens, an odd count, a narrow FFN (64 -> 176)
+SWIGLU_SHAPES = [(2, 5, 1152, 256), (1, 3, 1536, 256), (3, 7, 64, 16)]
+
+
+@pytest.mark.parametrize("b,l,d,multiple_of", SWIGLU_SHAPES)
+def test_swiglu_plain_is_the_unfused_chain(b, l, d, multiple_of):
+    """K7's plain version on a bf16 serving copy's fused w13 product gives
+    the bits of ops/ffn.py's `silu(x1) * x3` on its `chunk` halves, and w2
+    on it the bits of feed_forward_apply. Through the entry point on the
+    CPU: no launch."""
+    g = torch.Generator().manual_seed(4)
+    ff = FeedForward(d, 4 * d, multiple_of)
+    f = ff.w2.weight.shape[1]
+    for lin in (ff.w1, ff.w2, ff.w3):
+        lin.weight.data = (torch.randn(lin.weight.shape, generator=g)
+                           * lin.weight.shape[1] ** -0.5).to(BF16)
+    ff.w13 = torch.cat([ff.w1.weight, ff.w3.weight])
+    x = (torch.randn(b, l, d, generator=g) * 2.0).to(BF16)
+    x13 = x @ ff.w13.t()
+    n = dict(fu.launches)
+    got = fu.swiglu(x13)
+    x1, x3 = x13.chunk(2, dim=-1)
+    assert got.shape == (b, l, f) and got.dtype == BF16 and got.is_contiguous()
+    assert torch.equal(got, silu(x1) * x3) and torch.equal(fu.swiglu_plain(x13), got)
+    assert torch.equal(got @ ff.w2.weight.t(), feed_forward_apply(ff, x, BF16))
+    assert fu.launches == n
+
+
 def test_kernel_entries_raise_off_the_cpu_and_the_card():
     h, branch, mods, w = _stream(1, 4, 16)
     shift, scale, gate = mods.chunk(6, dim=-1)[:3]
@@ -79,6 +135,11 @@ def test_kernel_entries_raise_off_the_cpu_and_the_card():
     cos, sin = precompute_rope(8, 4)
     with pytest.raises(ValueError, match="unsupported device"):
         fu.rope_qkv_heads(torch.empty(1, 4, 24, dtype=BF16, device=meta), cos, sin, 1, 1)
+    o = torch.empty(1, 2, 4, 8, dtype=BF16, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fu.gated_merge_heads(o, o, torch.zeros(2, device=meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fu.swiglu(torch.empty(1, 4, 32, dtype=BF16, device=meta))
 
 
 def _dit(seed=3, **over):
@@ -108,7 +169,7 @@ def _planned(dit, gen, b=3, t=24, ly=7, y_mask=None):
 @pytest.mark.parametrize("over", [{}, {"n_kv_heads": 2}, {"hidden_size": 96, "num_heads": 2}])
 def test_fused_block_loop_is_the_block_apply_loop_on_the_cpu(monkeypatch, attn, over):
     """A bf16 serving copy with the fp32 residual stream, one planned step:
-    the fused loop forced onto the CPU (K5 / K6 through their plain
+    the fused loop forced onto the CPU (K5 - K8 through their plain
     versions, each block's MLP residual carried into the next block's entry)
     gives the bits of the `_block_apply` loop, on the dense attention route
     and on the flash route (its plain versions); GQA and heads of 48
